@@ -1,0 +1,2 @@
+"""Tensor ops of the port.  ``nms`` and ``roi`` dispatch to the CUDA kernels
+for CUDA tensors and to their plain versions for CPU tensors."""

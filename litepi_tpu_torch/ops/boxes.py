@@ -1,0 +1,41 @@
+"""Box coordinate math on ``(..., 4)`` xyxy tensors."""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-6  # the reference's IoU denominator epsilon
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    """Area of xyxy boxes, clamped at zero."""
+    w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0.0)
+    h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=0.0)
+    return w * h
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU between ``a`` (..., M, 4) and ``b`` (..., N, 4) ->
+    (..., M, N), with the reference's +eps denominator.
+
+    Areas are clamped at zero, as the NMS kernel clamps them; the JAX
+    package's ``box_iou`` does not, which differs only for boxes with
+    x2 < x1 or y2 < y1 (DFL decode never emits them).
+    """
+    a = a[..., :, None, :]
+    b = b[..., None, :, :]
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a) + box_area(b) - inter + EPS
+    return inter / union
+
+
+def clip_boxes(boxes: torch.Tensor, w, h) -> torch.Tensor:
+    """Clip xyxy boxes to [0, w] x [0, h] (scalar bounds)."""
+    x1 = torch.clamp(boxes[..., 0], 0.0, float(w))
+    y1 = torch.clamp(boxes[..., 1], 0.0, float(h))
+    x2 = torch.clamp(boxes[..., 2], 0.0, float(w))
+    y2 = torch.clamp(boxes[..., 3], 0.0, float(h))
+    return torch.stack([x1, y1, x2, y2], dim=-1)

@@ -1,0 +1,3 @@
+from litepi_tpu_torch.pipeline.two_stage import TwoStagePipeline
+
+__all__ = ["TwoStagePipeline"]

@@ -1,0 +1,300 @@
+"""The fused two-stage detect -> crop -> classify pipeline in PyTorch.
+
+:meth:`TwoStagePipeline.run_fused` reproduces the JAX package's fused
+serving program stage for stage: letterbox -> stem-input fold -> detector
+-> DFL decode + top-K -> NMS (kernel) -> per-frame crop budget ->
+un-letterbox, clip, min-area -> ROI crop (kernel) -> global classifier
+budget -> ShuffleNetV2 -> softmax.  Shapes are static: NMS emits
+``max_detections`` padded slots and ``valid`` masks the real ones.
+
+On a CUDA device the NMS and ROI crop run as the hand-written kernels in
+``csrc/``; on the CPU (``device="cpu"``, the tests) their plain versions
+run.  The staged ``detect`` / ``detect_candidates`` / ``classify`` programs
+of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from litepi_tpu_torch.core.device import resolve_device
+from litepi_tpu_torch.core.types import PipelineConfig
+from litepi_tpu_torch.models import YoloLitePi, build_classifier
+from litepi_tpu_torch.models.registry import CLASSIFIER_BN_EPS
+from litepi_tpu_torch.ops.anchors import make_anchors
+from litepi_tpu_torch.ops.boxes import box_area, clip_boxes
+from litepi_tpu_torch.ops.dfl import decode_candidates, topk_stable
+from litepi_tpu_torch.ops.letterbox import letterbox_nchw, letterbox_params
+from litepi_tpu_torch.ops.nms import nms_sorted
+from litepi_tpu_torch.ops.roi import crop_and_resize, crop_and_resize_pyramid
+from litepi_tpu_torch.weights.fold_bn import (
+    BN_EPS,
+    fold_pipeline_state,
+    fold_stem_input,
+)
+from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _lecun_normal_(model: nn.Module, gen: torch.Generator) -> None:
+    """Seeded init: conv/linear weights N(0, 1/fan_in), biases 0; BatchNorm
+    keeps its identity init (scale 1, bias 0, mean 0, var 1)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            with torch.no_grad():
+                m.weight.copy_(
+                    torch.randn(m.weight.shape, generator=gen) / math.sqrt(fan_in)
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+class TwoStagePipeline:
+    """Holds the deploy-form models and runs the fused program.
+
+    ``det_state`` / ``cls_state`` are ``state_dict``s of
+    :class:`~litepi_tpu_torch.models.YoloLitePi` and the classifier, with
+    BatchNorm (folded here: eps 1e-3 / 1e-5) or already deploy-form.
+    ``dtype`` is float32 or bfloat16: weights and activations take it,
+    decode and softmax run in float32.  A float32 pipeline on the card
+    turns TF32 off for cuDNN convs and matmuls (process-wide), because
+    float32 here means float32, as on the JAX side.
+    """
+
+    def __init__(
+        self,
+        cfg: PipelineConfig,
+        det_state: StateDict,
+        cls_state: StateDict,
+        dtype: torch.dtype = torch.float32,
+        device="cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if cfg.roi_impl == "windowed":
+            raise NotImplementedError(
+                "roi_impl='windowed' is not ported (ROADMAP queue 1, M6); "
+                "use 'dense' or 'pallas'"
+            )
+        if cfg.roi_impl not in ("dense", "pallas"):
+            raise ValueError(f"unknown roi_impl {cfg.roi_impl!r}")
+        self.cfg = cfg
+        self.dtype = dtype
+        if dtype == torch.float32 and self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        det_state = fold_pipeline_state(det_state, BN_EPS)
+        self.det_model = self._place(YoloLitePi(cfg.detector, fused=True), det_state)
+        # the port always runs the deploy form, so the fused program feeds
+        # raw 0-255 letterbox pixels in the host's colour order to a stem
+        # whose kernel has the 1/255 scale and the BGR->RGB flip folded in
+        # (weights/fold_bn.py)
+        self._stem_input_foldable = True
+        raw_stem = copy.deepcopy(self.det_model.backbone.stem)
+        with torch.no_grad():
+            raw_stem.conv.weight.copy_(
+                fold_stem_input(
+                    det_state["backbone.stem.conv.weight"].float(),
+                    1.0 / 255.0,
+                    cfg.input_color == "bgr",
+                )
+            )
+        self._raw_stem = raw_stem
+
+        cls_state = fold_pipeline_state(cls_state, CLASSIFIER_BN_EPS)
+        self.cls_model = self._place(
+            build_classifier(
+                cfg.classifier_arch, cfg.num_classifier_classes, fused=True
+            ),
+            cls_state,
+        )
+        self.cls_model.fc.float()  # the JAX classifier's Dense is float32
+
+        pts, strides = make_anchors(cfg.det_input_size, cfg.detector.strides)
+        self._anchors = torch.as_tensor(pts, device=self.device)
+        self._strides = torch.as_tensor(strides, device=self.device)
+        self._mean = torch.tensor(cfg.cls_mean, dtype=torch.float32, device=self.device)
+        self._std = torch.tensor(cfg.cls_std, dtype=torch.float32, device=self.device)
+
+    def _place(self, model: nn.Module, state: StateDict) -> nn.Module:
+        model.load_state_dict(state)
+        return model.eval().to(device=self.device, dtype=self.dtype)
+
+    # ------------------------------------------------------------------ #
+    # construction helpers                                                #
+    # ------------------------------------------------------------------ #
+
+    @classmethod
+    def initialize(
+        cls,
+        cfg: PipelineConfig,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+        device="cuda",
+    ) -> "TwoStagePipeline":
+        """A pipeline with freshly initialised (untrained) weights drawn from
+        ``torch.Generator`` seeds ``seed`` (detector) and ``seed + 1``
+        (classifier)."""
+        resolve_device(device)
+        det = YoloLitePi(cfg.detector)
+        clf = build_classifier(cfg.classifier_arch, cfg.num_classifier_classes)
+        _lecun_normal_(det, torch.Generator().manual_seed(seed))
+        _lecun_normal_(clf, torch.Generator().manual_seed(seed + 1))
+        return cls(cfg, det.state_dict(), clf.state_dict(), dtype, device)
+
+    @classmethod
+    def from_jax_vars(
+        cls,
+        cfg: PipelineConfig,
+        det_vars,
+        cls_vars,
+        dtype: torch.dtype = torch.float32,
+        device="cuda",
+    ) -> "TwoStagePipeline":
+        """A pipeline on the JAX package's variables (numpy trees, folded
+        or not) through ``weights/jax_bridge.py``."""
+        resolve_device(device)
+        return cls(
+            cfg, jax_to_state_dict(det_vars), jax_to_state_dict(cls_vars),
+            dtype, device,
+        )
+
+    # ------------------------------------------------------------------ #
+    # stages                                                              #
+    # ------------------------------------------------------------------ #
+
+    # Each stage below is one step of run_fused, in its order; the stage
+    # timing tool (tools/stage_split.py) calls the same methods.
+
+    def _letterbox(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 -> (B, 3, S, S) letterboxed canvas, 0-255."""
+        return letterbox_nchw(frames, self.cfg.det_input_size, self.dtype)
+
+    def _detect(self, canvas: torch.Tensor) -> torch.Tensor:
+        """Canvas -> head output (B, A, 4*reg_max + nc) through the stem with
+        the input scale and colour flip folded in."""
+        return self.det_model(self._raw_stem(canvas), from_stem=True)
+
+    def _candidates(self, head: torch.Tensor):
+        """DFL decode + top-K: boxes (B, K, 4), scores (B, K), class ids."""
+        cfg = self.cfg
+        return decode_candidates(
+            head, self._anchors, self._strides, cfg.detector.reg_max,
+            cfg.nms.max_candidates, cfg.candidate_selector,
+        )
+
+    def _suppress(self, boxes, scores, class_ids, conf: float):
+        """NMS (kernel on the card), then the per-frame crop budget."""
+        nms_cfg = self.cfg.nms
+        b, s, c, v = nms_sorted(
+            boxes, scores, class_ids, conf, nms_cfg.iou_threshold,
+            nms_cfg.max_detections,
+        )
+        d2 = self.cfg.crop_det_budget
+        if d2 and d2 < nms_cfg.max_detections:
+            # slots are score-descending, so the budget is a static slice
+            # taken before every later stage
+            b, s, c, v = b[:, :d2], s[:, :d2], c[:, :d2], v[:, :d2]
+        return b, s, c, v
+
+    def _unmap(self, boxes, valid, h: int, w: int, area_scale=None):
+        """Letterbox boxes -> clipped frame pixels; ``valid`` loses the
+        boxes under ``min_area`` (areas times ``area_scale`` (B,) if given)."""
+        ratio, dw, dh, _, _ = letterbox_params(h, w, self.cfg.det_input_size)
+        # true division by a device tensor, as XLA divides (a CUDA divide by
+        # a Python float multiplies by 1/ratio)
+        shift = torch.tensor([dw, dh, dw, dh], dtype=torch.float32, device=self.device)
+        ratio_t = torch.tensor(ratio, dtype=torch.float32, device=self.device)
+        orig_boxes = clip_boxes((boxes - shift) / ratio_t, w, h)
+        area = box_area(orig_boxes)
+        if area_scale is not None:
+            scale = torch.as_tensor(area_scale, dtype=torch.float32).to(self.device)
+            area = area * scale[:, None]
+        return orig_boxes, valid & (area >= self.cfg.nms.min_area)
+
+    def _crop(self, frames, boxes, valid) -> torch.Tensor:
+        """ROI crop (kernel on the card) -> (B, D, c, c, 3) float32 in [0, 1]."""
+        size = self.cfg.cls_input_size
+        if self.cfg.roi_impl == "pallas":
+            crops = crop_and_resize_pyramid(frames, boxes, valid, size)
+        else:
+            crops = crop_and_resize(frames, boxes, valid, size)
+        return crops * (1.0 / 255.0)
+
+    def _classify(self, crops01: torch.Tensor) -> torch.Tensor:
+        """(N, c, c, 3) float32 crops in [0, 1], host colour order ->
+        (N, num_classes) float32 probabilities."""
+        if self.cfg.input_color == "bgr":
+            crops01 = crops01.flip(-1)
+        x = (crops01 - self._mean) / self._std
+        logits = self.cls_model(x.permute(0, 3, 1, 2))
+        return torch.softmax(logits.float(), dim=-1)
+
+    def _classify_budgeted(self, crops, scores, valid):
+        """Classifier under ``cls_crop_budget``: (B, D, classes) probabilities
+        and ``valid`` cleared where a crop went unclassified."""
+        n, d = crops.shape[0], crops.shape[1]
+        flat = crops.reshape(n * d, *crops.shape[2:])
+        budget = self.cfg.cls_crop_budget
+        if not budget or budget >= n * d:
+            return self._classify(flat).reshape(n, d, -1), valid
+        # global compaction: rank every slot by detection score (invalid
+        # slots tie at -1; the stable sort takes the lowest indices, as
+        # jax.lax.top_k does), classify the top ``budget`` crops and scatter
+        # the probabilities back
+        _, sel = topk_stable(torch.where(valid, scores, -1.0).reshape(n * d), budget)
+        sel_probs = self._classify(flat[sel])
+        probs = torch.zeros(
+            (n * d, sel_probs.shape[-1]), dtype=sel_probs.dtype, device=self.device
+        )
+        probs[sel] = sel_probs
+        kept = torch.zeros(n * d, dtype=torch.bool, device=self.device)
+        kept[sel] = True
+        return probs.reshape(n, d, -1), valid & kept.reshape(n, d)
+
+    @torch.inference_mode()
+    def run_fused(
+        self,
+        frames,
+        conf_threshold: Optional[float] = None,
+        area_scale=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Full two-stage pipeline on raw same-resolution frames.
+
+        frames: (B, H, W, 3) uint8 (numpy or tensor) in ``cfg.input_color``
+        order.  ``area_scale`` (B,): per-frame multiplier of box areas
+        before the min-area floor.  Returns tensors on the pipeline's
+        device: boxes (B, D, 4) in frame pixels, det_scores (B, D),
+        det_class_ids (B, D) int32, valid (B, D) bool, cls_probs
+        (B, D, classes), cls_labels (B, D) int32, cls_scores (B, D), with D
+        = ``max_detections`` or ``crop_det_budget``.
+        """
+        conf = self.cfg.benchmark_conf if conf_threshold is None else conf_threshold
+        frames = torch.as_tensor(frames).to(self.device).contiguous()
+        if frames.dtype != torch.uint8 or frames.dim() != 4:
+            raise ValueError("frames must be (B, H, W, 3) uint8")
+        h, w = int(frames.shape[1]), int(frames.shape[2])
+
+        head = self._detect(self._letterbox(frames))
+        b, s, c, v = self._suppress(*self._candidates(head), conf)
+        orig_boxes, v = self._unmap(b, v, h, w, area_scale)
+        probs, v = self._classify_budgeted(self._crop(frames, orig_boxes, v), s, v)
+        return {
+            "boxes": orig_boxes,
+            "det_scores": s,
+            "det_class_ids": c,
+            "valid": v,
+            "cls_probs": probs,
+            "cls_labels": probs.argmax(dim=-1).to(torch.int32),
+            "cls_scores": probs.amax(dim=-1),
+        }
+

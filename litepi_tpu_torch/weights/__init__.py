@@ -1,0 +1,13 @@
+from litepi_tpu_torch.weights.fold_bn import (
+    fold_batchnorm,
+    fold_pipeline_state,
+    fold_stem_input,
+)
+from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
+
+__all__ = [
+    "fold_batchnorm",
+    "fold_pipeline_state",
+    "fold_stem_input",
+    "jax_to_state_dict",
+]

@@ -1,0 +1,173 @@
+"""The port's CUDA kernels against their plain versions on the card, and the
+wrappers' contract off it (litepi_tpu_torch/kernels).
+
+Tests marked ``gpu`` need a CUDA device and skip without one; on a machine
+with a card (which need not have JAX) run them with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+
+This file imports nothing of JAX or of the JAX package.
+"""
+
+import pytest
+import torch
+
+from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
+from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
+from litepi_tpu_torch.kernels.roi import roi_crop_cuda
+from litepi_tpu_torch.ops.nms import suppress, suppress_sorted
+from litepi_tpu_torch.ops.roi import (
+    EXACT_EXTENT,
+    build_pyramid,
+    crop_and_resize,
+    crop_and_resize_plain,
+    crop_and_resize_pyramid,
+    pyramid_scales,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _nms_inputs(gen, b, k, num_classes, dev):
+    xy = torch.rand((b, k, 2), generator=gen, device=dev) * 300
+    wh = 4 + torch.rand((b, k, 2), generator=gen, device=dev) * 150
+    boxes = torch.cat([xy, xy + wh], -1).contiguous()
+    cls = torch.randint(0, num_classes, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    valid = torch.rand((b, k), generator=gen, device=dev) < 0.8
+    return boxes, cls, valid
+
+
+# ---- off the card: the wrappers' checks and the CPU dispatch -----------
+
+
+def test_wrappers_reject_cpu_tensors():
+    boxes = torch.zeros((1, 8, 4))
+    cls = torch.zeros((1, 8), dtype=torch.int32)
+    valid = torch.ones((1, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="must be on"):
+        nms_suppress_cuda(boxes, cls, valid, 0.45)
+    frames = torch.zeros((1, 16, 16, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="uint8 on"):
+        roi_crop_cuda([frames], boxes[:, :2], valid[:, :2], 8, EXACT_EXTENT, "dense")
+    with pytest.raises(ValueError, match="mode"):
+        roi_crop_cuda([frames], boxes[:, :2], valid[:, :2], 8, EXACT_EXTENT, "other")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    reset_launch_counts()
+    gen = torch.Generator().manual_seed(0)
+    boxes, cls, valid = _nms_inputs(gen, 2, 32, 2, "cpu")
+    assert torch.equal(suppress(boxes, valid, cls, 0.45),
+                       suppress_sorted(boxes, valid, cls, 0.45))
+    frames = torch.randint(0, 256, (2, 40, 50, 3), generator=gen, dtype=torch.uint8)
+    out = crop_and_resize(frames, boxes[:, :4] / 8, valid[:, :4], 16)
+    assert out.shape == (2, 4, 16, 16, 3)
+    assert launch_counts() == {k: 0 for k in LAUNCHES}
+
+
+# ---- on the card --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, MAX_K])
+@pytest.mark.parametrize("num_classes", [1, 3, 91])
+def test_nms_kernel_bit_equal(cuda, k, num_classes):
+    gen = torch.Generator(device=cuda).manual_seed(k * 100 + num_classes)
+    boxes, cls, valid = _nms_inputs(gen, 7, k, num_classes, cuda)
+    before = LAUNCHES["nms_suppress"]
+    got = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    assert LAUNCHES["nms_suppress"] == before + 1
+    want = suppress_sorted(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the plain version on the card equals the plain version on the CPU
+    assert torch.equal(
+        want.cpu(), suppress_sorted(boxes.cpu(), valid.cpu(), cls.cpu(), 0.45)
+    )
+
+
+@pytest.mark.gpu
+def test_nms_kernel_edges(cuda):
+    boxes = torch.zeros((2, 16, 4), device=cuda)
+    cls = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    none = torch.zeros((2, 16), dtype=torch.bool, device=cuda)
+    assert not nms_suppress_cuda(boxes, cls, none, 0.45).any()
+    # identical boxes: the first valid one survives
+    boxes[..., 2:] = 10.0
+    valid = torch.ones((2, 16), dtype=torch.bool, device=cuda)
+    keep = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    assert keep[:, 0].all() and not keep[:, 1:].any()
+    with pytest.raises(ValueError, match="MAX_K"):
+        big = torch.zeros((1, MAX_K + 1, 4), device=cuda)
+        nms_suppress_cuda(big, torch.zeros((1, MAX_K + 1), dtype=torch.int32, device=cuda),
+                          torch.ones((1, MAX_K + 1), dtype=torch.bool, device=cuda), 0.45)
+
+
+def _roi_inputs(gen, b, d, h, w, dev):
+    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
+    x1 = torch.rand((b, d), generator=gen, device=dev) * w - 5
+    y1 = torch.rand((b, d), generator=gen, device=dev) * h - 5
+    ext = torch.exp(torch.rand((b, d, 2), generator=gen, device=dev) * 6.0) - 1.0
+    boxes = torch.stack([x1, y1, x1 + ext[..., 0], y1 + ext[..., 1]], -1).contiguous()
+    valid = torch.rand((b, d), generator=gen, device=dev) < 0.85
+    return frames, boxes, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(64, 80), (480, 640), (1080, 1920)])
+def test_roi_kernel_dense_and_pyramid(cuda, hw):
+    """Tolerance 1e-3 on 0-255 values; both round every product and sum once
+    in the same order, so 0 is expected."""
+    gen = torch.Generator(device=cuda).manual_seed(hw[0])
+    frames, boxes, valid = _roi_inputs(gen, 3, 9, *hw, cuda)
+    got = crop_and_resize(frames, boxes, valid, 64)
+    want = crop_and_resize_plain([frames], boxes, valid, 64)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    levels = build_pyramid(frames, len(pyramid_scales(*hw)))
+    got = crop_and_resize_pyramid(frames, boxes, valid, 64)
+    want = crop_and_resize_plain(levels, boxes, valid, 64)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    assert (got[~valid] == 0).all()
+    # the plain version on the card equals the plain version on the CPU
+    cpu = crop_and_resize_plain([l.cpu() for l in levels], boxes.cpu(), valid.cpu(), 64)
+    torch.testing.assert_close(want.cpu(), cpu, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_roi_kernel_empty_budget(cuda):
+    frames = torch.zeros((2, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    out = crop_and_resize(frames, torch.zeros((2, 0, 4), device=cuda),
+                          torch.zeros((2, 0), dtype=torch.bool, device=cuda), 64)
+    assert out.shape == (2, 0, 64, 64, 3)
+
+
+@pytest.mark.gpu
+def test_pipeline_on_the_card_launches_both_kernels(cuda):
+    import dataclasses
+
+    from litepi_tpu_torch.core.types import DetectorConfig, NMSConfig, PipelineConfig
+    from litepi_tpu_torch.pipeline import TwoStagePipeline
+
+    cfg = PipelineConfig(
+        detector=DetectorConfig(
+            name="tiny", base_channels=(32, 64, 128, 256, 512), input_size=160
+        ),
+        nms=NMSConfig(max_candidates=128, max_detections=8, min_area=4.0),
+        num_classifier_classes=10,
+        det_input_size=160,
+    )
+    frames = torch.randint(0, 256, (2, 200, 300, 3), dtype=torch.uint8)
+    reset_launch_counts()
+    for roi_impl in ("dense", "pallas"):
+        pipe = TwoStagePipeline.initialize(
+            dataclasses.replace(cfg, roi_impl=roi_impl), device=cuda
+        )
+        out = pipe.run_fused(frames, 0.001)
+        assert out["boxes"].is_cuda and out["cls_probs"].shape == (2, 8, 10)
+    counts = launch_counts()
+    assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1}

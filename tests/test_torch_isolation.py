@@ -1,0 +1,67 @@
+"""The port stands alone: importing it (and chip_smoke.py) pulls in neither
+JAX nor any module of the JAX package, and its entry points refuse to fall
+back to the CPU on their own."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import litepi_tpu_torch, litepi_tpu_torch.pipeline
+for m in pkgutil.walk_packages(litepi_tpu_torch.__path__, "litepi_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax") or m.startswith(("jax.", "flax.", "litepi_tpu."))
+             or m == "litepi_tpu")
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_no_jax_import_statements():
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|litepi_tpu)\b")
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "litepi_tpu_torch").rglob("*.py"))]
+    hits = [
+        f"{f.relative_to(ROOT)}:{i}"
+        for f in files
+        for i, line in enumerate(f.read_text().splitlines(), 1)
+        if pattern.match(line)
+    ]
+    assert not hits
+
+
+def test_entry_points_default_to_the_card():
+    from litepi_tpu_torch.core import types
+    from litepi_tpu_torch.pipeline import TwoStagePipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = types.PipelineConfig(
+        detector=types.DetectorConfig(
+            name="tiny", base_channels=(32, 64, 128, 256, 512), input_size=160
+        ),
+        num_classifier_classes=10,
+        det_input_size=160,
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TwoStagePipeline.initialize(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TwoStagePipeline.from_jax_vars(cfg, {"params": {}}, {"params": {}})
