@@ -16,15 +16,30 @@ source, in parallel), then:
    and, for pyramid, with the level build the main path runs; tolerance
    1e-3 on 0-255 values (both round each f32 product and sum once, in the
    same order; 0 is expected);
-3. the small pipeline (narrow detector, 10-class classifier, float32, TF32
+3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem)
+   and B=2 160x240 C=32: float32 out within 1e-4 (the tolerance
+   tests/test_pallas_stem.py holds the Pallas kernel to), bfloat16 out
+   within one bf16 ulp (1e-5 below 2^-10, where float32 sum noise is
+   larger than an ulp); the serving shape timed, beside the cuDNN stem
+   it replaces (conv + bias + SiLU on the bf16 canvas);
+4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
-   plain versions run;
-4. the main path: ``TwoStagePipeline.run_fused`` at the full width of
+   plain versions run, at 200x300 frames (letterboxed) and at 160x160
+   (canvas-sized: the stem kernel runs);
+5. the main path: ``TwoStagePipeline.run_fused`` at the full width of
    yolo_plus_v2 + ShuffleNetV2-91 in bfloat16 with the serving
    configuration (64 candidates, 16 detections, crop_det_budget 8,
-   cls_crop_budget 4*B, BGR frames): B=128 at 640x640 and B=8 at
-   1080x1920, then B=8 at 1080x1920 with the pyramid crop.  Launch counts
-   are zeroed just before and read just after; every kernel must have run.
+   cls_crop_budget 4*B, BGR frames): B=128 at 640x640 (the stem kernel's
+   path) and B=8 at 1080x1920, then B=8 at 1080x1920 with the pyramid
+   crop, each on device frames and a device ``area_scale`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, so any host
+   synchronisation fails the run.  Launch counts are zeroed just before
+   and read just after; every kernel must have run;
+6. streaming: ``StreamingRunner.run`` over 12 batches of B=128 640x640
+   letterboxed canvases of a 1080x1920 source (3 distinct batches made
+   from a seed, cycled), inflight 2, each batch equal to a direct
+   ``run_fused`` + host unmap of the same canvases; frames/s beside the
+   device-only ``run_fused`` and ``benchmark_ram``.
 
 Prints the build's resource report, the card's ``nvidia-smi`` name and power
 limit, a ``{"kernels": [...]}`` JSON line (times from CUDA events after
@@ -48,10 +63,12 @@ import torch
 import torch.nn.functional as F
 
 from litepi_tpu_torch.core.types import DetectorConfig, NMSConfig, PipelineConfig
+from litepi_tpu_torch.data import native_loader
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
+from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops.nms import suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
@@ -62,7 +79,9 @@ from litepi_tpu_torch.ops.roi import (
     pyramid_scales,
     roi_geometry,
 )
-from litepi_tpu_torch.pipeline import TwoStagePipeline
+from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
+from litepi_tpu_torch.pipeline import StreamingRunner, TwoStagePipeline
+from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
 from litepi_tpu_torch.tools.stage_split import cuda_ms, cuda_ms_windows
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -72,8 +91,16 @@ ROI_TOL = 1e-3
 NMS_BATCH, NMS_KS = 128, (64, 512)  # serving K, and the NMSConfig default
 ROI_DENSE = (128, 8, 640, 640)  # B, D, H, W of the serving crop
 ROI_PYRAMID = (8, 8, 1080, 1920)
+STEM_CASES = ((128, 640, 640, 16), (2, 160, 240, 32))  # B, H, W, C; serving first
+STEM_TOL = 1e-4
+# small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
+# (the stem kernel's branch); each seed's frames have top candidate scores
+# more than 20x the card-vs-CPU noise apart under SMALL's seed-3 weights
+SMALL_SCENES = ((11, 200, 300), (44, 160, 160))
 MAIN_RUNS = ((128, 640, 640, "dense"), (8, 1080, 1920, "dense"),
              (8, 1080, 1920, "pallas"))
+STREAM_BATCH, STREAM_BATCHES, STREAM_DISTINCT = 128, 12, 3
+STREAM_SOURCE = (1080, 1920)  # the canvases' source frame: ratio 1/3, dh 140
 WINDOWS = 5  # back-to-back timing windows per kernel and per e2e run; the
 # median is reported, every window is printed
 
@@ -318,6 +345,80 @@ def check_roi(dev):
 
 
 # --------------------------------------------------------------------- #
+# stem kernel                                                           #
+# --------------------------------------------------------------------- #
+
+def bf16_ulp_error(got, want) -> float:
+    """Largest |got - want| in units of the bf16 ulp at the larger
+    magnitude, where that ulp is at least 1e-5 (below 2^-10 the float32
+    sums' rounding noise, ~1e-6, exceeds an ulp, and 1e-5 is the unit)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8).clamp(min=1e-5)
+    return float(((g - w).abs() / ulp).max())
+
+
+def check_stem(dev):
+    """The stem kernel vs ``stem_plain`` on every case and both output
+    types; the serving case timed in bf16 beside the cuDNN stem."""
+    torch.backends.cudnn.allow_tf32 = False  # the plain float32 conv is float32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    result = dict(f32_err=0.0, bf16_err=0.0, bf16_ulps=0.0)
+    for i, (b, h, w, c) in enumerate(STEM_CASES):
+        frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        kernel = torch.randn((3, 3, 3, c), generator=gen, device=dev) / (255 * 27 ** 0.5)
+        bias = torch.randn(c, generator=gen, device=dev) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fused_stem(frames, kernel, bias, dtype)
+            want = stem_plain(frames, kernel, bias, dtype)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not got.permute(0, 3, 1, 2).is_contiguous():
+                fail(f"stem kernel {b}x{h}x{w} C={c}: shape or layout differs")
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == torch.float32:
+                result["f32_err"] = max(result["f32_err"], err)
+                if not err <= STEM_TOL:
+                    fail(f"stem kernel {b}x{h}x{w} C={c} f32: max abs error {err} > {STEM_TOL}")
+            else:
+                ulps = bf16_ulp_error(got, want)
+                result["bf16_err"] = max(result["bf16_err"], err)
+                result["bf16_ulps"] = max(result["bf16_ulps"], ulps)
+                if not ulps <= 1.0:
+                    fail(f"stem kernel {b}x{h}x{w} C={c} bf16: {ulps} ulps from the plain version")
+            del got, want
+        if i:
+            continue
+        # the serving case, bf16 out, as the main path runs it
+        kern = lambda: fused_stem(frames, kernel, bias, torch.bfloat16)  # noqa: E731
+        ms, windows = median_ms(kern, 50)
+        host = host_ms(kern, 50)
+        plain_ms = cuda_ms(lambda: stem_plain(frames, kernel, bias, torch.bfloat16), 5, 1)
+        # what the port ran before at this size: the canvas cast, then cuDNN
+        canvas = frames.permute(0, 3, 1, 2).to(torch.bfloat16)
+        w_oihw = kernel.permute(3, 2, 0, 1).to(torch.bfloat16)
+        b16 = bias.to(torch.bfloat16)
+        lib = lambda: F.silu(F.conv2d(canvas, w_oihw, b16, stride=2, padding=1))  # noqa: E731
+        library_ms = cuda_ms(lib, 20)
+        cast_ms = cuda_ms(lambda: frames.permute(0, 3, 1, 2).to(torch.bfloat16), 20)
+        n_out = b * c * (h // 2) * (w // 2)
+        # frames read once, bf16 out written once; 27 multiply-adds (2 ops
+        # each), the bias add and SiLU's add, divide and multiply per output
+        n_bytes = frames.numel() + 2 * n_out + 4 * 28 * c
+        result.update(ms=ms, windows=windows, host_ms=host, plain_ms=plain_ms,
+                      library_ms=library_ms, cast_ms=cast_ms,
+                      bound=bound(n_bytes, n_out * (2 * 27 + 4)))
+        print(f"stem B={b} {h}x{w} C={c} bf16: kernel {ms:.4f} ms (windows {windows}), "
+              f"host issue {host:.4f} ms, plain {plain_ms:.3f} ms, cuDNN conv+bias+SiLU "
+              f"{library_ms:.4f} ms after a {cast_ms:.4f} ms canvas cast, "
+              f"bound {result['bound'][0]:.4f} ms ({result['bound'][1]})")
+        del canvas
+    print(f"stem: max abs error f32 {result['f32_err']:.3g}, bf16 {result['bf16_err']:.3g} "
+          f"({result['bf16_ulps']:.3g} ulp)")
+    return result
+
+
+# --------------------------------------------------------------------- #
 # small pipeline: card vs CPU                                           #
 # --------------------------------------------------------------------- #
 
@@ -334,12 +435,13 @@ def peaked_frames(seed=11, batch=2, h=200, w=300):
 def candidate_scores(pipe, frames) -> torch.Tensor:
     with torch.inference_mode():
         f = torch.as_tensor(frames).to(pipe.device)
-        _, scores, _ = pipe._candidates(pipe._detect(pipe._letterbox(f)))
+        _, scores, _ = pipe._candidates(pipe._detect(pipe._stem(f)))
     return scores.cpu()
 
 
-def check_small_pipeline(dev):
-    """The float32 small pipeline on the card vs on the CPU, frame by frame.
+def check_small_pipeline(dev, seed: int, h: int, w: int):
+    """The float32 small pipeline on the card vs on the CPU, frame by frame,
+    on the h x w peaked scene drawn from ``seed``.
 
     Each frame gets a conf threshold in a gap of its candidate scores wider
     than 20x the card-vs-CPU score difference, so that both runs take the
@@ -348,7 +450,8 @@ def check_small_pipeline(dev):
     """
     gpu = TwoStagePipeline.initialize(SMALL, seed=3, device=dev)
     cpu = TwoStagePipeline.initialize(SMALL, seed=3, device="cpu")
-    frames = peaked_frames()
+    frames = peaked_frames(seed, h=h, w=w)
+    before = launch_counts()["stem"]
     n_valid = 0
     for i in range(frames.shape[0]):
         f = frames[i : i + 1]
@@ -381,10 +484,12 @@ def check_small_pipeline(dev):
         if not torch.equal(got["cls_labels"][clear], want["cls_labels"][clear]):
             fail(f"small pipeline frame {i}: cls_labels differ card vs CPU")
         n_valid += int(want["valid"].sum())
-        print(f"small pipeline frame {i}: card == CPU (conf {conf:.8f}, "
+        print(f"small pipeline {h}x{w} frame {i}: card == CPU (conf {conf:.8f}, "
               f"{j} candidates over it, score noise {noise:.3g})")
     if n_valid == 0:
-        fail("small pipeline: no valid detection to compare")
+        fail(f"small pipeline {h}x{w}: no valid detection to compare")
+    if gpu._canvas_sized(torch.from_numpy(frames)) != (launch_counts()["stem"] > before):
+        fail(f"small pipeline {h}x{w}: the stem kernel ran where it should not, or not where it should")
 
 
 # --------------------------------------------------------------------- #
@@ -411,7 +516,9 @@ def check_outputs(out, b: int, d: int, h: int, w: int, n_cls: int, what: str) ->
 
 
 def main_path(dev):
-    """Full width, bf16, serving config; returns launch counts and timings."""
+    """Full width, bf16, serving config.  Each run is issued under
+    ``set_sync_debug_mode("error")``: a host synchronisation raises.
+    Returns launch counts, timings and the runs (pipeline, frames, ...)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     runs = []
     for b, h, w, roi_impl in MAIN_RUNS:
@@ -419,17 +526,27 @@ def main_path(dev):
         t0 = time.perf_counter()
         pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=torch.bfloat16, device=dev)
         frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
-        pipe.run_fused(frames)  # warm-up (cuDNN algorithm selection)
+        area = torch.ones(b, device=dev)
+        pipe.run_fused(frames, area_scale=area)  # warm-up (cuDNN algorithm selection)
         torch.cuda.synchronize()
         print(f"pipeline b={b} {h}x{w} {roi_impl}: init + first run "
               f"{time.perf_counter() - t0:.1f} s")
-        runs.append((pipe, frames, b, h, w, roi_impl))
+        runs.append((pipe, frames, area, b, h, w, roi_impl))
 
     reset_launch_counts()
-    outs = [pipe.run_fused(frames) for pipe, frames, *_ in runs]
+    outs = []
+    for pipe, frames, area, b, h, w, roi_impl in runs:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(pipe.run_fused(frames, area_scale=area))
+        except RuntimeError as e:
+            fail(f"run_fused b={b} {h}x{w} {roi_impl} synchronised the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     counts = launch_counts()
-    for out, (pipe, _, b, h, w, roi_impl) in zip(outs, runs):
+    print("main path: every run issued without a host synchronisation")
+    for out, (pipe, _, _, b, h, w, roi_impl) in zip(outs, runs):
         check_outputs(out, b, pipe.cfg.crop_det_budget, h, w,
                       pipe.cfg.num_classifier_classes, f"run_fused b={b} {h}x{w} {roi_impl}")
     for name, n in counts.items():
@@ -438,13 +555,89 @@ def main_path(dev):
     print(f"main path launch counts: {counts}")
 
     timings = []
-    for pipe, frames, b, h, w, roi_impl in runs:
+    for pipe, frames, _, b, h, w, roi_impl in runs:
         ms, windows = median_ms(lambda: pipe.run_fused(frames), 20, 2)
         timings.append(dict(batch=b, frame=f"{h}x{w}", roi_impl=roi_impl,
                             ms_per_batch=ms, fps=b / ms * 1e3, windows_ms=windows))
         print(f"run_fused b={b} {h}x{w} {roi_impl}: {ms:.3f} ms/batch, "
               f"{b / ms * 1e3:.1f} FPS (windows {windows})")
-    return counts, timings
+    return counts, timings, runs
+
+
+# --------------------------------------------------------------------- #
+# streaming                                                             #
+# --------------------------------------------------------------------- #
+
+class RamStreamingRunner(StreamingRunner):
+    """A StreamingRunner whose decode hands out letterboxed canvases held
+    in RAM: batch j of a run is canvases[j % len(canvases)]."""
+
+    def __init__(self, pipe, canvases, geoms, **kw):
+        super().__init__(pipe, use_native_loader=False, **kw)
+        self.canvases, self.geoms = canvases, geoms
+
+    def _decode_batch(self, paths, out=None):
+        j = int(paths[0].rsplit("/", 1)[1]) // self.batch_size
+        return self.canvases[j % len(self.canvases)], self.geoms
+
+
+def check_streaming(dev, pipe, device_fps: float):
+    """``StreamingRunner.run`` over STREAM_BATCHES batches of canvases vs a
+    direct ``run_fused`` + host unmap of the same canvases."""
+    b, s = STREAM_BATCH, pipe.cfg.det_input_size
+    src_h, src_w = STREAM_SOURCE
+    ratio, dw, dh, (new_w, new_h), (top, _, left, _) = letterbox_params(src_h, src_w, s)
+    geoms = np.tile(np.array([ratio, dw, dh, src_w, src_h], np.float32), (b, 1))
+    rng = np.random.default_rng(5)
+    canvases = []
+    for _ in range(STREAM_DISTINCT):
+        c = np.full((b, s, s, 3), 114, np.uint8)
+        c[:, top : top + new_h, left : left + new_w] = rng.integers(
+            0, 256, (b, new_h, new_w, 3), dtype=np.uint8)
+        canvases.append(c)
+    refs = []
+    area = torch.from_numpy(area_scale_of(geoms)).to(dev)
+    for c in canvases:
+        out = {k: v.cpu().numpy() for k, v in
+               pipe.run_fused(torch.from_numpy(c).to(dev), area_scale=area).items()}
+        out["boxes"] = unmap_boxes(out["boxes"], geoms)
+        refs.append(out)
+
+    runner = RamStreamingRunner(pipe, canvases, geoms, batch_size=b, inflight=2)
+    paths = [f"ram://{i}" for i in range(STREAM_BATCHES * b)]
+    # warm-up: one batch per staging slot, so every pinned buffer exists
+    # before the timed run (allocating pinned memory is slow)
+    for _ in runner.run(paths[: len(runner._slots) * b]):
+        pass
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = list(runner.run(paths))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if len(results) != STREAM_BATCHES or counts["stem"] < STREAM_BATCHES:
+        fail(f"streaming: {len(results)} batches, stem launched {counts['stem']} times")
+    for i, (batch_paths, out) in enumerate(results):
+        if batch_paths != paths[i * b : (i + 1) * b]:
+            fail(f"streaming batch {i}: paths out of order")
+        ref = refs[i % STREAM_DISTINCT]
+        for k, v in ref.items():
+            if k in ("valid", "det_class_ids", "cls_labels"):
+                if not np.array_equal(out[k], v):
+                    fail(f"streaming batch {i}: {k} differs from run_fused")
+            elif not float(np.abs(out[k].astype(np.float64) - v).max()) <= 1e-5:
+                fail(f"streaming batch {i}: {k} differs from run_fused by more than 1e-5")
+    ram = runner.benchmark_ram(canvases[0], n_batches=STREAM_BATCHES)
+    runner.close()
+    result = dict(batches=STREAM_BATCHES, batch=b, inflight=2, seconds=seconds,
+                  fps=STREAM_BATCHES * b / seconds, device_only_fps=device_fps,
+                  benchmark_ram_fps=ram["fps"], launches=counts,
+                  native_loader_built=native_loader.available(),
+                  native_loader_error=(native_loader.build_error() or "")[:200] or None)
+    print(f"streaming: {STREAM_BATCHES} batches of {b} equal to run_fused; "
+          f"{result['fps']:.1f} frames/s streamed, {device_fps:.1f} device-only run_fused, "
+          f"{ram['fps']:.1f} benchmark_ram; native loader built: "
+          f"{result['native_loader_built']}")
+    return result
 
 
 def run(dev) -> None:
@@ -457,8 +650,11 @@ def run(dev) -> None:
 
     nms = check_nms(dev)
     roi = check_roi(dev)
-    check_small_pipeline(dev)
-    counts, timings = main_path(dev)
+    stem = check_stem(dev)
+    for seed, h, w in SMALL_SCENES:
+        check_small_pipeline(dev, seed, h, w)
+    counts, timings, runs = main_path(dev)
+    streaming = check_streaming(dev, runs[0][0], timings[0]["fps"])
 
     k0, k1 = NMS_KS
     dense, pyr = roi["dense"], roi["pyramid"]
@@ -488,9 +684,18 @@ def run(dev) -> None:
              with_levels_bound_ms=pyr["with_levels_bound"][0],
              shape="B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
              + f", {pyr['levels']} levels built in advance"),
+        dict(name="stem", route="cuda", source="litepi_tpu_torch/csrc/stem.cu",
+             replaces="litepi_tpu/ops/pallas_stem.py:111", launches=counts["stem"],
+             max_abs_err=stem["f32_err"], ms=stem["ms"], plain_ms=stem["plain_ms"],
+             bound_ms=stem["bound"][0], bound_by=stem["bound"][1],
+             library_ms=stem["library_ms"], host_ms=stem["host_ms"],
+             library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
+             library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
+             bf16_max_ulps=stem["bf16_ulps"],
+             shape="B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0])),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"e2e": timings, "power": smi}))
+    print(json.dumps({"e2e": timings, "streaming": streaming, "power": smi}))
     print(smi)
 
 

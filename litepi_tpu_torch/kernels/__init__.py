@@ -2,8 +2,8 @@
 
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
-went through.  The wrappers live in ``kernels/nms.py`` and
-``kernels/roi.py``; the sources in ``csrc/``.
+went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``
+and ``kernels/stem.py``; the sources in ``csrc/``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ LAUNCHES: Dict[str, int] = {
     "nms_suppress": 0,
     "roi_crop_dense": 0,
     "roi_crop_pyramid": 0,
+    "stem": 0,
 }
 
 

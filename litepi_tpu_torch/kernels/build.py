@@ -10,7 +10,8 @@ all at once, and waits for all of them.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that no
 multiply-add is contracted into an FMA: the kernels then round exactly as
 their plain PyTorch versions do (one rounding per operation), which the
-NMS kernel's bit-equal IoU threshold test depends on.
+NMS kernel's bit-equal IoU threshold test depends on.  A kernel that wants
+fused multiply-adds (the stem's convolution sum) writes them out.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "litepi_tpu_torch"
-SOURCES = ("nms", "roi")
+SOURCES = ("nms", "roi", "stem")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -1,2 +1,2 @@
-"""Tensor ops of the port.  ``nms`` and ``roi`` dispatch to the CUDA kernels
-for CUDA tensors and to their plain versions for CPU tensors."""
+"""Tensor ops of the port.  ``nms``, ``roi`` and ``stem`` dispatch to the
+CUDA kernels for CUDA tensors and to their plain versions for CPU tensors."""

@@ -131,3 +131,37 @@ def nms_sorted(
         out_valid, torch.gather(cand_cls, -1, sel), -1
     ).to(torch.int32)
     return out_boxes, torch.where(out_valid, out_scores, 0.0), out_cls, out_valid
+
+
+def nms_fixed(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    class_ids: torch.Tensor,
+    conf_threshold: float = 0.25,
+    iou_threshold: float = 0.45,
+    max_candidates: int = 512,
+    max_detections: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-shape greedy NMS over unsorted boxes (B, A, 4) or (A, 4).
+
+    Scores at or under ``conf_threshold`` sink to -1, the top
+    ``max_candidates`` (stable, ties to the lower index) become the
+    score-descending candidate set, and :func:`nms_sorted` suppresses and
+    compacts them.  Returns ``(boxes (.., D, 4), scores (.., D), class_ids
+    (.., D) int32, valid (.., D) bool)`` with D = ``max_detections``.
+    """
+    if boxes.dim() == 2:
+        out = nms_fixed(
+            boxes[None], scores[None], class_ids[None], conf_threshold,
+            iou_threshold, max_candidates, max_detections,
+        )
+        return tuple(t[0] for t in out)
+    k = min(max_candidates, boxes.shape[-2])
+    masked = torch.where(scores > conf_threshold, scores, -1.0)
+    top_scores, idx = topk_stable(masked, k)
+    cand_boxes = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    cand_cls = torch.gather(class_ids, -1, idx)
+    return nms_sorted(
+        cand_boxes.contiguous(), top_scores, cand_cls, conf_threshold,
+        iou_threshold, max_detections,
+    )

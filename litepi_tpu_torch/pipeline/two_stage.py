@@ -1,23 +1,29 @@
-"""The fused two-stage detect -> crop -> classify pipeline in PyTorch.
+"""The two-stage detect -> crop -> classify pipeline in PyTorch.
 
 :meth:`TwoStagePipeline.run_fused` reproduces the JAX package's fused
-serving program stage for stage: letterbox -> stem-input fold -> detector
--> DFL decode + top-K -> NMS (kernel) -> per-frame crop budget ->
-un-letterbox, clip, min-area -> ROI crop (kernel) -> global classifier
-budget -> ShuffleNetV2 -> softmax.  Shapes are static: NMS emits
-``max_detections`` padded slots and ``valid`` masks the real ones.
+serving program stage for stage: stem on raw pixels (the stem kernel on
+canvas-sized frames, else letterbox + a stem conv with the input scale
+folded in) -> detector -> DFL decode + top-K -> NMS (kernel) -> per-frame
+crop budget -> un-letterbox, clip, min-area -> ROI crop (kernel) -> global
+classifier budget -> ShuffleNetV2 -> softmax.  Shapes are static: NMS
+emits ``max_detections`` padded slots and ``valid`` masks the real ones.
+On device-resident frames it never synchronises the host with the card.
 
-On a CUDA device the NMS and ROI crop run as the hand-written kernels in
-``csrc/``; on the CPU (``device="cpu"``, the tests) their plain versions
-run.  The staged ``detect`` / ``detect_candidates`` / ``classify`` programs
-of the JAX package are not ported yet.
+The staged programs (:meth:`~TwoStagePipeline.detect`,
+:meth:`~TwoStagePipeline.detect_candidates`,
+:meth:`~TwoStagePipeline.classify`) are the JAX package's: the detector on
+pre-letterboxed [0, 1] canvases, and the classifier on crops.
+
+On a CUDA device the stem, NMS and ROI crop run as the hand-written
+kernels in ``csrc/``; on the CPU (``device="cpu"``, the tests) their plain
+versions run.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,10 +38,12 @@ from litepi_tpu_torch.ops.dfl import decode_candidates, topk_stable
 from litepi_tpu_torch.ops.letterbox import letterbox_nchw, letterbox_params
 from litepi_tpu_torch.ops.nms import nms_sorted
 from litepi_tpu_torch.ops.roi import crop_and_resize, crop_and_resize_pyramid
+from litepi_tpu_torch.ops.stem import ROW_MULTIPLE, fused_stem
 from litepi_tpu_torch.weights.fold_bn import (
     BN_EPS,
     fold_pipeline_state,
     fold_stem_input,
+    stem_kernel_hwio,
 )
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
@@ -75,7 +83,15 @@ class TwoStagePipeline:
         cls_state: StateDict,
         dtype: torch.dtype = torch.float32,
         device="cuda",
+        candidate_decoder=None,
+        candidate_capacity: Optional[int] = None,
     ) -> None:
+        if candidate_decoder is not None or candidate_capacity is not None:
+            raise NotImplementedError(
+                "candidate_decoder / candidate_capacity (detectors with their "
+                "own head, e.g. anchor-based YOLOv5) are not ported "
+                "(ROADMAP queue 1, M10)"
+            )
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -95,20 +111,20 @@ class TwoStagePipeline:
         det_state = fold_pipeline_state(det_state, BN_EPS)
         self.det_model = self._place(YoloLitePi(cfg.detector, fused=True), det_state)
         # the port always runs the deploy form, so the fused program feeds
-        # raw 0-255 letterbox pixels in the host's colour order to a stem
-        # whose kernel has the 1/255 scale and the BGR->RGB flip folded in
-        # (weights/fold_bn.py)
-        self._stem_input_foldable = True
+        # raw 0-255 pixels in the host's colour order to a stem whose
+        # kernel has the 1/255 scale and the BGR->RGB flip folded in
+        # (weights/fold_bn.py): the stem kernel's float32 HWIO kernel for
+        # canvas-sized frames, a conv module for letterboxed canvases
+        stem_w = det_state["backbone.stem.conv.weight"].float()
+        flip = cfg.input_color == "bgr"
+        self._stem_kernel = stem_kernel_hwio(stem_w, flip).to(self.device)
+        self._stem_bias = det_state["backbone.stem.conv.bias"].float().to(self.device)
         raw_stem = copy.deepcopy(self.det_model.backbone.stem)
         with torch.no_grad():
-            raw_stem.conv.weight.copy_(
-                fold_stem_input(
-                    det_state["backbone.stem.conv.weight"].float(),
-                    1.0 / 255.0,
-                    cfg.input_color == "bgr",
-                )
-            )
+            raw_stem.conv.weight.copy_(fold_stem_input(stem_w, 1.0 / 255.0, flip))
         self._raw_stem = raw_stem
+        # letterbox geometry tensors per frame size, made once on the device
+        self._unmap_geometry: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
         cls_state = fold_pipeline_state(cls_state, CLASSIFIER_BN_EPS)
         self.cls_model = self._place(
@@ -175,14 +191,37 @@ class TwoStagePipeline:
     # Each stage below is one step of run_fused, in its order; the stage
     # timing tool (tools/stage_split.py) calls the same methods.
 
+    def _canvas_sized(self, frames: torch.Tensor) -> bool:
+        """True when frames are (B, S, S, 3) at the detector's input size S
+        and S is a size the stem kernel takes: the letterbox is then the
+        identity and the stem runs on the uint8 frames."""
+        s = self.cfg.det_input_size
+        return tuple(frames.shape[1:3]) == (s, s) and s % ROW_MULTIPLE == 0
+
     def _letterbox(self, frames: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, 3, S, S) letterboxed canvas, 0-255."""
         return letterbox_nchw(frames, self.cfg.det_input_size, self.dtype)
 
-    def _detect(self, canvas: torch.Tensor) -> torch.Tensor:
-        """Canvas -> head output (B, A, 4*reg_max + nc) through the stem with
-        the input scale and colour flip folded in."""
-        return self.det_model(self._raw_stem(canvas), from_stem=True)
+    def _stem(self, frames: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) uint8 frames -> (B, c0, S/2, S/2) NCHW stem
+        activations in the pipeline's dtype, the input scale and colour
+        flip folded into the weights.
+
+        The frame shape alone picks the branch: canvas-sized frames go
+        through :func:`~litepi_tpu_torch.ops.stem.fused_stem` (the stem
+        kernel on the card) with float32 weights and no letterbox; other
+        sizes through the letterbox and a conv module in the pipeline's
+        dtype.  A failing kernel raises; it never selects the other branch.
+        """
+        if self._canvas_sized(frames):
+            act = fused_stem(frames, self._stem_kernel, self._stem_bias, self.dtype)
+            return act.permute(0, 3, 1, 2)
+        return self._raw_stem(self._letterbox(frames))
+
+    def _detect(self, stem_act: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Stem activations -> head output ``{reg, cls}``: the detector
+        after its stem."""
+        return self.det_model(stem_act, from_stem=True)
 
     def _candidates(self, head: torch.Tensor):
         """DFL decode + top-K: boxes (B, K, 4), scores (B, K), class ids."""
@@ -206,19 +245,41 @@ class TwoStagePipeline:
             b, s, c, v = b[:, :d2], s[:, :d2], c[:, :d2], v[:, :d2]
         return b, s, c, v
 
+    def _geometry(self, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(shift (4,), ratio ()) float32 device tensors of the letterbox of
+        an h x w frame, made once per size by fill kernels (no copy from
+        the host, so no synchronisation)."""
+        geo = self._unmap_geometry.get((h, w))
+        if geo is None:
+            ratio, dw, dh, _, _ = letterbox_params(h, w, self.cfg.det_input_size)
+            shift = torch.empty(4, dtype=torch.float32, device=self.device)
+            shift[0::2].fill_(dw)
+            shift[1::2].fill_(dh)
+            ratio_t = torch.full((), ratio, dtype=torch.float32, device=self.device)
+            geo = self._unmap_geometry[(h, w)] = (shift, ratio_t)
+        return geo
+
+    def _on_device(self, x) -> torch.Tensor:
+        """``x`` as a float32 tensor on the pipeline's device.  Host data
+        goes up through pinned memory without blocking the host."""
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x.float()
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _unmap(self, boxes, valid, h: int, w: int, area_scale=None):
         """Letterbox boxes -> clipped frame pixels; ``valid`` loses the
-        boxes under ``min_area`` (areas times ``area_scale`` (B,) if given)."""
-        ratio, dw, dh, _, _ = letterbox_params(h, w, self.cfg.det_input_size)
+        boxes under ``min_area`` (areas times ``area_scale`` (B,) if given,
+        a device tensor or host values)."""
+        shift, ratio = self._geometry(h, w)
         # true division by a device tensor, as XLA divides (a CUDA divide by
         # a Python float multiplies by 1/ratio)
-        shift = torch.tensor([dw, dh, dw, dh], dtype=torch.float32, device=self.device)
-        ratio_t = torch.tensor(ratio, dtype=torch.float32, device=self.device)
-        orig_boxes = clip_boxes((boxes - shift) / ratio_t, w, h)
+        orig_boxes = clip_boxes((boxes - shift) / ratio, w, h)
         area = box_area(orig_boxes)
         if area_scale is not None:
-            scale = torch.as_tensor(area_scale, dtype=torch.float32).to(self.device)
-            area = area * scale[:, None]
+            area = area * self._on_device(area_scale)[:, None]
         return orig_boxes, valid & (area >= self.cfg.nms.min_area)
 
     def _crop(self, frames, boxes, valid) -> torch.Tensor:
@@ -250,15 +311,16 @@ class TwoStagePipeline:
         # global compaction: rank every slot by detection score (invalid
         # slots tie at -1; the stable sort takes the lowest indices, as
         # jax.lax.top_k does), classify the top ``budget`` crops and scatter
-        # the probabilities back
+        # the probabilities back (device-side scatters: an index assignment
+        # of a Python scalar would copy it from the host and synchronise)
         _, sel = topk_stable(torch.where(valid, scores, -1.0).reshape(n * d), budget)
-        sel_probs = self._classify(flat[sel])
+        sel_probs = self._classify(flat.index_select(0, sel))
         probs = torch.zeros(
             (n * d, sel_probs.shape[-1]), dtype=sel_probs.dtype, device=self.device
+        ).index_copy_(0, sel, sel_probs)
+        kept = torch.zeros(n * d, dtype=torch.bool, device=self.device).index_fill_(
+            0, sel, True
         )
-        probs[sel] = sel_probs
-        kept = torch.zeros(n * d, dtype=torch.bool, device=self.device)
-        kept[sel] = True
         return probs.reshape(n, d, -1), valid & kept.reshape(n, d)
 
     @torch.inference_mode()
@@ -272,11 +334,14 @@ class TwoStagePipeline:
 
         frames: (B, H, W, 3) uint8 (numpy or tensor) in ``cfg.input_color``
         order.  ``area_scale`` (B,): per-frame multiplier of box areas
-        before the min-area floor.  Returns tensors on the pipeline's
-        device: boxes (B, D, 4) in frame pixels, det_scores (B, D),
-        det_class_ids (B, D) int32, valid (B, D) bool, cls_probs
-        (B, D, classes), cls_labels (B, D) int32, cls_scores (B, D), with D
-        = ``max_detections`` or ``crop_det_budget``.
+        before the min-area floor, a device tensor or host values (copied
+        up without blocking).  Returns tensors on the pipeline's device:
+        boxes (B, D, 4) in frame pixels, det_scores (B, D), det_class_ids
+        (B, D) int32, valid (B, D) bool, cls_probs (B, D, classes),
+        cls_labels (B, D) int32, cls_scores (B, D), with D =
+        ``max_detections`` or ``crop_det_budget``.  On frames and an
+        ``area_scale`` already on the card it issues its work without
+        synchronising the host.
         """
         conf = self.cfg.benchmark_conf if conf_threshold is None else conf_threshold
         frames = torch.as_tensor(frames).to(self.device).contiguous()
@@ -284,7 +349,7 @@ class TwoStagePipeline:
             raise ValueError("frames must be (B, H, W, 3) uint8")
         h, w = int(frames.shape[1]), int(frames.shape[2])
 
-        head = self._detect(self._letterbox(frames))
+        head = self._detect(self._stem(frames))
         b, s, c, v = self._suppress(*self._candidates(head), conf)
         orig_boxes, v = self._unmap(b, v, h, w, area_scale)
         probs, v = self._classify_budgeted(self._crop(frames, orig_boxes, v), s, v)
@@ -298,3 +363,54 @@ class TwoStagePipeline:
             "cls_scores": probs.amax(dim=-1),
         }
 
+    # ------------------------------------------------------------------ #
+    # staged programs                                                     #
+    # ------------------------------------------------------------------ #
+
+    @torch.inference_mode()
+    def _detect_top(self, canvas01, k: int):
+        """(B, S, S, 3) [0, 1] canvases in host colour order (numpy or
+        tensor) -> the top ``k`` score-descending candidates (boxes (B, K,
+        4) letterbox-space xyxy, scores (B, K), class_ids (B, K) int32),
+        through the whole detector with its own stem."""
+        x = torch.as_tensor(canvas01).to(device=self.device, dtype=self.dtype)
+        if self.cfg.input_color == "bgr":
+            x = x.flip(-1)  # the detector computes in RGB
+        head = self.det_model(x.permute(0, 3, 1, 2))
+        cfg = self.cfg
+        return decode_candidates(
+            head, self._anchors, self._strides, cfg.detector.reg_max, k,
+            cfg.candidate_selector,
+        )
+
+    @torch.inference_mode()
+    def detect(self, canvas01, conf_threshold: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        """Detector stage on pre-letterboxed [0, 1] canvases (B, S, S, 3):
+        forward, decode, top ``max_candidates``, NMS (the NMS kernel on the
+        card).  Returns boxes (B, D, 4) in letterbox space, scores,
+        class_ids and valid, D = ``max_detections``; the caller
+        un-letterboxes with its own per-image geometry."""
+        conf = self.cfg.benchmark_conf if conf_threshold is None else conf_threshold
+        nms_cfg = self.cfg.nms
+        boxes, scores, class_ids = self._detect_top(canvas01, nms_cfg.max_candidates)
+        b, s, c, v = nms_sorted(
+            boxes, scores, class_ids, conf, nms_cfg.iou_threshold,
+            nms_cfg.max_detections,
+        )
+        return {"boxes": b, "scores": s, "class_ids": c, "valid": v}
+
+    def detect_candidates(self, canvas01, max_candidates: Optional[int] = None):
+        """Decoded score-descending candidates without suppression, for a
+        host-NMS evaluation pass: (boxes (B, K, 4) letterbox-space xyxy,
+        scores (B, K), class_ids (B, K)) with K = ``max_candidates``, by
+        default ``nms.eval_max_candidates``; 0 means every anchor."""
+        k = max_candidates or self.cfg.nms.eval_max_candidates
+        cap = int(self._anchors.shape[0])
+        return self._detect_top(canvas01, min(k, cap) if k else cap)
+
+    @torch.inference_mode()
+    def classify(self, crops01) -> torch.Tensor:
+        """Classifier stage: (N, c, c, 3) crops in [0, 1], host colour order
+        (numpy or tensor) -> (N, num_classes) float32 probabilities."""
+        x = torch.as_tensor(crops01).to(device=self.device, dtype=torch.float32)
+        return self._classify(x)

@@ -12,8 +12,9 @@ weights, then:
   events, after warm-up), so that the spread between windows shows;
 * times each stage alone on the inputs the previous stage produced,
   through the pipeline's own stage methods, the ones ``run_fused`` calls:
-  letterbox, the detector's stem conv, the rest of the detector, decode +
-  top-K, NMS + crop budget, box unmapping, ROI crop, classifier;
+  the stem (at this canvas size the stem kernel K3 on the uint8 frames,
+  with no letterbox stage), the rest of the detector, decode + top-K,
+  NMS + crop budget, box unmapping, ROI crop, classifier;
 * traces a few ``run_fused`` calls with ``torch.profiler`` and sums device
   time by kind and by kernel name.  The idle share is read in that same
   window: 1 - device busy time / the window's CUDA-event time.  Tracing
@@ -63,6 +64,7 @@ def cuda_ms_windows(fn, iters: int, windows: int, warmup: int = 3) -> list:
 KINDS = (
     ("nms_kernel", ("nms_suppress_kernel",)),
     ("roi_kernel", ("roi_crop_kernel",)),
+    ("stem_kernel", ("stem_kernel",)),
     ("conv_gemm", ("conv", "cudnn", "xmma", "gemm", "sm90_", "implicit", "cutlass",
                    "wgrad", "dgrad", "fprop")),
     ("sort_topk", ("sort", "radix", "topk")),
@@ -100,14 +102,10 @@ def measure(dev) -> dict:
     stages = {}
     with torch.inference_mode():
         e2e = cuda_ms_windows(lambda: pipe.run_fused(frames), ITERS, E2E_WINDOWS)
-        stages["letterbox"] = cuda_ms(lambda: pipe._letterbox(frames), ITERS)
-        canvas = pipe._letterbox(frames)
-        stages["stem"] = cuda_ms(lambda: pipe._raw_stem(canvas), ITERS)
-        stem = pipe._raw_stem(canvas)
-        stages["detector_body"] = cuda_ms(
-            lambda: pipe.det_model(stem, from_stem=True), ITERS
-        )
-        head = pipe._detect(canvas)
+        stages["stem (K3)"] = cuda_ms(lambda: pipe._stem(frames), ITERS)
+        stem = pipe._stem(frames)
+        stages["detector_body"] = cuda_ms(lambda: pipe._detect(stem), ITERS)
+        head = pipe._detect(stem)
         stages["decode_topk"] = cuda_ms(lambda: pipe._candidates(head), ITERS)
         cands = pipe._candidates(head)
         stages["nms_budget"] = cuda_ms(lambda: pipe._suppress(*cands, conf), ITERS)

@@ -2,6 +2,7 @@ from litepi_tpu_torch.weights.fold_bn import (
     fold_batchnorm,
     fold_pipeline_state,
     fold_stem_input,
+    stem_kernel_hwio,
 )
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
@@ -10,4 +11,5 @@ __all__ = [
     "fold_pipeline_state",
     "fold_stem_input",
     "jax_to_state_dict",
+    "stem_kernel_hwio",
 ]

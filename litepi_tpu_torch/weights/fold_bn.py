@@ -81,3 +81,12 @@ def fold_stem_input(weight: torch.Tensor, scale: float, flip_channels: bool) -> 
     if flip_channels:
         weight = weight.flip(1)
     return weight * scale
+
+
+def stem_kernel_hwio(weight: torch.Tensor, flip_channels: bool) -> torch.Tensor:
+    """The deploy-form stem weight (C, 3, 3, 3) OIHW as the stem kernel's
+    (3, 3, 3, C) HWIO float32 kernel (``ops/stem.py::fused_stem``), with
+    the 1/255 input scale and, for BGR frames, the channel flip folded in:
+    the kernel ``pallas_stem`` takes, for raw 0-255 frames."""
+    folded = fold_stem_input(weight.float(), 1.0 / 255.0, flip_channels)
+    return folded.permute(2, 3, 1, 0).contiguous()

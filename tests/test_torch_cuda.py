@@ -15,6 +15,7 @@ import torch
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
+from litepi_tpu_torch.kernels.stem import stem_cuda
 from litepi_tpu_torch.ops.nms import suppress, suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
@@ -24,6 +25,7 @@ from litepi_tpu_torch.ops.roi import (
     crop_and_resize_pyramid,
     pyramid_scales,
 )
+from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
 
 
 @pytest.fixture
@@ -56,6 +58,21 @@ def test_wrappers_reject_cpu_tensors():
         roi_crop_cuda([frames], boxes[:, :2], valid[:, :2], 8, EXACT_EXTENT, "dense")
     with pytest.raises(ValueError, match="mode"):
         roi_crop_cuda([frames], boxes[:, :2], valid[:, :2], 8, EXACT_EXTENT, "other")
+
+
+def test_stem_wrapper_rejects_cpu_tensors_and_wrong_dtypes():
+    frames = torch.zeros((1, 80, 80, 3), dtype=torch.uint8)
+    weight, bias = torch.zeros((27, 16)), torch.zeros(16)
+    with pytest.raises(ValueError, match="CUDA"):
+        stem_cuda(frames, weight, bias, torch.bfloat16)
+    with pytest.raises(ValueError, match="uint8"):
+        stem_cuda(frames.float(), weight, bias, torch.bfloat16)
+    with pytest.raises(ValueError, match="bias"):
+        stem_cuda(frames, weight, bias.double(), torch.bfloat16)
+    with pytest.raises(ValueError, match="out_dtype"):
+        stem_cuda(frames, weight, bias, torch.float16)
+    with pytest.raises(ValueError, match="even"):
+        stem_cuda(frames[:, :79], weight, bias, torch.float32)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -170,4 +187,120 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
         out = pipe.run_fused(frames, 0.001)
         assert out["boxes"].is_cuda and out["cls_probs"].shape == (2, 8, 10)
     counts = launch_counts()
-    assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1}
+    # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only
+    assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1,
+                      "stem": 0}
+
+
+def _small_cfg(**kw):
+    import dataclasses
+
+    from litepi_tpu_torch.core.types import DetectorConfig, NMSConfig, PipelineConfig
+
+    cfg = PipelineConfig(
+        detector=DetectorConfig(
+            name="tiny", base_channels=(32, 64, 128, 256, 512), input_size=160
+        ),
+        nms=NMSConfig(max_candidates=128, max_detections=8, min_area=4.0),
+        num_classifier_classes=10,
+        det_input_size=160,
+    )
+    return dataclasses.replace(cfg, **kw)
+
+
+@pytest.mark.gpu
+def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
+    from litepi_tpu_torch.pipeline import TwoStagePipeline
+
+    pipe = TwoStagePipeline.initialize(_small_cfg(), dtype=torch.bfloat16, device=cuda)
+    frames = torch.randint(0, 256, (3, 160, 160, 3), dtype=torch.uint8, device=cuda)
+    reset_launch_counts()
+    out = pipe.run_fused(frames, 0.001)
+    torch.cuda.synchronize()
+    assert out["valid"].shape == (3, 8)
+    assert launch_counts() == {"nms_suppress": 1, "roi_crop_dense": 1,
+                               "roi_crop_pyramid": 0, "stem": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(160, 160), (200, 300)])
+def test_run_fused_does_not_synchronise(cuda, hw):
+    """On device frames and a device area_scale, run_fused (after its
+    first call per frame size) issues its work without one stream or
+    device synchronisation, with both budgets on."""
+    from litepi_tpu_torch.pipeline import TwoStagePipeline
+
+    pipe = TwoStagePipeline.initialize(
+        _small_cfg(crop_det_budget=4, cls_crop_budget=5), dtype=torch.bfloat16, device=cuda
+    )
+    frames = torch.randint(0, 256, (3, *hw, 3), dtype=torch.uint8, device=cuda)
+    area = torch.ones(3, device=cuda)
+    want = pipe.run_fused(frames, 0.001, area)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pipe.run_fused(frames, 0.001, area)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def _within_bf16_ulp(got, want):
+    """|got - want| within one bf16 ulp of the larger magnitude, or 1e-5
+    below 2^-10 where float32 sum noise (~1e-6) is larger than an ulp."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8).clamp(min=1e-5)
+    return bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("c", [16, 32, 64, 24, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_matches_plain(cuda, monkeypatch, b, c, dtype):
+    """float32 within 1e-4 (tests/test_pallas_stem.py's tolerance: two sums
+    of 27 products in other orders), bfloat16 within one ulp; TF32 off for
+    the plain version's convolution.  C=24 takes one 16-channel chunk and a
+    plain tail, C=3 the plain loop only."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(b * 100 + c)
+    frames = torch.randint(0, 256, (b, 160, 240, 3), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    kernel = torch.randn((3, 3, 3, c), generator=gen, device=cuda) / (255 * 27 ** 0.5)
+    bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+    before = LAUNCHES["stem"]
+    got = fused_stem(frames, kernel, bias, dtype)
+    assert LAUNCHES["stem"] == before + 1
+    want = stem_plain(frames, kernel, bias, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, 80, 120, c) and got.dtype == dtype
+    assert got.permute(0, 3, 1, 2).is_contiguous()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        assert _within_bf16_ulp(got, want)
+    # the plain version on the card agrees with the plain version on the CPU
+    # as closely (their float32 sums round differently, too)
+    cpu = stem_plain(frames.cpu(), kernel.cpu(), bias.cpu(), dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(want.cpu(), cpu, atol=1e-4, rtol=0)
+    else:
+        assert _within_bf16_ulp(want.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_rejects_wrong_inputs_on_the_card(cuda):
+    frames = torch.zeros((1, 80, 80, 3), dtype=torch.uint8, device=cuda)
+    weight = torch.zeros((27, 16), device=cuda)
+    bias = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="weight"):
+        stem_cuda(frames, weight.half(), bias, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        stem_cuda(frames, weight, bias.cpu(), torch.float32)
+    with pytest.raises(ValueError, match="C="):
+        stem_cuda(frames, torch.zeros((27, 300), device=cuda), torch.zeros(300, device=cuda),
+                  torch.float32)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_stem(frames[:, :40], weight.reshape(3, 3, 3, 16), bias)

@@ -65,3 +65,24 @@ def test_entry_points_default_to_the_card():
         TwoStagePipeline.initialize(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         TwoStagePipeline.from_jax_vars(cfg, {"params": {}}, {"params": {}})
+
+
+def test_streaming_runner_defaults_to_the_card():
+    """A StreamingRunner runs on its pipeline's device; over a pipeline on
+    the card (the default) it raises where there is none."""
+    from litepi_tpu_torch.core import types
+    from litepi_tpu_torch.pipeline import StreamingRunner, TwoStagePipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = types.PipelineConfig(
+        detector=types.DetectorConfig(
+            name="tiny", base_channels=(32, 64, 128, 256, 512), input_size=160
+        ),
+        num_classifier_classes=10,
+        det_input_size=160,
+    )
+    pipe = TwoStagePipeline.initialize(cfg, device="cpu")
+    pipe.device = torch.device("cuda")  # as TwoStagePipeline.initialize(cfg) would set it
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingRunner(pipe, use_native_loader=False)

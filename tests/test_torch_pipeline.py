@@ -31,7 +31,14 @@ from litepi_tpu.ops.roi import crop_and_resize as jax_crop
 from litepi_tpu.pipeline import TwoStagePipeline as JaxPipeline
 from litepi_tpu_torch.ops.dfl import topk_stable
 from litepi_tpu_torch.pipeline import TwoStagePipeline
-from tests.torch_port_helpers import SMALL, jax_init_vars, peaked_frames, port_config
+from tests.torch_port_helpers import (
+    CANVAS_SCENES,
+    SMALL,
+    canvas_frames,
+    jax_init_vars,
+    peaked_frames,
+    port_config,
+)
 
 # the middle of a 4.5e-6 gap in the peaked scene's candidate scores:
 # 18 / 16 candidates clear it and NMS keeps 2 per frame
@@ -99,6 +106,49 @@ def test_run_fused_matches_jax(variables, frames, variant):
         assert v.sum() < cfg.cls_crop_budget
     if variant == "pallas_crop":  # area_scale 1e-5 drops frame 1's boxes
         assert v[0].any() and not v[1].any()
+
+
+@pytest.mark.parametrize("input_color", ["rgb", "bgr"])
+def test_canvas_conf_threshold_clears_candidate_scores(variables, input_color):
+    """Fixture check for the canvas-sized frames: no candidate score lies
+    within 1e-6 of the scene's conf threshold, and at least 12 clear it per
+    frame."""
+    det, clf = variables
+    conf = CANVAS_SCENES[input_color][1]
+    jp = JaxPipeline(dataclasses.replace(SMALL, input_color=input_color), det, clf)
+    canvas = jnp.asarray(canvas_frames(input_color), jnp.float32) / 255.0
+    _, scores, _ = jp._detect_jit(jp.det_vars, canvas)
+    scores = np.asarray(scores)
+    assert np.abs(scores - conf).min() > 1e-6
+    assert ((scores > conf).sum(-1) >= 12).all()
+
+
+@pytest.mark.parametrize("input_color", ["rgb", "bgr"])
+def test_run_fused_on_canvas_sized_frames_matches_jax(variables, monkeypatch, input_color):
+    """Frames at the detector's input size (160x160 for SMALL) take the
+    stem-kernel branch: fused_stem on the uint8 frames, no letterbox.  The
+    outputs match the JAX run_fused (letterbox identity + XLA stem) within
+    the run_fused tolerances."""
+    import litepi_tpu_torch.pipeline.two_stage as port_module
+
+    det, clf = variables
+    frames, conf = canvas_frames(input_color), CANVAS_SCENES[input_color][1]
+    cfg = dataclasses.replace(SMALL, input_color=input_color)
+    want = JaxPipeline(cfg, det, clf).run_fused(frames, conf)
+    want = {k: np.asarray(v) for k, v in want.items()}
+    port = TwoStagePipeline.from_jax_vars(port_config(cfg), det, clf, device="cpu")
+    calls, real = [], port_module.fused_stem
+
+    def spy(stem_frames, *rest):
+        calls.append(tuple(stem_frames.shape))
+        return real(stem_frames, *rest)
+
+    monkeypatch.setattr(port_module, "fused_stem", spy)
+    got = {k: v.numpy() for k, v in port.run_fused(frames, conf).items()}
+    assert calls == [frames.shape]
+    _compare(got, want)
+    v = want["valid"]
+    assert v.any() and not v.all()
 
 
 def _planted_head(det_out, seed=0):
