@@ -11,13 +11,16 @@ source, in parallel), then:
 1. NMS kernel vs ``suppress_sorted`` on the same CUDA tensors: keep masks
    bit-equal at B=128 with K=64 (the serving candidate budget) and K=512;
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
-   640x640 (the serving crop) and on B=8, D=8, 1080x1920 (three pyramid
-   levels); dense timed on the first, pyramid on the second, both alone
-   and, for pyramid, with the level build the main path runs; tolerance
-   1e-3 on 0-255 values (both round each f32 product and sum once, in the
-   same order; 0 is expected);
-3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem)
-   and B=2 160x240 C=32: float32 out within 1e-4 (the tolerance
+   640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
+   levels) and on an all-invalid batch; dense timed on the first, pyramid
+   on the second, both alone and, for pyramid, with the level build the
+   main path runs; tolerance 1e-3 on 0-255 values (both round each f32
+   product and sum once, in the same order; 0 is expected);
+3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem),
+   B=2 160x240 C=32, and the tile and pair edges: H in {2, 6, 80}, W in
+   {2, 10, 642} (642: an odd output width), C in {16, 32} (weights as
+   kernel parameters) and {3, 20, 256} (the generic path), on random,
+   all-0 and all-255 frames: float32 out within 1e-4 (the tolerance
    tests/test_pallas_stem.py holds the Pallas kernel to), bfloat16 out
    within one bf16 ulp (1e-5 below 2^-10, where float32 sum noise is
    larger than an ulp); the serving shape timed, beside the cuDNN stem
@@ -41,11 +44,17 @@ source, in parallel), then:
    ``run_fused`` + host unmap of the same canvases; frames/s beside the
    device-only ``run_fused`` and ``benchmark_ram``.
 
-Prints the build's resource report, the card's ``nvidia-smi`` name and power
-limit, a ``{"kernels": [...]}`` JSON line (times from CUDA events after
-warm-up, the median of 5 windows; ``host_ms`` the host's time to issue one
-call; bounds from this run's inputs against the H100 SXM's published
-3.35 TB/s and 67 TFLOP/s float32), an ``{"e2e": ...}`` JSON line, and last
+Prints the build's resource report (``-Xptxas -v``: registers and spills
+per kernel) and the card's ``nvidia-smi`` name and power limit before the
+checks and again after the timed phases, a ``{"kernels": [...]}`` JSON
+line (``ms`` from CUDA events after warm-up, the median of 5 windows;
+``device_ms`` the mean duration of the kernel itself from
+``torch.profiler``'s CUDA activity over as many launches as one window,
+traced apart from the timed windows; ``host_ms``
+the host's time to issue one call, so that where ``host_ms`` is near
+``ms`` the window timed the host and ``device_ms`` is the kernel's time;
+bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
+and 67 TFLOP/s float32), an ``{"e2e": ...}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -68,11 +77,11 @@ from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
+from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops.nms import suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
-    axis_taps,
     build_pyramid,
     crop_and_resize_plain,
     crop_and_resize_pyramid,
@@ -82,7 +91,8 @@ from litepi_tpu_torch.ops.roi import (
 from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
 from litepi_tpu_torch.pipeline import StreamingRunner, TwoStagePipeline
 from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
-from litepi_tpu_torch.tools.stage_split import cuda_ms, cuda_ms_windows
+from litepi_tpu_torch.tools.roi_ab import roi_inputs, touched_bytes
+from litepi_tpu_torch.tools.stage_split import cuda_ms, cuda_ms_windows, kernel_device_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
@@ -92,6 +102,11 @@ NMS_BATCH, NMS_KS = 128, (64, 512)  # serving K, and the NMSConfig default
 ROI_DENSE = (128, 8, 640, 640)  # B, D, H, W of the serving crop
 ROI_PYRAMID = (8, 8, 1080, 1920)
 STEM_CASES = ((128, 640, 640, 16), (2, 160, 240, 32))  # B, H, W, C; serving first
+# tile and pair edges of the stem kernel (B=2): heights, widths, channel
+# counts (16 and 32 the parameter path, the rest the generic one), frames
+STEM_EDGE_H, STEM_EDGE_W = (2, 6, 80), (2, 10, 642)
+STEM_EDGE_C = (16, 32, 3, 20, 256)
+STEM_EDGE_FILLS = ("random", 0, 255)
 STEM_TOL = 1e-4
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
@@ -157,15 +172,32 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def build_kernels() -> None:
+def build_kernels() -> dict:
     t0 = time.perf_counter()
     paths = kbuild.build()
     print(f"built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def print_resources(paths: dict, smi: str, when: str) -> None:
+    """Each kernel's ``-Xptxas -v`` lines (entry, registers, spills) and the
+    card's name and power limit."""
+    print(f"--- kernel resources and card, {when}")
     for name, path in sorted(paths.items()):
         log = (path.parent / (path.name + ".log"))
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print(f"  nvidia-smi: {smi}")
+
+
+def device_ms(fn, iters: int, name: str) -> float:
+    """:func:`kernel_device_ms`; the trace may drop a few launches (it has
+    shown 87 of 100), so it fails only when it kept under half of them."""
+    ms, seen = kernel_device_ms(fn, iters, name)
+    if seen < iters // 2:
+        fail(f"device time of {name}: the trace shows {seen} of {iters} launches")
+    return ms
 
 
 # --------------------------------------------------------------------- #
@@ -205,44 +237,18 @@ def check_nms(dev):
         same = int(((cls[:, :, None] == cls[:, None, :]) & pairs).sum())
         n_flops = b * k * (k - 1) / 2 + 14 * same + 5 * b * k
         host = host_ms(lambda: nms_suppress_cuda(boxes, cls, valid, thr), 200)
+        dev_ms = device_ms(lambda: nms_suppress_cuda(boxes, cls, valid, thr), 200,
+                           "nms_suppress_kernel")
         result[k] = dict(mismatches=mismatches, ms=ms, windows=windows, host_ms=host,
-                         plain_ms=plain_ms, bound=bound(n_bytes, n_flops))
+                         device_ms=dev_ms, plain_ms=plain_ms, bound=bound(n_bytes, n_flops))
         print(f"nms K={k}: bit-equal, kernel {ms:.4f} ms (windows {windows}), "
-              f"host issue {host:.4f} ms, plain {plain_ms:.3f} ms")
+              f"device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms")
     return result
 
 
 # --------------------------------------------------------------------- #
 # ROI crop kernel                                                       #
 # --------------------------------------------------------------------- #
-
-def roi_inputs(gen, b: int, d: int, h: int, w: int, dev):
-    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
-    x1 = torch.rand((b, d), generator=gen, device=dev) * w * 0.9
-    y1 = torch.rand((b, d), generator=gen, device=dev) * h * 0.9
-    # extents from sub-pixel to several hundred pixels (above EXACT_EXTENT)
-    ext = torch.exp(torch.rand((b, d, 2), generator=gen, device=dev) * 6.5) - 0.5
-    boxes = torch.stack(
-        [x1, y1, (x1 + ext[..., 0]).clamp(max=w), (y1 + ext[..., 1]).clamp(max=h)], -1
-    ).contiguous()
-    valid = torch.rand((b, d), generator=gen, device=dev) < 0.9
-    return frames, boxes, valid
-
-
-def touched_bytes(levels, boxes, valid, out_size: int) -> int:
-    """Source bytes the 2-tap crop must read for this run's boxes: per valid
-    ROI, the distinct rows times the distinct columns its taps touch."""
-    hw = [(int(l.shape[1]), int(l.shape[2])) for l in levels]
-    _, ys, ye, xs, xe, yl, xl = roi_geometry(boxes, hw, EXACT_EXTENT)
-
-    def distinct(start, extent, limit):
-        i0, i1, _, _ = axis_taps(start, extent, limit, out_size)
-        taps = torch.cat([i0, i1], -1).sort(-1).values
-        return 1 + (taps[..., 1:] != taps[..., :-1]).sum(-1)
-
-    rows, cols = distinct(ys, ye, yl), distinct(xs, xe, xl)
-    return int((rows * cols * valid).sum()) * int(levels[0].shape[-1])
-
 
 def grid_for(boxes, h: int, w: int, out_size: int):
     """grid_sample grid (B, D*S, S, 2) at the crop's sample centres."""
@@ -289,6 +295,7 @@ def check_roi(dev):
     kernel = lambda: roi_crop_cuda([frames], boxes, valid, s, EXACT_EXTENT, "dense")  # noqa: E731
     ms, windows = median_ms(kernel, 100)
     host = host_ms(kernel, 100)
+    dev_ms = device_ms(kernel, 100, "roi_crop_kernel")
     plain_ms = cuda_ms(lambda: crop_and_resize_plain([frames], boxes, valid, s), 10, 1)
     x = frames.permute(0, 3, 1, 2).float().contiguous()
     grid = grid_for(boxes, h, w, s)
@@ -301,11 +308,11 @@ def check_roi(dev):
     n_out = got.numel()
     n_valid_out = int(valid.sum()) * s * s * 3
     n_bytes = touched_bytes([frames], boxes, valid, s) + boxes.numel() * 4 + valid.numel() + n_out * 4
-    result["dense"] = dict(err=err, ms=ms, windows=windows, host_ms=host, plain_ms=plain_ms,
-                           library_ms=library_ms, library_err=lib_err,
+    result["dense"] = dict(err=err, ms=ms, windows=windows, host_ms=host, device_ms=dev_ms,
+                           plain_ms=plain_ms, library_ms=library_ms, library_err=lib_err,
                            bound=bound(n_bytes, 9 * n_valid_out))
     print(f"roi dense: max err {err}, kernel {ms:.4f} ms (windows {windows}), "
-          f"host issue {host:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms, "
           f"grid_sample {library_ms:.4f} ms (max diff {lib_err:.3g})")
     del x, grid, lib_out
 
@@ -323,6 +330,7 @@ def check_roi(dev):
     kernel = lambda: roi_crop_cuda(levels, boxes, valid, s, EXACT_EXTENT, "pyramid")  # noqa: E731
     ms, windows = median_ms(kernel, 100)
     host = host_ms(kernel, 100)
+    dev_ms = device_ms(kernel, 100, "roi_crop_kernel")
     plain_ms = cuda_ms(lambda: crop_and_resize_plain(levels, boxes, valid, s), 10, 1)
     with_levels_ms, with_levels_windows = median_ms(
         lambda: crop_and_resize_pyramid(frames, boxes, valid, s), 100
@@ -333,14 +341,24 @@ def check_roi(dev):
     # the level build reads the frame once and writes each level once
     level_bytes = sum(l.numel() for l in levels)
     with_levels_bound = bound(level_bytes + io_bytes, frames.numel() + 9 * n_valid_out)
-    result["pyramid"] = dict(err=err, ms=ms, windows=windows, host_ms=host, plain_ms=plain_ms,
+    result["pyramid"] = dict(err=err, ms=ms, windows=windows, host_ms=host, device_ms=dev_ms,
+                             plain_ms=plain_ms,
                              levels=len(levels), bound=bound(n_bytes, 9 * n_valid_out),
                              with_levels_ms=with_levels_ms,
                              with_levels_windows=with_levels_windows,
                              with_levels_bound=with_levels_bound)
     print(f"roi pyramid ({len(levels)} levels): max err {err}, kernel {ms:.4f} ms "
-          f"(windows {windows}), host issue {host:.4f} ms, plain {plain_ms:.3f} ms, levels+kernel "
-          f"{with_levels_ms:.4f} ms (windows {with_levels_windows})")
+          f"(windows {windows}), device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, levels+kernel {with_levels_ms:.4f} ms (windows "
+          f"{with_levels_windows})")
+
+    # an all-invalid batch: every slot zero, in both modes
+    valid = torch.zeros_like(valid)
+    for mode in ("dense", "pyramid"):
+        got = roi_error(frames, boxes, valid, s, mode)[1]
+        if bool(got.any()):
+            fail(f"ROI kernel ({mode}): an all-invalid batch gave non-zero crops")
+    print("roi: an all-invalid batch gives zero crops in both modes")
     return result
 
 
@@ -358,6 +376,54 @@ def bf16_ulp_error(got, want) -> float:
     return float(((g - w).abs() / ulp).max())
 
 
+def stem_error(result: dict, got, want, what: str) -> None:
+    """Hold one stem output to the plain version's; the worst error of each
+    output type goes into ``result``."""
+    if got.shape != want.shape or not got.permute(0, 3, 1, 2).is_contiguous():
+        fail(f"stem kernel {what}: shape or layout differs")
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.float32:
+        result["f32_err"] = max(result["f32_err"], err)
+        if not err <= STEM_TOL:
+            fail(f"stem kernel {what} f32: max abs error {err} > {STEM_TOL}")
+    else:
+        ulps = bf16_ulp_error(got, want)
+        result["bf16_err"] = max(result["bf16_err"], err)
+        result["bf16_ulps"] = max(result["bf16_ulps"], ulps)
+        if not ulps <= 1.0:
+            fail(f"stem kernel {what} bf16: {ulps} ulps from the plain version")
+
+
+def stem_weights(gen, c: int, dev):
+    kernel = torch.randn((3, 3, 3, c), generator=gen, device=dev) / (255 * 27 ** 0.5)
+    bias = torch.randn(c, generator=gen, device=dev) * 0.1
+    return kernel, bias, pack_stem_params(kernel.reshape(27, c), bias)
+
+
+def check_stem_edges(dev, gen, result: dict) -> None:
+    """The stem kernel at its tile and pair edges (``STEM_EDGE_*``), through
+    ``stem_cuda`` (``fused_stem`` takes H % 80 == 0 only)."""
+    n = 0
+    for c in STEM_EDGE_C:
+        kernel, bias, params = stem_weights(gen, c, dev)
+        for h in STEM_EDGE_H:
+            for w in STEM_EDGE_W:
+                for fill in STEM_EDGE_FILLS:
+                    if fill == "random":
+                        frames = torch.randint(0, 256, (2, h, w, 3), generator=gen,
+                                               device=dev, dtype=torch.uint8)
+                    else:
+                        frames = torch.full((2, h, w, 3), fill, device=dev, dtype=torch.uint8)
+                    for dtype in (torch.float32, torch.bfloat16):
+                        got = stem_cuda(frames, kernel.reshape(27, c), bias, dtype, params)
+                        want = stem_plain(frames, kernel, bias, dtype)
+                        torch.cuda.synchronize()
+                        stem_error(result, got.permute(0, 2, 3, 1), want,
+                                   f"2x{h}x{w} C={c} {fill} frames")
+                        n += 1
+    print(f"stem edges: {n} cases within tolerance")
+
+
 def check_stem(dev):
     """The stem kernel vs ``stem_plain`` on every case and both output
     types; the serving case timed in bf16 beside the cuDNN stem."""
@@ -367,32 +433,20 @@ def check_stem(dev):
     for i, (b, h, w, c) in enumerate(STEM_CASES):
         frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev,
                                dtype=torch.uint8)
-        kernel = torch.randn((3, 3, 3, c), generator=gen, device=dev) / (255 * 27 ** 0.5)
-        bias = torch.randn(c, generator=gen, device=dev) * 0.1
+        kernel, bias, params = stem_weights(gen, c, dev)
         for dtype in (torch.float32, torch.bfloat16):
-            got = fused_stem(frames, kernel, bias, dtype)
+            got = fused_stem(frames, kernel, bias, dtype, params)
             want = stem_plain(frames, kernel, bias, dtype)
             torch.cuda.synchronize()
-            if got.shape != want.shape or not got.permute(0, 3, 1, 2).is_contiguous():
-                fail(f"stem kernel {b}x{h}x{w} C={c}: shape or layout differs")
-            err = float((got.float() - want.float()).abs().max())
-            if dtype == torch.float32:
-                result["f32_err"] = max(result["f32_err"], err)
-                if not err <= STEM_TOL:
-                    fail(f"stem kernel {b}x{h}x{w} C={c} f32: max abs error {err} > {STEM_TOL}")
-            else:
-                ulps = bf16_ulp_error(got, want)
-                result["bf16_err"] = max(result["bf16_err"], err)
-                result["bf16_ulps"] = max(result["bf16_ulps"], ulps)
-                if not ulps <= 1.0:
-                    fail(f"stem kernel {b}x{h}x{w} C={c} bf16: {ulps} ulps from the plain version")
+            stem_error(result, got, want, f"{b}x{h}x{w} C={c}")
             del got, want
         if i:
             continue
         # the serving case, bf16 out, as the main path runs it
-        kern = lambda: fused_stem(frames, kernel, bias, torch.bfloat16)  # noqa: E731
+        kern = lambda: fused_stem(frames, kernel, bias, torch.bfloat16, params)  # noqa: E731
         ms, windows = median_ms(kern, 50)
         host = host_ms(kern, 50)
+        dev_ms = device_ms(kern, 50, "stem_tiled_kernel")
         plain_ms = cuda_ms(lambda: stem_plain(frames, kernel, bias, torch.bfloat16), 5, 1)
         # what the port ran before at this size: the canvas cast, then cuDNN
         canvas = frames.permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -405,14 +459,15 @@ def check_stem(dev):
         # frames read once, bf16 out written once; 27 multiply-adds (2 ops
         # each), the bias add and SiLU's add, divide and multiply per output
         n_bytes = frames.numel() + 2 * n_out + 4 * 28 * c
-        result.update(ms=ms, windows=windows, host_ms=host, plain_ms=plain_ms,
-                      library_ms=library_ms, cast_ms=cast_ms,
+        result.update(ms=ms, windows=windows, host_ms=host, device_ms=dev_ms,
+                      plain_ms=plain_ms, library_ms=library_ms, cast_ms=cast_ms,
                       bound=bound(n_bytes, n_out * (2 * 27 + 4)))
         print(f"stem B={b} {h}x{w} C={c} bf16: kernel {ms:.4f} ms (windows {windows}), "
-              f"host issue {host:.4f} ms, plain {plain_ms:.3f} ms, cuDNN conv+bias+SiLU "
-              f"{library_ms:.4f} ms after a {cast_ms:.4f} ms canvas cast, "
-              f"bound {result['bound'][0]:.4f} ms ({result['bound'][1]})")
+              f"device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"cuDNN conv+bias+SiLU {library_ms:.4f} ms after a {cast_ms:.4f} ms canvas "
+              f"cast, bound {result['bound'][0]:.4f} ms ({result['bound'][1]})")
         del canvas
+    check_stem_edges(dev, gen, result)
     print(f"stem: max abs error f32 {result['f32_err']:.3g}, bf16 {result['bf16_err']:.3g} "
           f"({result['bf16_ulps']:.3g} ulp)")
     return result
@@ -646,7 +701,8 @@ def run(dev) -> None:
     smi = nvidia_smi()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    build_kernels()
+    paths = build_kernels()
+    print_resources(paths, smi, "before the timed windows")
 
     nms = check_nms(dev)
     roi = check_roi(dev)
@@ -655,6 +711,8 @@ def run(dev) -> None:
         check_small_pipeline(dev, seed, h, w)
     counts, timings, runs = main_path(dev)
     streaming = check_streaming(dev, runs[0][0], timings[0]["fps"])
+    smi_after = nvidia_smi()
+    print_resources(paths, smi_after, "after the timed windows")
 
     k0, k1 = NMS_KS
     dense, pyr = roi["dense"], roi["pyramid"]
@@ -664,14 +722,17 @@ def run(dev) -> None:
              max_abs_err=float(nms[k0]["mismatches"]), ms=nms[k0]["ms"],
              plain_ms=nms[k0]["plain_ms"], bound_ms=nms[k0]["bound"][0],
              bound_by=nms[k0]["bound"][1], library_ms=None, host_ms=nms[k0]["host_ms"],
+             device_ms=nms[k0]["device_ms"],
              shape=f"B={NMS_BATCH} K={k0}", **{
-                 f"k{k1}_ms": nms[k1]["ms"], f"k{k1}_plain_ms": nms[k1]["plain_ms"],
+                 f"k{k1}_ms": nms[k1]["ms"], f"k{k1}_device_ms": nms[k1]["device_ms"],
+                 f"k{k1}_plain_ms": nms[k1]["plain_ms"],
                  f"k{k1}_bound_ms": nms[k1]["bound"][0]}),
         dict(name="roi_crop_dense", route="cuda", source="litepi_tpu_torch/csrc/roi.cu",
              replaces="litepi_tpu/ops/pallas_roi.py:207", launches=counts["roi_crop_dense"],
              max_abs_err=dense["err"], ms=dense["ms"], plain_ms=dense["plain_ms"],
              bound_ms=dense["bound"][0], bound_by=dense["bound"][1],
              library_ms=dense["library_ms"], host_ms=dense["host_ms"],
+             device_ms=dense["device_ms"],
              library="F.grid_sample(border, align_corners=False)",
              library_max_abs_diff=dense["library_err"],
              shape="B={} D={} {}x{} out=64".format(*ROI_DENSE)),
@@ -679,7 +740,7 @@ def run(dev) -> None:
              replaces="litepi_tpu/ops/pallas_roi.py:207", launches=counts["roi_crop_pyramid"],
              max_abs_err=pyr["err"], ms=pyr["ms"], plain_ms=pyr["plain_ms"],
              bound_ms=pyr["bound"][0], bound_by=pyr["bound"][1], library_ms=None,
-             host_ms=pyr["host_ms"],
+             host_ms=pyr["host_ms"], device_ms=pyr["device_ms"],
              with_levels_ms=pyr["with_levels_ms"],
              with_levels_bound_ms=pyr["with_levels_bound"][0],
              shape="B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
@@ -689,14 +750,15 @@ def run(dev) -> None:
              max_abs_err=stem["f32_err"], ms=stem["ms"], plain_ms=stem["plain_ms"],
              bound_ms=stem["bound"][0], bound_by=stem["bound"][1],
              library_ms=stem["library_ms"], host_ms=stem["host_ms"],
+             device_ms=stem["device_ms"],
              library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
              library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
              bf16_max_ulps=stem["bf16_ulps"],
              shape="B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0])),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"e2e": timings, "streaming": streaming, "power": smi}))
-    print(smi)
+    print(json.dumps({"e2e": timings, "streaming": streaming, "power": smi_after}))
+    print(smi_after)
 
 
 def main() -> int:

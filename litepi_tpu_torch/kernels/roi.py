@@ -17,6 +17,7 @@ from litepi_tpu_torch.kernels import LAUNCHES
 from litepi_tpu_torch.kernels.build import check, load
 
 MAX_LEVELS = 8  # csrc/roi.cu kMaxLevels
+MAX_OUT = 512  # csrc/roi.cu kMaxOut (the block's tap tables in shared memory)
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,6 +59,8 @@ def roi_crop_cuda(
         raise ValueError(f"unknown ROI crop mode {mode!r}")
     if mode == "dense" and len(levels) != 1:
         raise ValueError("dense mode takes the frames as its only level")
+    if not 1 <= int(out_size) <= MAX_OUT:
+        raise ValueError(f"out_size {out_size}; the kernel takes 1..{MAX_OUT}")
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels, got {len(levels)}")
     frames = levels[0]

@@ -11,10 +11,14 @@ the contract keeps it so that both packages take the same frames.
 The output is a (B, H/2, W/2, C) view of NCHW memory, so that the
 detector's next convolution gets the layout it gets from the cuDNN stem.
 A CUDA tensor goes through the stem kernel (``csrc/stem.cu``), a CPU
-tensor through :func:`stem_plain`.
+tensor through :func:`stem_plain`.  The kernel takes its weights for C =
+16 and 32 from the host (``kernels/stem.py::pack_stem_params``): pass them
+packed once as ``params``; a CUDA call without them raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,10 +46,11 @@ def fused_stem(
     kernel_hwio_folded: torch.Tensor,
     bias: torch.Tensor,
     out_dtype: torch.dtype = torch.bfloat16,
+    params: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, H, W, 3) uint8 frames -> (B, H/2, W/2, C) stem activations in
-    ``out_dtype``: the stem kernel on a CUDA tensor, :func:`stem_plain` on
-    a CPU tensor."""
+    ``out_dtype``: the stem kernel on a CUDA tensor (weights from
+    ``params`` where given), :func:`stem_plain` on a CPU tensor."""
     if frames.dtype != torch.uint8 or frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(
             f"frames must be (B, H, W, 3) uint8, got {tuple(frames.shape)} {frames.dtype}"
@@ -57,7 +62,7 @@ def fused_stem(
         from litepi_tpu_torch.kernels.stem import stem_cuda
 
         c = kernel_hwio_folded.shape[-1]
-        out = stem_cuda(frames, kernel_hwio_folded.reshape(27, c), bias, out_dtype)
+        out = stem_cuda(frames, kernel_hwio_folded.reshape(27, c), bias, out_dtype, params)
         return out.permute(0, 2, 3, 1)
     if frames.device.type != "cpu":
         raise ValueError(f"no stem for device {frames.device}")

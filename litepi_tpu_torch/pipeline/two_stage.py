@@ -30,6 +30,7 @@ from torch import nn
 
 from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import PipelineConfig
+from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.models import YoloLitePi, build_classifier
 from litepi_tpu_torch.models.registry import CLASSIFIER_BN_EPS
 from litepi_tpu_torch.ops.anchors import make_anchors
@@ -114,11 +115,16 @@ class TwoStagePipeline:
         # raw 0-255 pixels in the host's colour order to a stem whose
         # kernel has the 1/255 scale and the BGR->RGB flip folded in
         # (weights/fold_bn.py): the stem kernel's float32 HWIO kernel for
-        # canvas-sized frames, a conv module for letterboxed canvases
+        # canvas-sized frames (with its host copy, packed once here as the
+        # kernel's parameter block, so no call reads the weights back), a
+        # conv module for letterboxed canvases
         stem_w = det_state["backbone.stem.conv.weight"].float()
         flip = cfg.input_color == "bgr"
-        self._stem_kernel = stem_kernel_hwio(stem_w, flip).to(self.device)
-        self._stem_bias = det_state["backbone.stem.conv.bias"].float().to(self.device)
+        stem_kernel = stem_kernel_hwio(stem_w, flip)
+        stem_bias = det_state["backbone.stem.conv.bias"].float()
+        self._stem_params = pack_stem_params(stem_kernel.reshape(27, -1), stem_bias)
+        self._stem_kernel = stem_kernel.to(self.device)
+        self._stem_bias = stem_bias.to(self.device)
         raw_stem = copy.deepcopy(self.det_model.backbone.stem)
         with torch.no_grad():
             raw_stem.conv.weight.copy_(fold_stem_input(stem_w, 1.0 / 255.0, flip))
@@ -214,7 +220,9 @@ class TwoStagePipeline:
         dtype.  A failing kernel raises; it never selects the other branch.
         """
         if self._canvas_sized(frames):
-            act = fused_stem(frames, self._stem_kernel, self._stem_bias, self.dtype)
+            act = fused_stem(
+                frames, self._stem_kernel, self._stem_bias, self.dtype, self._stem_params
+            )
             return act.permute(0, 3, 1, 2)
         return self._raw_stem(self._letterbox(frames))
 

@@ -61,10 +61,30 @@ def cuda_ms_windows(fn, iters: int, windows: int, warmup: int = 3) -> list:
     return [cuda_ms(fn, iters, warmup if i == 0 else 0) for i in range(windows)]
 
 
+def kernel_device_ms(fn, iters: int, name: str) -> tuple:
+    """(mean per-launch device milliseconds, launches seen) of the kernels
+    whose name contains ``name``, from ``torch.profiler``'s CUDA activity
+    over ``iters`` calls of ``fn`` after one untraced call.  The kernel's
+    own duration on the card, whatever the host's issue rate; tracing
+    slows the host, so this window is kept apart from the CUDA-event
+    ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
+    return (sum(us) / len(us) / 1e3 if us else float("nan")), len(us)
+
+
 KINDS = (
     ("nms_kernel", ("nms_suppress_kernel",)),
     ("roi_kernel", ("roi_crop_kernel",)),
-    ("stem_kernel", ("stem_kernel",)),
+    ("stem_kernel", ("stem_tiled_kernel", "stem_generic_kernel")),
     ("conv_gemm", ("conv", "cudnn", "xmma", "gemm", "sm90_", "implicit", "cutlass",
                    "wgrad", "dgrad", "fprop")),
     ("sort_topk", ("sort", "radix", "topk")),

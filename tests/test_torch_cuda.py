@@ -14,8 +14,8 @@ import torch
 
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
-from litepi_tpu_torch.kernels.roi import roi_crop_cuda
-from litepi_tpu_torch.kernels.stem import stem_cuda
+from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
+from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
 from litepi_tpu_torch.ops.nms import suppress, suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
@@ -73,6 +73,25 @@ def test_stem_wrapper_rejects_cpu_tensors_and_wrong_dtypes():
         stem_cuda(frames, weight, bias, torch.float16)
     with pytest.raises(ValueError, match="even"):
         stem_cuda(frames[:, :79], weight, bias, torch.float32)
+
+
+def test_wrappers_reject_an_unsupported_size_before_any_launch():
+    """An out_size or a channel count the kernels do not take raises before
+    the device is even looked at (these tensors are on the CPU)."""
+    frames = torch.zeros((1, 16, 16, 3), dtype=torch.uint8)
+    boxes, valid = torch.zeros((1, 2, 4)), torch.ones((1, 2), dtype=torch.bool)
+    for size in (0, MAX_OUT + 1):
+        with pytest.raises(ValueError, match="out_size"):
+            roi_crop_cuda([frames], boxes, valid, size, EXACT_EXTENT, "dense")
+    for c in (0, MAX_CHANNELS + 1):
+        with pytest.raises(ValueError, match="C="):
+            stem_cuda(frames, torch.zeros((27, c)), torch.zeros(c), torch.float32)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="must be \\(27, C\\)"):
+        pack_stem_params(torch.zeros((3, 3, 3, 16)), torch.zeros(16))
+    with pytest.raises(ValueError, match="bias"):
+        pack_stem_params(torch.zeros((27, 16)), torch.zeros(15))
+    assert launch_counts() == before
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -153,6 +172,59 @@ def test_roi_kernel_dense_and_pyramid(cuda, hw):
     # the plain version on the card equals the plain version on the CPU
     cpu = crop_and_resize_plain([l.cpu() for l in levels], boxes.cpu(), valid.cpu(), 64)
     torch.testing.assert_close(want.cpu(), cpu, atol=0, rtol=0)
+
+
+def _edge_boxes(h, w):
+    """Boxes at every frame edge, sub-pixel boxes, and extents on both sides
+    of EXACT_EXTENT * 4^k (the pyramid's level thresholds) that fit the
+    frame, along x and along y."""
+    pool = [
+        (0, 0, 50, 40), (w - 60, 0, w, 30), (0, h - 25, 33, h), (w - 70, h - 80, w, h),
+        (0, 0, w, h), (-4.5, -3.25, 20.5, 9.75), (w - 9.5, h - 7.25, w + 3.0, h + 2.0),
+        (100.3, 200.6, 100.9, 201.2), (w / 2 + 0.5, h / 2 + 0.25, w / 2 + 0.75, h / 2 + 0.5),
+    ]
+    for k in range(4):
+        for e in (EXACT_EXTENT * 4 ** k, EXACT_EXTENT * 4 ** k + 1):
+            if 10 + e <= w:
+                pool.append((10.7, 20.2, 10.7 + e, 60.9))
+            if 5 + e <= h:
+                pool.append((30.1, 5.0, 80.6, 5.0 + e))
+    return pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17])
+@pytest.mark.parametrize("out_size", [64, 7])
+@pytest.mark.parametrize("mode", ["dense", "pyramid"])
+def test_roi_kernel_edge_boxes(cuda, d, out_size, mode):
+    """Edge, sub-pixel and level-threshold boxes; D=17 and S=7 put ROI
+    starts off 16-byte boundaries (the kernel's scalar head and tail).
+    Tolerance 1e-3 of 255, 0 expected."""
+    h, w = 1080, 1920
+    pool = _edge_boxes(h, w)
+    b = -(-len(pool) // d)
+    gen = torch.Generator(device=cuda).manual_seed(d * 100 + out_size)
+    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    flat = [pool[i % len(pool)] for i in range(b * d)]
+    boxes = torch.tensor(flat, dtype=torch.float32, device=cuda).reshape(b, d, 4)
+    valid = (torch.arange(b * d, device=cuda) % 5 != 4).reshape(b, d)
+    levels = [frames] if mode == "dense" else build_pyramid(frames, len(pyramid_scales(h, w)))
+    got = roi_crop_cuda(levels, boxes, valid, out_size, EXACT_EXTENT, mode)
+    want = crop_and_resize_plain(levels, boxes, valid, out_size)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    assert (got[~valid] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_size", [64, 7])
+def test_roi_kernel_all_invalid_batch(cuda, out_size):
+    gen = torch.Generator(device=cuda).manual_seed(out_size)
+    frames, boxes, _ = _roi_inputs(gen, 3, 5, 480, 640, cuda)
+    valid = torch.zeros((3, 5), dtype=torch.bool, device=cuda)
+    for out in (crop_and_resize(frames, boxes, valid, out_size),
+                crop_and_resize_pyramid(frames, boxes, valid, out_size)):
+        assert out.shape == (3, 5, out_size, out_size, 3)
+        assert (out == 0).all()
 
 
 @pytest.mark.gpu
@@ -270,8 +342,9 @@ def test_stem_kernel_matches_plain(cuda, monkeypatch, b, c, dtype):
                            dtype=torch.uint8)
     kernel = torch.randn((3, 3, 3, c), generator=gen, device=cuda) / (255 * 27 ** 0.5)
     bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+    params = pack_stem_params(kernel.reshape(27, c), bias)
     before = LAUNCHES["stem"]
-    got = fused_stem(frames, kernel, bias, dtype)
+    got = fused_stem(frames, kernel, bias, dtype, params)
     assert LAUNCHES["stem"] == before + 1
     want = stem_plain(frames, kernel, bias, dtype)
     torch.cuda.synchronize()
@@ -288,6 +361,58 @@ def test_stem_kernel_matches_plain(cuda, monkeypatch, b, c, dtype):
         torch.testing.assert_close(want.cpu(), cpu, atol=1e-4, rtol=0)
     else:
         assert _within_bf16_ulp(want.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [2, 6, 80])
+@pytest.mark.parametrize("w", [2, 10, 642])
+@pytest.mark.parametrize("c", [16, 32, 3, 20, 256])
+def test_stem_kernel_tile_and_pair_edges(cuda, monkeypatch, h, w, c):
+    """Heights and widths at the kernel's tile edges (W=642: an odd output
+    width of 321, so bf16x2 pairs would straddle rows), C=16 and 32 on the
+    weights-as-parameters path and 3, 20, 256 on the generic one; random,
+    all-0 and all-255 frames; float32 within 1e-4, bfloat16 within one
+    ulp of the plain version."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(h * 1000 + w * 10 + c)
+    kernel = torch.randn((3, 3, 3, c), generator=gen, device=cuda) / (255 * 27 ** 0.5)
+    bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+    params = pack_stem_params(kernel.reshape(27, c), bias)
+    fills = [torch.randint(0, 256, (2, h, w, 3), generator=gen, device=cuda,
+                           dtype=torch.uint8)]
+    fills += [torch.full((2, h, w, 3), v, dtype=torch.uint8, device=cuda) for v in (0, 255)]
+    for frames in fills:
+        for dtype in (torch.float32, torch.bfloat16):
+            got = stem_cuda(frames, kernel.reshape(27, c), bias, dtype, params)
+            want = stem_plain(frames, kernel, bias, dtype).permute(0, 3, 1, 2)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (2, c, h // 2, w // 2)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+            else:
+                assert _within_bf16_ulp(got, want)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_params_are_the_packed_weights(cuda):
+    """For C = 16 and 32 the kernel reads its weights from ``params`` alone:
+    a call without them, or with parameters of the wrong shape, type or
+    device, is refused before any launch (packing in the wrapper would
+    copy from the card)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    frames = torch.randint(0, 256, (2, 80, 160, 3), generator=gen, device=cuda,
+                           dtype=torch.uint8)
+    before = LAUNCHES["stem"]
+    for c in (16, 32):
+        weight = torch.randn((27, c), generator=gen, device=cuda) / 1000
+        bias = torch.randn(c, generator=gen, device=cuda)
+        params = pack_stem_params(weight, bias)
+        with pytest.raises(ValueError, match="params"):
+            stem_cuda(frames, weight, bias, torch.float32)
+        for bad in (params[:27], params.double(), params.to(cuda), params.t().contiguous()):
+            with pytest.raises(ValueError, match="params"):
+                stem_cuda(frames, weight, bias, torch.float32, bad)
+    assert LAUNCHES["stem"] == before
 
 
 @pytest.mark.gpu

@@ -8,6 +8,8 @@ float32: both sum 27 float32 products, in other orders).  On the CPU
 the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +19,11 @@ from litepi_tpu.ops.pallas_stem import pallas_stem
 from litepi_tpu.weights.fold_bn import fold_detector_pipeline_vars
 from litepi_tpu.weights.fold_bn import fold_stem_input as jax_fold_stem
 from litepi_tpu_torch.kernels import LAUNCHES
+from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
 from litepi_tpu_torch.weights import fold_batchnorm, jax_to_state_dict, stem_kernel_hwio
-from tests.torch_port_helpers import SMALL, jax_init_vars, perturb_batchnorm
+from litepi_tpu_torch.pipeline import TwoStagePipeline
+from tests.torch_port_helpers import SMALL, jax_init_vars, perturb_batchnorm, port_config
 
 
 def _inputs(seed, shape, c_out):
@@ -97,3 +101,55 @@ def test_stem_kernel_hwio_matches_the_jax_fold(flip):
     np.testing.assert_array_equal(got.numpy(), want)
     # the kernel pallas_stem takes: its (27, C) reshape is the tap order
     assert got.reshape(27, -1).shape == (27, SMALL.detector.channels[0])
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_packed_stem_params_are_the_fold_in_tap_order(flip):
+    """The stem kernel's parameter block (pack_stem_params): rows 0-26 the
+    HWIO fold (weights/fold_bn.py::stem_kernel_hwio) reshaped to (27, C) in
+    (dy, dx, ci) order, row 27 the folded bias, bit for bit against numpy
+    and against the JAX package's fold."""
+    det, _ = jax_init_vars(SMALL, seed=0)
+    det = perturb_batchnorm(det, seed=3)
+    folded, _ = fold_detector_pipeline_vars(det)
+    raw = jax_fold_stem(folded, 1.0 / 255.0, flip)["params"]["backbone"]["stem"]["conv"]
+    state = fold_batchnorm(jax_to_state_dict(det))
+    hwio = stem_kernel_hwio(state["backbone.stem.conv.weight"], flip)
+    c = hwio.shape[-1]
+    bias = state["backbone.stem.conv.bias"]
+    packed = pack_stem_params(hwio.reshape(27, c), bias)
+    assert packed.dtype == torch.float32 and packed.shape == (28, c)
+    assert packed.device.type == "cpu" and packed.is_contiguous()
+    want = np.concatenate([hwio.numpy().reshape(27, c), bias.numpy()[None]])
+    np.testing.assert_array_equal(packed.numpy(), want)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(3):
+                np.testing.assert_array_equal(
+                    packed[(dy * 3 + dx) * 3 + ci].numpy(), np.asarray(raw["kernel"])[dy, dx, ci]
+                )
+    np.testing.assert_array_equal(packed[27].numpy(), np.asarray(raw["bias"]))
+
+
+@pytest.mark.parametrize("input_color", ["rgb", "bgr"])
+def test_pipeline_packs_its_stem_params_once(input_color):
+    """TwoStagePipeline packs the stem kernel's parameter block when it
+    folds its stem: the host copy of the kernel and bias it holds."""
+    det, clf = jax_init_vars(SMALL, seed=0)
+    cfg = port_config(dataclasses.replace(SMALL, input_color=input_color))
+    pipe = TwoStagePipeline.from_jax_vars(cfg, det, clf, device="cpu")
+    c = pipe._stem_kernel.shape[-1]
+    assert pipe._stem_params.device.type == "cpu"
+    np.testing.assert_array_equal(
+        pipe._stem_params.numpy(),
+        np.concatenate([pipe._stem_kernel.numpy().reshape(27, c), pipe._stem_bias.numpy()[None]]),
+    )
+
+
+def test_fused_stem_on_the_cpu_ignores_params():
+    """On CPU tensors the plain version runs, with or without the packed
+    parameter block."""
+    frames, kernel, bias = (torch.from_numpy(a) for a in _inputs(5, (1, 80, 80, 3), 16))
+    params = pack_stem_params(kernel.reshape(27, 16), bias)
+    assert torch.equal(fused_stem(frames, kernel, bias, torch.float32, params),
+                       stem_plain(frames, kernel, bias, torch.float32))
