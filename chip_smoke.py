@@ -9,13 +9,17 @@ It builds the CUDA kernels from ``litepi_tpu_torch/csrc`` (one ``nvcc`` per
 source, in parallel), then:
 
 1. NMS kernel vs ``suppress_sorted`` on the same CUDA tensors: keep masks
-   bit-equal at B=128 with K=64 (the serving candidate budget) and K=512;
+   bit-equal at B=128 for K in {1, 63, 64, 65, 512, 1024} (both sides of
+   the one-kernel bound at 64 and of a word edge) with 1, 3 and 91
+   classes; timed at K=64 (the serving candidate budget) and K=512 (the
+   NMSConfig default) on 1-class inputs, the serving detector's;
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
    640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
-   levels) and on an all-invalid batch; dense timed on the first, pyramid
-   on the second, both alone and, for pyramid, with the level build the
-   main path runs; tolerance 1e-3 on 0-255 values (both round each f32
-   product and sum once, in the same order; 0 is expected);
+   levels) and on an all-invalid batch; dense timed on both sizes (beside
+   ``F.grid_sample``), pyramid on the second, both alone and, for
+   pyramid, with the level build the main path runs; tolerance 1e-3 on
+   0-255 values (both round each f32 product and sum once, in the same
+   order; 0 is expected);
 3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem),
    B=2 160x240 C=32, and the tile and pair edges: H in {2, 6, 80}, W in
    {2, 10, 642} (642: an odd output width), C in {16, 32} (weights as
@@ -37,8 +41,13 @@ source, in parallel), then:
    crop, each on device frames and a device ``area_scale`` under
    ``torch.cuda.set_sync_debug_mode("error")``, so any host
    synchronisation fails the run.  Launch counts are zeroed just before
-   and read just after; every kernel must have run;
-6. streaming: ``StreamingRunner.run`` over 12 batches of B=128 640x640
+   each run and read just after; every kernel must have run;
+6. the staged ``detect`` at full width with the default NMSConfig (512
+   candidates, 64 detections) on B=32 640x640 [0, 1] canvases, the path
+   that runs the NMS kernel at K=512: issued under the same sync check,
+   the NMS kernel launched once, outputs equal to ``nms_sorted`` over the
+   same candidates with the plain keep mask;
+7. streaming: ``StreamingRunner.run`` over 12 batches of B=128 640x640
    letterboxed canvases of a 1080x1920 source (3 distinct batches made
    from a seed, cycled), inflight 2, each batch equal to a direct
    ``run_fused`` + host unmap of the same canvases; frames/s beside the
@@ -50,7 +59,8 @@ checks and again after the timed phases, a ``{"kernels": [...]}`` JSON
 line (``ms`` from CUDA events after warm-up, the median of 5 windows;
 ``device_ms`` the mean duration of the kernel itself from
 ``torch.profiler``'s CUDA activity over as many launches as one window,
-traced apart from the timed windows; ``host_ms``
+traced apart from the timed windows, summed over the kernels of one call
+(K1 above K=64 runs two); ``host_ms``
 the host's time to issue one call, so that where ``host_ms`` is near
 ``ms`` the window timed the host and ``device_ms`` is the kernel's time;
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
@@ -79,6 +89,7 @@ from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.ops.letterbox import letterbox_params
+from litepi_tpu_torch.ops import nms as nms_ops
 from litepi_tpu_torch.ops.nms import suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
@@ -91,6 +102,7 @@ from litepi_tpu_torch.ops.roi import (
 from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
 from litepi_tpu_torch.pipeline import StreamingRunner, TwoStagePipeline
 from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
+from litepi_tpu_torch.tools.nms_ab import nms_inputs
 from litepi_tpu_torch.tools.roi_ab import roi_inputs, touched_bytes
 from litepi_tpu_torch.tools.stage_split import cuda_ms, cuda_ms_windows, kernel_device_ms
 
@@ -98,7 +110,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
 ROI_TOL = 1e-3
 
-NMS_BATCH, NMS_KS = 128, (64, 512)  # serving K, and the NMSConfig default
+NMS_BATCH, NMS_KS = 128, (64, 512)  # timed: serving K, and the NMSConfig default
+NMS_EQUAL_KS = (1, 63, 64, 65, 512, 1024)  # both sides of the one-kernel bound and a word edge
+NMS_CLASSES = (1, 3, 91)
 ROI_DENSE = (128, 8, 640, 640)  # B, D, H, W of the serving crop
 ROI_PYRAMID = (8, 8, 1080, 1920)
 STEM_CASES = ((128, 640, 640, 16), (2, 160, 240, 32))  # B, H, W, C; serving first
@@ -114,6 +128,7 @@ STEM_TOL = 1e-4
 SMALL_SCENES = ((11, 200, 300), (44, 160, 160))
 MAIN_RUNS = ((128, 640, 640, "dense"), (8, 1080, 1920, "dense"),
              (8, 1080, 1920, "pallas"))
+DETECT_BATCH = 32  # the staged detect at K=512; B=32 keeps the phase short
 STREAM_BATCH, STREAM_BATCHES, STREAM_DISTINCT = 128, 12, 3
 STREAM_SOURCE = (1080, 1920)  # the canvases' source frame: ratio 1/3, dh 140
 WINDOWS = 5  # back-to-back timing windows per kernel and per e2e run; the
@@ -192,11 +207,12 @@ def print_resources(paths: dict, smi: str, when: str) -> None:
 
 
 def device_ms(fn, iters: int, name: str) -> float:
-    """:func:`kernel_device_ms`; the trace may drop a few launches (it has
-    shown 87 of 100), so it fails only when it kept under half of them."""
+    """:func:`kernel_device_ms`, device time per call summed over the
+    call's kernels; the trace may drop a few launches (it has shown 87 of
+    100), so it fails only when it saw under half of the calls."""
     ms, seen = kernel_device_ms(fn, iters, name)
     if seen < iters // 2:
-        fail(f"device time of {name}: the trace shows {seen} of {iters} launches")
+        fail(f"device time of {name}: the trace shows {seen} of {iters} calls")
     return ms
 
 
@@ -204,45 +220,58 @@ def device_ms(fn, iters: int, name: str) -> float:
 # NMS kernel                                                            #
 # --------------------------------------------------------------------- #
 
-def nms_inputs(gen, b: int, k: int, dev):
-    xy = torch.rand((b, k, 2), generator=gen, device=dev) * 500
-    wh = 8 + torch.rand((b, k, 2), generator=gen, device=dev) * 200
-    boxes = torch.cat([xy, xy + wh], -1).contiguous()
-    cls = torch.randint(0, 3, (b, k), generator=gen, device=dev, dtype=torch.int32)
-    n_valid = torch.randint(k // 2, k + 1, (b, 1), generator=gen, device=dev)
-    valid = torch.arange(k, device=dev)[None, :] < n_valid
-    return boxes, cls, valid.contiguous()
+def nms_bound(boxes, cls, valid):
+    """(bound ms, by) of one call: boxes, cls and valid read once, keep
+    written once; the operations this run's data needs, which are the
+    pairs j < i with both candidates valid (an invalid one is never kept,
+    so it suppresses nothing and its own bit is never read): one class
+    compare each, an IoU (~14 operations) where the classes match, and 5
+    per box for the areas."""
+    b, k = valid.shape
+    n_bytes = b * k * (16 + 4 + 1) + b * k
+    pairs = valid[:, :, None] & valid[:, None, :] & torch.ones(
+        k, k, dtype=torch.bool, device=valid.device).triu(1)
+    same = int((pairs & (cls[:, :, None] == cls[:, None, :])).sum())
+    return bound(n_bytes, int(pairs.sum()) + 14 * same + 5 * b * k)
 
 
 def check_nms(dev):
-    gen = torch.Generator(device=dev).manual_seed(0)
+    """Bit-equality at every K of NMS_EQUAL_KS and class count of
+    NMS_CLASSES; the timed budgets NMS_KS on 1-class inputs (the serving
+    detector's), the inputs ``tools/nms_ab.py`` times."""
     b, thr = NMS_BATCH, 0.45
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = {k: nms_inputs(gen, b, k, 1, dev) for k in NMS_KS}
+    n = 0
+    for k in NMS_EQUAL_KS:
+        for num_classes in NMS_CLASSES:
+            boxes, cls, valid = (timed[k] if num_classes == 1 and k in timed
+                                 else nms_inputs(gen, b, k, num_classes, dev))
+            got = nms_suppress_cuda(boxes, cls, valid, thr)
+            want = suppress_sorted(boxes, valid, cls, thr)
+            torch.cuda.synchronize()
+            mismatches = int((got != want).sum())
+            if mismatches:
+                fail(f"NMS kernel K={k}, {num_classes} classes: {mismatches} keep bits "
+                     "differ from the plain version")
+            if k > 1 and not (0 < int(got.sum()) < int(valid.sum())):
+                fail(f"NMS check K={k}: inputs suppress nothing or keep nothing")
+            n += 1
+    print(f"nms: bit-equal to suppress_sorted in {n} cases (B={b}, K {NMS_EQUAL_KS}, "
+          f"classes {NMS_CLASSES})")
     result = {}
     for k in NMS_KS:
-        boxes, cls, valid = nms_inputs(gen, b, k, dev)
-        got = nms_suppress_cuda(boxes, cls, valid, thr)
-        want = suppress_sorted(boxes, valid, cls, thr)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        if mismatches:
-            fail(f"NMS kernel K={k}: {mismatches} keep bits differ from the plain version")
-        if not (0 < int(got.sum()) < int(valid.sum())):
-            fail(f"NMS check K={k}: inputs suppress nothing or keep nothing")
-        ms, windows = median_ms(lambda: nms_suppress_cuda(boxes, cls, valid, thr), 200)
+        boxes, cls, valid = timed[k]
+        kernel = lambda: nms_suppress_cuda(boxes, cls, valid, thr)  # noqa: E731
+        ms, windows = median_ms(kernel, 200)
         plain_ms = cuda_ms(lambda: suppress_sorted(boxes, valid, cls, thr), 10, 1)
-        n_bytes = b * k * (16 + 4 + 1) + b * k  # boxes, cls, valid in; keep out
-        # one class compare per pair j < i, an IoU (~14 operations) only for
-        # the same-class pairs, 5 per box for the areas
-        pairs = torch.ones(k, k, dtype=torch.bool, device=dev).triu(1)
-        same = int(((cls[:, :, None] == cls[:, None, :]) & pairs).sum())
-        n_flops = b * k * (k - 1) / 2 + 14 * same + 5 * b * k
-        host = host_ms(lambda: nms_suppress_cuda(boxes, cls, valid, thr), 200)
-        dev_ms = device_ms(lambda: nms_suppress_cuda(boxes, cls, valid, thr), 200,
-                           "nms_suppress_kernel")
-        result[k] = dict(mismatches=mismatches, ms=ms, windows=windows, host_ms=host,
-                         device_ms=dev_ms, plain_ms=plain_ms, bound=bound(n_bytes, n_flops))
-        print(f"nms K={k}: bit-equal, kernel {ms:.4f} ms (windows {windows}), "
-              f"device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms")
+        host = host_ms(kernel, 200)
+        dev_ms = device_ms(kernel, 200, "nms_")
+        result[k] = dict(mismatches=0, ms=ms, windows=windows, host_ms=host,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound=nms_bound(boxes, cls, valid))
+        print(f"nms K={k}, 1 class: kernel {ms:.4f} ms (windows {windows}), device "
+              f"{dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{result[k]['bound'][0]:.5f} ms ({result[k]['bound'][1]})")
     return result
 
 
@@ -281,17 +310,11 @@ def roi_error(frames, boxes, valid, out_size: int, mode: str):
     return err, got, levels
 
 
-def check_roi(dev):
-    """Both modes on both frame sizes; the serving shape of each mode timed."""
-    gen = torch.Generator(device=dev).manual_seed(1)
-    s = 64
-    result = {}
-
-    # dense mode, the serving crop (pyramid mode checked on the same inputs)
-    b, d, h, w = ROI_DENSE
-    frames, boxes, valid = roi_inputs(gen, b, d, h, w, dev)
-    err_pyr_640 = roi_error(frames, boxes, valid, s, "pyramid")[0]
-    err, got, _ = roi_error(frames, boxes, valid, s, "dense")
+def roi_timings(frames, boxes, valid, got, s: int) -> dict:
+    """The dense kernel timed on these inputs (``got`` its output), beside
+    its plain version and ``F.grid_sample`` on the same sample centres."""
+    b, d = boxes.shape[:2]
+    h, w = int(frames.shape[1]), int(frames.shape[2])
     kernel = lambda: roi_crop_cuda([frames], boxes, valid, s, EXACT_EXTENT, "dense")  # noqa: E731
     ms, windows = median_ms(kernel, 100)
     host = host_ms(kernel, 100)
@@ -305,24 +328,44 @@ def check_roi(dev):
     lib_out = lib().reshape(b, 3, d, s, s).permute(0, 2, 3, 4, 1)
     lib_err = float(((lib_out - got).abs() * valid[..., None, None, None]).max())
     library_ms = cuda_ms(lib, 20)
-    n_out = got.numel()
     n_valid_out = int(valid.sum()) * s * s * 3
-    n_bytes = touched_bytes([frames], boxes, valid, s) + boxes.numel() * 4 + valid.numel() + n_out * 4
-    result["dense"] = dict(err=err, ms=ms, windows=windows, host_ms=host, device_ms=dev_ms,
-                           plain_ms=plain_ms, library_ms=library_ms, library_err=lib_err,
-                           bound=bound(n_bytes, 9 * n_valid_out))
-    print(f"roi dense: max err {err}, kernel {ms:.4f} ms (windows {windows}), "
-          f"device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"grid_sample {library_ms:.4f} ms (max diff {lib_err:.3g})")
-    del x, grid, lib_out
+    n_bytes = (touched_bytes([frames], boxes, valid, s) + boxes.numel() * 4 + valid.numel()
+               + got.numel() * 4)
+    return dict(ms=ms, windows=windows, host_ms=host, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_err=lib_err, bound=bound(n_bytes, 9 * n_valid_out))
 
-    # pyramid mode at 1080x1920: levels 1/4, 1/16 and 1/64 (dense mode
-    # checked on the same inputs)
+
+def timing_text(r: dict) -> str:
+    return (f"kernel {r['ms']:.4f} ms (windows {r['windows']}), device {r['device_ms']:.4f} ms, "
+            f"host issue {r['host_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, grid_sample "
+            f"{r['library_ms']:.4f} ms (max diff {r['library_err']:.3g}), bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+
+
+def check_roi(dev):
+    """Both modes on both frame sizes; the serving shape of each mode timed."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    s = 64
+    result = {}
+
+    # dense mode, the serving crop (pyramid mode checked on the same inputs)
+    b, d, h, w = ROI_DENSE
+    frames, boxes, valid = roi_inputs(gen, b, d, h, w, dev)
+    err_pyr_640 = roi_error(frames, boxes, valid, s, "pyramid")[0]
+    err, got, _ = roi_error(frames, boxes, valid, s, "dense")
+    result["dense"] = dict(err=err, **roi_timings(frames, boxes, valid, got, s))
+    print(f"roi dense B={b} {h}x{w}: max err {err}, " + timing_text(result["dense"]))
+
+    # 1080x1920: dense mode (the B=8 dense main run's shape) checked and
+    # timed beside grid_sample, then pyramid mode with levels 1/4, 1/16 and
+    # 1/64 on the same inputs
     b, d, h, w = ROI_PYRAMID
     frames, boxes, valid = roi_inputs(gen, b, d, h, w, dev)
-    result["dense"]["err"] = max(
-        result["dense"]["err"], roi_error(frames, boxes, valid, s, "dense")[0]
-    )
+    err_b8, got, _ = roi_error(frames, boxes, valid, s, "dense")
+    result["dense"]["err"] = max(result["dense"]["err"], err_b8)
+    result["dense_b8"] = roi_timings(frames, boxes, valid, got, s)
+    print(f"roi dense B={b} {h}x{w}: max err {err_b8}, "
+          + timing_text(result["dense_b8"]))
     err, got, levels = roi_error(frames, boxes, valid, s, "pyramid")
     err = max(err, err_pyr_640)
     # the kernel alone on levels built once, and the entry the main path
@@ -588,9 +631,11 @@ def main_path(dev):
               f"{time.perf_counter() - t0:.1f} s")
         runs.append((pipe, frames, area, b, h, w, roi_impl))
 
-    reset_launch_counts()
-    outs = []
+    # launch counts per run (zeroed just before, read just after) and
+    # summed over the three
+    outs, run_counts = [], []
     for pipe, frames, area, b, h, w, roi_impl in runs:
+        reset_launch_counts()
         torch.cuda.set_sync_debug_mode("error")
         try:
             outs.append(pipe.run_fused(frames, area_scale=area))
@@ -598,8 +643,9 @@ def main_path(dev):
             fail(f"run_fused b={b} {h}x{w} {roi_impl} synchronised the host: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        run_counts.append(launch_counts())
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts = {name: sum(c[name] for c in run_counts) for name in run_counts[0]}
     print("main path: every run issued without a host synchronisation")
     for out, (pipe, _, _, b, h, w, roi_impl) in zip(outs, runs):
         check_outputs(out, b, pipe.cfg.crop_det_budget, h, w,
@@ -607,7 +653,7 @@ def main_path(dev):
     for name, n in counts.items():
         if n < 1:
             fail(f"kernel {name} was not launched on the main path")
-    print(f"main path launch counts: {counts}")
+    print(f"main path launch counts: {counts}, per run {run_counts}")
 
     timings = []
     for pipe, frames, _, b, h, w, roi_impl in runs:
@@ -616,7 +662,69 @@ def main_path(dev):
                             ms_per_batch=ms, fps=b / ms * 1e3, windows_ms=windows))
         print(f"run_fused b={b} {h}x{w} {roi_impl}: {ms:.3f} ms/batch, "
               f"{b / ms * 1e3:.1f} FPS (windows {windows})")
-    return counts, timings, runs
+    return counts, run_counts, timings, runs
+
+
+def check_detect(dev):
+    """The staged ``detect`` at full width with the default NMSConfig (512
+    candidates, 64 detections), the path that runs the NMS kernel at
+    K=512: DETECT_BATCH [0, 1] canvases from a seed, issued under
+    ``set_sync_debug_mode("error")`` with the launch counts zeroed just
+    before and read just after; outputs finite, of their shapes, and equal
+    to ``nms_sorted`` over the same candidates (``_detect_top``) with the
+    plain keep mask ``suppress_sorted`` on the card.  The conf threshold
+    sits at the 256th candidate score, so about half of each image's
+    candidates are valid.  Timed end to end, and the NMS kernels' device
+    time inside it."""
+    b, s = DETECT_BATCH, SERVING.det_input_size
+    cfg = dataclasses.replace(SERVING, nms=NMSConfig())
+    k = cfg.nms.max_candidates
+    pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    canvas = torch.rand((b, s, s, 3), generator=gen, device=dev)
+    boxes, scores, cls = pipe._detect_top(canvas, k)
+    conf = float(scores[:, k // 2 - 1].min())
+    pipe.detect(canvas, conf)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.detect(canvas, conf)
+    except RuntimeError as e:
+        fail(f"detect b={b} synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    if counts["nms_suppress"] != 1:
+        fail(f"detect launched the NMS kernel {counts['nms_suppress']} times, not once")
+    d = cfg.nms.max_detections
+    for key, shape in (("boxes", (b, d, 4)), ("scores", (b, d)), ("class_ids", (b, d)),
+                       ("valid", (b, d))):
+        if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key].double()).all()):
+            fail(f"detect: {key} is not finite of shape {shape}")
+    if not bool(out["valid"].any()):
+        fail("detect: no valid detection to compare")
+    kernel_path = nms_ops.suppress
+    nms_ops.suppress = lambda bx, v, c, t: suppress_sorted(bx, v, c, t)
+    try:
+        want = nms_ops.nms_sorted(boxes, scores, cls, conf, cfg.nms.iou_threshold, d)
+    finally:
+        nms_ops.suppress = kernel_path
+    for key, w in zip(("boxes", "scores", "class_ids", "valid"), want):
+        if not torch.equal(out[key], w):
+            fail(f"detect: {key} differs from nms_sorted with the plain keep mask")
+    ms, windows = median_ms(lambda: pipe.detect(canvas, conf), 10, 2)
+    nms_ms = device_ms(lambda: pipe.detect(canvas, conf), 10, "nms_")
+    n_valid = int((scores > conf).sum())
+    result = dict(batch=b, launches=counts, ms_per_batch=ms, windows_ms=windows,
+                  nms_device_ms=nms_ms, conf=conf, valid_candidates=n_valid,
+                  detections=int(out["valid"].sum()))
+    print(f"detect b={b} {s}x{s}, K={k}: issued without a host synchronisation, equal to "
+          f"nms_sorted with suppress_sorted; {n_valid} of {b * k} candidates valid, "
+          f"{result['detections']} detections; {ms:.3f} ms/batch (windows {windows}), "
+          f"NMS kernels {nms_ms:.4f} ms device; launch counts {counts}")
+    return result
 
 
 # --------------------------------------------------------------------- #
@@ -709,55 +817,52 @@ def run(dev) -> None:
     stem = check_stem(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
-    counts, timings, runs = main_path(dev)
+    counts, run_counts, timings, runs = main_path(dev)
+    detect = check_detect(dev)
     streaming = check_streaming(dev, runs[0][0], timings[0]["fps"])
     smi_after = nvidia_smi()
     print_resources(paths, smi_after, "after the timed windows")
 
+    def entry(name, source, replaces, launches, r, err, shape, **extra):
+        return dict(name=name, route="cuda", source=f"litepi_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=float(err), ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                    library_ms=r.get("library_ms"), host_ms=r["host_ms"],
+                    device_ms=r["device_ms"], shape=shape, **extra)
+
+    nms_at = "litepi_tpu/ops/pallas_nms.py:98"
+    roi_at = "litepi_tpu/ops/pallas_roi.py:207"
+    grid_sample = "F.grid_sample(border, align_corners=False)"
     k0, k1 = NMS_KS
-    dense, pyr = roi["dense"], roi["pyramid"]
+    dense, dense_b8, pyr = roi["dense"], roi["dense_b8"], roi["pyramid"]
     kernels = [
-        dict(name="nms_suppress", route="cuda", source="litepi_tpu_torch/csrc/nms.cu",
-             replaces="litepi_tpu/ops/pallas_nms.py:98", launches=counts["nms_suppress"],
-             max_abs_err=float(nms[k0]["mismatches"]), ms=nms[k0]["ms"],
-             plain_ms=nms[k0]["plain_ms"], bound_ms=nms[k0]["bound"][0],
-             bound_by=nms[k0]["bound"][1], library_ms=None, host_ms=nms[k0]["host_ms"],
-             device_ms=nms[k0]["device_ms"],
-             shape=f"B={NMS_BATCH} K={k0}", **{
-                 f"k{k1}_ms": nms[k1]["ms"], f"k{k1}_device_ms": nms[k1]["device_ms"],
-                 f"k{k1}_plain_ms": nms[k1]["plain_ms"],
-                 f"k{k1}_bound_ms": nms[k1]["bound"][0]}),
-        dict(name="roi_crop_dense", route="cuda", source="litepi_tpu_torch/csrc/roi.cu",
-             replaces="litepi_tpu/ops/pallas_roi.py:207", launches=counts["roi_crop_dense"],
-             max_abs_err=dense["err"], ms=dense["ms"], plain_ms=dense["plain_ms"],
-             bound_ms=dense["bound"][0], bound_by=dense["bound"][1],
-             library_ms=dense["library_ms"], host_ms=dense["host_ms"],
-             device_ms=dense["device_ms"],
-             library="F.grid_sample(border, align_corners=False)",
-             library_max_abs_diff=dense["library_err"],
-             shape="B={} D={} {}x{} out=64".format(*ROI_DENSE)),
-        dict(name="roi_crop_pyramid", route="cuda", source="litepi_tpu_torch/csrc/roi.cu",
-             replaces="litepi_tpu/ops/pallas_roi.py:207", launches=counts["roi_crop_pyramid"],
-             max_abs_err=pyr["err"], ms=pyr["ms"], plain_ms=pyr["plain_ms"],
-             bound_ms=pyr["bound"][0], bound_by=pyr["bound"][1], library_ms=None,
-             host_ms=pyr["host_ms"], device_ms=pyr["device_ms"],
-             with_levels_ms=pyr["with_levels_ms"],
-             with_levels_bound_ms=pyr["with_levels_bound"][0],
-             shape="B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
-             + f", {pyr['levels']} levels built in advance"),
-        dict(name="stem", route="cuda", source="litepi_tpu_torch/csrc/stem.cu",
-             replaces="litepi_tpu/ops/pallas_stem.py:111", launches=counts["stem"],
-             max_abs_err=stem["f32_err"], ms=stem["ms"], plain_ms=stem["plain_ms"],
-             bound_ms=stem["bound"][0], bound_by=stem["bound"][1],
-             library_ms=stem["library_ms"], host_ms=stem["host_ms"],
-             device_ms=stem["device_ms"],
-             library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
-             library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
-             bf16_max_ulps=stem["bf16_ulps"],
-             shape="B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0])),
+        # launches: K=64 on the three run_fused runs, K=512 on the detect run
+        entry("nms_suppress", "nms.cu", nms_at, counts["nms_suppress"], nms[k0], 0,
+              f"B={NMS_BATCH} K={k0}, 1 class"),
+        entry("nms_suppress_k512", "nms.cu", nms_at, detect["launches"]["nms_suppress"],
+              nms[k1], 0, f"B={NMS_BATCH} K={k1}, 1 class",
+              detect_device_ms=detect["nms_device_ms"]),
+        # dense launches per run: B=128 640x640, then B=8 1080x1920
+        entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
+              dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
+              library_max_abs_diff=dense["library_err"]),
+        entry("roi_crop_dense_b8", "roi.cu", roi_at, run_counts[1]["roi_crop_dense"],
+              dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
+              library=grid_sample, library_max_abs_diff=dense_b8["library_err"]),
+        entry("roi_crop_pyramid", "roi.cu", roi_at, counts["roi_crop_pyramid"], pyr, pyr["err"],
+              "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
+              + f", {pyr['levels']} levels built in advance",
+              with_levels_ms=pyr["with_levels_ms"],
+              with_levels_bound_ms=pyr["with_levels_bound"][0]),
+        entry("stem", "stem.cu", "litepi_tpu/ops/pallas_stem.py:111", counts["stem"], stem,
+              stem["f32_err"], "B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0]),
+              library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
+              library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
+              bf16_max_ulps=stem["bf16_ulps"]),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"e2e": timings, "streaming": streaming, "power": smi_after}))
+    print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming,
+                      "power": smi_after}))
     print(smi_after)
 
 

@@ -13,8 +13,8 @@ import torch
 from litepi_tpu_torch.kernels import LAUNCHES
 from litepi_tpu_torch.kernels.build import check, load
 
-# the suppression bitmask of one image lives in shared memory:
-# K * ceil(K / 64) * 8 bytes, 128 KB at this bound
+# the greedy pass keeps one image's suppression words in shared memory:
+# ceil(K / 64)^2 * 512 bytes, 128 KB at this bound
 MAX_K = 1024
 
 
@@ -22,13 +22,16 @@ def _lib() -> ctypes.CDLL:
     lib = load("nms")
     fn = lib.litepi_nms_suppress
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int,
             ctypes.c_int,
             ctypes.c_float,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        size = lib.litepi_nms_scratch_bytes
+        size.argtypes = [ctypes.c_int, ctypes.c_int]
+        size.restype = ctypes.c_size_t
     return lib
 
 
@@ -40,7 +43,11 @@ def nms_suppress_cuda(
 ) -> torch.Tensor:
     """Greedy per-class keep mask (B, K) bool over score-descending
     candidates: boxes (B, K, 4) float32 xyxy, cls (B, K) int32, valid (B, K)
-    bool, all contiguous on one CUDA device."""
+    bool, all contiguous on one CUDA device.
+
+    Above K = 64 the kernel takes a scratch buffer for its suppression
+    words, allocated here from PyTorch's caching allocator on the same
+    stream (no synchronisation)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k = boxes.shape[0], boxes.shape[1]
@@ -62,13 +69,21 @@ def nms_suppress_cuda(
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
+    lib = _lib()
+    n_scratch = lib.litepi_nms_scratch_bytes(b, k)
+    scratch = (
+        torch.empty(n_scratch, dtype=torch.uint8, device=boxes.device)
+        if n_scratch
+        else None
+    )
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = _lib().litepi_nms_suppress(
+        status = lib.litepi_nms_suppress(
             boxes.data_ptr(),
             cls.data_ptr(),
             valid.data_ptr(),
             keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             b,
             k,
             float(iou_threshold),

@@ -12,6 +12,7 @@ This file imports nothing of JAX or of the JAX package.
 import pytest
 import torch
 
+from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
@@ -112,19 +113,128 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 63, 64, 65, 512, MAX_K])
 @pytest.mark.parametrize("num_classes", [1, 3, 91])
-def test_nms_kernel_bit_equal(cuda, k, num_classes):
-    gen = torch.Generator(device=cuda).manual_seed(k * 100 + num_classes)
-    boxes, cls, valid = _nms_inputs(gen, 7, k, num_classes, cuda)
+@pytest.mark.parametrize("b", [1, 7, 129])
+def test_nms_kernel_bit_equal(cuda, k, num_classes, b):
+    """K on both sides of the one-kernel bound (64) and of a word edge;
+    B=1 (one block or warp) and B=129 (more images than SMs)."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 100 + num_classes + 7 * b)
+    boxes, cls, valid = _nms_inputs(gen, b, k, num_classes, cuda)
     before = LAUNCHES["nms_suppress"]
     got = nms_suppress_cuda(boxes, cls, valid, 0.45)
     assert LAUNCHES["nms_suppress"] == before + 1
     want = suppress_sorted(boxes, valid, cls, 0.45)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    # the plain version on the card equals the plain version on the CPU
-    assert torch.equal(
-        want.cpu(), suppress_sorted(boxes.cpu(), valid.cpu(), cls.cpu(), 0.45)
-    )
+    if b <= 7:
+        # the plain version on the card equals the plain version on the CPU
+        assert torch.equal(
+            want.cpu(), suppress_sorted(boxes.cpu(), valid.cpu(), cls.cpu(), 0.45)
+        )
+
+
+@pytest.mark.gpu
+def test_nms_kernel_all_invalid_at_k512(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    boxes, cls, _ = _nms_inputs(gen, 4, 512, 1, cuda)
+    valid = torch.zeros((4, 512), dtype=torch.bool, device=cuda)
+    keep = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    torch.cuda.synchronize()
+    assert keep.shape == (4, 512) and not keep.any()
+
+
+@pytest.mark.gpu
+def test_nms_kernel_long_chain_at_k1024(cuda):
+    """1 class, each box overlapping only the next (IoU 0.6 > 0.45): every
+    other box is kept, a chain of 1024 decisions that crosses every word."""
+    k = MAX_K
+    x = torch.arange(k, dtype=torch.float32, device=cuda) * 4.0
+    boxes = torch.stack([x, torch.zeros_like(x), x + 16.0, torch.full_like(x, 10.0)], -1)
+    # shift by 4 of a 16-wide box: IoU(i, i+1) = 12/20, IoU(i, i+2) = 8/24
+    boxes = boxes[None].contiguous()
+    cls = torch.zeros((1, k), dtype=torch.int32, device=cuda)
+    valid = torch.ones((1, k), dtype=torch.bool, device=cuda)
+    keep = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    want = suppress_sorted(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want)
+    assert torch.equal(keep[0], torch.arange(k, device=cuda) % 2 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 512])
+def test_nms_kernel_at_the_threshold(cuda, k):
+    """Thresholds equal to IoUs that pairs really have and the float32 just
+    below each, where the kernel must divide, and thresholds its scaled
+    test does not cover (0, negative, subnormal) or that no IoU passes
+    (1.0): bit-equal to suppress_sorted at each."""
+    gen = torch.Generator(device=cuda).manual_seed(k + 1)
+    boxes, cls, valid = _nms_inputs(gen, 4, k, 1, cuda)
+    b = boxes[0, :16].cpu()
+    wh = (torch.minimum(b[:, None, 2:], b[None, :, 2:])
+          - torch.maximum(b[:, None, :2], b[None, :, :2])).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area = (b[:, 2] - b[:, 0]).clamp(min=0) * (b[:, 3] - b[:, 1]).clamp(min=0)
+    iou = inter / (area[:, None] + area[None, :] - inter + 1e-6)
+    values = iou[torch.ones(16, 16, dtype=torch.bool).triu(1) & (iou > 0)][:4]
+    assert values.numel()
+    below = torch.nextafter(values, torch.zeros_like(values))
+    for thr in [*values.tolist(), *below.tolist(), 0.0, -0.5, 1e-40, 1.0]:
+        got = nms_suppress_cuda(boxes, cls, valid, thr)
+        want = suppress_sorted(boxes, valid, cls, thr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), thr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [64, 512])
+def test_nms_wrapper_counts_one_launch_per_call(cuda, k):
+    """Above K=64 the wrapper runs two kernels; it still counts one call."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    boxes, cls, valid = _nms_inputs(gen, 3, k, 1, cuda)
+    before = launch_counts()
+    nms_suppress_cuda(boxes, cls, valid, 0.45)
+    after = launch_counts()
+    assert after["nms_suppress"] == before["nms_suppress"] + 1
+    assert {n: c for n, c in after.items() if n != "nms_suppress"} == {
+        n: c for n, c in before.items() if n != "nms_suppress"}
+
+
+@pytest.mark.gpu
+def test_detect_at_the_default_config_launches_nms_once_without_a_sync(cuda):
+    """The staged ``detect`` at the default NMSConfig (K=512 candidates)
+    goes through the NMS kernel once per call and never synchronises the
+    host; its detections equal nms_sorted over the same candidates with the
+    plain keep mask."""
+    from litepi_tpu_torch.ops import nms as nms_ops
+    from litepi_tpu_torch.pipeline import TwoStagePipeline
+
+    cfg = _small_cfg(nms=NMSConfig())
+    assert cfg.nms.max_candidates == 512
+    pipe = TwoStagePipeline.initialize(cfg, dtype=torch.bfloat16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    canvas = torch.rand((2, 160, 160, 3), generator=gen, device=cuda)
+    boxes, scores, cls = pipe._detect_top(canvas, cfg.nms.max_candidates)
+    assert boxes.shape == (2, 512, 4)
+    conf = float(scores[:, 256].min())  # about half of each image's candidates
+    pipe.detect(canvas, conf)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipe.detect(canvas, conf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launch_counts()["nms_suppress"] == 1
+    plain = nms_ops.suppress
+    nms_ops.suppress = lambda b, v, c, t: suppress_sorted(b, v, c, t)
+    try:
+        want = nms_ops.nms_sorted(boxes, scores, cls, conf, cfg.nms.iou_threshold,
+                                  cfg.nms.max_detections)
+    finally:
+        nms_ops.suppress = plain
+    for k, w in zip(("boxes", "scores", "class_ids", "valid"), want):
+        assert torch.equal(out[k], w), k
+    assert out["valid"].any() and out["boxes"].shape == (2, cfg.nms.max_detections, 4)
 
 
 @pytest.mark.gpu
