@@ -32,7 +32,10 @@ source, in parallel), then:
 4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
    plain versions run, at 200x300 frames (letterboxed) and at 160x160
-   (canvas-sized: the stem kernel runs);
+   (canvas-sized: the stem kernel runs); then the same check for two zoo
+   pairs at a 160 input, the detectors at full width: YOLOv11n + ResNet18
+   and the anchor-based YOLOv5n + EfficientNet-B0 (its candidate decoder),
+   with the stem kernel never launched;
 5. the main path: ``TwoStagePipeline.run_fused`` at the full width of
    yolo_plus_v2 + ShuffleNetV2-91 in bfloat16 with the serving
    configuration (64 candidates, 16 detections, crop_det_budget 8,
@@ -51,7 +54,25 @@ source, in parallel), then:
    letterboxed canvases of a 1080x1920 source (3 distinct batches made
    from a seed, cycled), inflight 2, each batch equal to a direct
    ``run_fused`` + host unmap of the same canvases; frames/s beside the
-   device-only ``run_fused`` and ``benchmark_ram``.
+   device-only ``run_fused`` and ``benchmark_ram``;
+8. the zoo: ``run_fused`` with an injected detector (``det_model``, BN kept,
+   letterbox + x 1/255 + BGR flip, no stem kernel) at the serving
+   configuration in bfloat16 on device frames: YOLOv11n + ResNet18-91 at
+   B=128 640x640, then YOLOv5n (anchor-free) + MobileNetV2-91 and the
+   anchor-based YOLOv5n + EfficientNet-B0-91 (``V5CandidateDecoder``,
+   capacity 25,200) at B=32, weights from ``torch.Generator`` seeds.  Each
+   run is issued under ``set_sync_debug_mode("error")`` with the launch
+   counts zeroed just before and read just after: the NMS and dense ROI
+   kernels once each, the stem kernel and the pyramid crop never; outputs
+   checked as the main path's, with at least one valid detection; the NMS
+   kernel bit-equal to ``suppress_sorted`` and the dense crop within
+   ROI_TOL of the plain crop on the run's own candidates and boxes (B=32,
+   D=8 is a row-band split the kernel checks do not reach); ms/batch
+   and FPS from 5 windows of 20 batches, and the host's time to issue one
+   batch (near ms/batch, the run is host-bound); the NMS and ROI kernels' device
+   time inside the YOLOv11n run; and the anchor-based detector's
+   ``detect_candidates`` at ``eval_max_candidates=0`` (25,200 candidates
+   per image, score-descending, sync-free).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -64,7 +85,7 @@ traced apart from the timed windows, summed over the kernels of one call
 the host's time to issue one call, so that where ``host_ms`` is near
 ``ms`` the window timed the host and ``device_ms`` is the kernel's time;
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
-and 67 TFLOP/s float32), an ``{"e2e": ...}`` JSON line, and last
+and 67 TFLOP/s float32), an ``{"e2e": ..., "zoo": ...}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -81,13 +102,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from litepi_tpu_torch.core.types import DetectorConfig, NMSConfig, PipelineConfig
+from litepi_tpu_torch.core.types import YOLOV8N, DetectorConfig, NMSConfig, PipelineConfig
 from litepi_tpu_torch.data import native_loader
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
+from litepi_tpu_torch.models import build_classifier, detector_kwargs
 from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops import nms as nms_ops
 from litepi_tpu_torch.ops.nms import suppress_sorted
@@ -133,6 +155,15 @@ STREAM_BATCH, STREAM_BATCHES, STREAM_DISTINCT = 128, 12, 3
 STREAM_SOURCE = (1080, 1920)  # the canvases' source frame: ratio 1/3, dh 140
 WINDOWS = 5  # back-to-back timing windows per kernel and per e2e run; the
 # median is reported, every window is printed
+# the zoo: (detector variant, classifier arch, batch) at 640x640, bf16
+ZOO_RUNS = (("yolov11n", "resnet18", 128), ("yolov5n", "mobilenetv2", 32),
+            ("yolov5n_legacy", "efficientnet", 32))
+ZOO_SMALL_PAIRS = (("yolov11n", "resnet18"), ("yolov5n_legacy", "efficientnet"))
+# conv and linear weights N(0, gain^2 / fan_in): with BatchNorm at its
+# identity init, lecun's gain 1 lets the zoo detectors' signal fade to
+# scores within 1e-6 of each other, 1.4 saturates the anchor-based head's;
+# at 1.3 the top candidates of SMALL_SCENES lie 1e-5 to 1e-2 apart
+ZOO_GAIN = 1.3
 
 SERVING = PipelineConfig(
     nms=NMSConfig(max_candidates=64, max_detections=16),
@@ -148,6 +179,10 @@ SMALL = PipelineConfig(
     num_classifier_classes=10,
     det_input_size=160,
 )
+# the zoo detectors at full width on SMALL's 160 input
+ZOO_SMALL = dataclasses.replace(SMALL, detector=dataclasses.replace(YOLOV8N, input_size=160))
+# e2e.py's detector config for the zoo variants (1 class, reg_max 16)
+ZOO_SERVING = dataclasses.replace(SERVING, detector=YOLOV8N)
 
 
 def fail(msg: str) -> None:
@@ -537,17 +572,25 @@ def candidate_scores(pipe, frames) -> torch.Tensor:
     return scores.cpu()
 
 
-def check_small_pipeline(dev, seed: int, h: int, w: int):
-    """The float32 small pipeline on the card vs on the CPU, frame by frame,
-    on the h x w peaked scene drawn from ``seed``.
+def small_pipeline(device):
+    return TwoStagePipeline.initialize(SMALL, seed=3, device=device)
+
+
+def check_small_pipeline(dev, seed: int, h: int, w: int, make=small_pipeline,
+                         what: str = "small pipeline"):
+    """A float32 pipeline built by ``make(device)`` (SMALL's by default) on
+    the card vs on the CPU, frame by frame, on the h x w peaked scene drawn
+    from ``seed``.
 
     Each frame gets a conf threshold in a gap of its candidate scores wider
     than 20x the card-vs-CPU score difference, so that both runs take the
     same discrete decisions; then valid, class ids and labels must agree
-    exactly, boxes within 1e-2 px, scores 1e-5, probabilities 1e-4.
+    exactly, boxes within 1e-2 px, scores 1e-5, probabilities 1e-4.  The
+    stem kernel runs on canvas-sized frames of the default detector, and
+    nowhere else.
     """
-    gpu = TwoStagePipeline.initialize(SMALL, seed=3, device=dev)
-    cpu = TwoStagePipeline.initialize(SMALL, seed=3, device="cpu")
+    gpu, cpu = make(dev), make("cpu")
+    what = f"{what} {h}x{w}"
     frames = peaked_frames(seed, h=h, w=w)
     before = launch_counts()["stem"]
     n_valid = 0
@@ -558,36 +601,37 @@ def check_small_pipeline(dev, seed: int, h: int, w: int):
         gaps = s_cpu[:-1] - s_cpu[1:]
         ok = [j for j in range(1, 9) if bool((gaps[:j] > 20 * noise + 1e-7).all())]
         if not ok:
-            fail(f"small pipeline frame {i}: no well-separated conf threshold")
+            fail(f"{what} frame {i}: no well-separated conf threshold")
         j = ok[-1]
         conf = float((s_cpu[j - 1] + s_cpu[j]) / 2)
         got = {k: v.cpu() for k, v in gpu.run_fused(f, conf).items()}
         want = cpu.run_fused(f, conf)
         for k in ("valid", "det_class_ids"):
             if not torch.equal(got[k], want[k]):
-                fail(f"small pipeline frame {i}: {k} differs card vs CPU")
+                fail(f"{what} frame {i}: {k} differs card vs CPU")
         for k, tol in (("boxes", 1e-2), ("det_scores", 1e-5)):
             err = float((got[k] - want[k]).abs().max())
             if not err <= tol:
-                fail(f"small pipeline frame {i}: {k} differs by {err} > {tol}")
+                fail(f"{what} frame {i}: {k} differs by {err} > {tol}")
         # crops compare where both truncated the box to the same pixels (a
         # coordinate within float noise of an integer may floor either way)
         same = (got["boxes"].floor() == want["boxes"].floor()).all(-1)
         for k in ("cls_probs", "cls_scores"):
             err = float((got[k] - want[k]).abs()[same].max())
             if not err <= 1e-4:
-                fail(f"small pipeline frame {i}: {k} differs by {err} > 1e-4")
+                fail(f"{what} frame {i}: {k} differs by {err} > 1e-4")
         p = want["cls_probs"].sort(-1, descending=True).values
         clear = same & ((p[..., 0] - p[..., 1]) > 1e-5)
         if not torch.equal(got["cls_labels"][clear], want["cls_labels"][clear]):
-            fail(f"small pipeline frame {i}: cls_labels differ card vs CPU")
+            fail(f"{what} frame {i}: cls_labels differ card vs CPU")
         n_valid += int(want["valid"].sum())
-        print(f"small pipeline {h}x{w} frame {i}: card == CPU (conf {conf:.8f}, "
+        print(f"{what} frame {i}: card == CPU (conf {conf:.8f}, "
               f"{j} candidates over it, score noise {noise:.3g})")
     if n_valid == 0:
-        fail(f"small pipeline {h}x{w}: no valid detection to compare")
-    if gpu._canvas_sized(torch.from_numpy(frames)) != (launch_counts()["stem"] > before):
-        fail(f"small pipeline {h}x{w}: the stem kernel ran where it should not, or not where it should")
+        fail(f"{what}: no valid detection to compare")
+    stem_expected = not gpu._injected and gpu._canvas_sized(torch.from_numpy(frames))
+    if stem_expected != (launch_counts()["stem"] > before):
+        fail(f"{what}: the stem kernel ran where it should not, or not where it should")
 
 
 # --------------------------------------------------------------------- #
@@ -613,6 +657,22 @@ def check_outputs(out, b: int, d: int, h: int, w: int, n_cls: int, what: str) ->
         fail(f"{what}: classifier probabilities do not sum to 1")
 
 
+def issue_sync_free(fn, what: str):
+    """``fn()`` issued under ``set_sync_debug_mode("error")`` with the launch
+    counts zeroed just before; returns (its result, the counts just after)."""
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        fail(f"{what} synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    return out, counts
+
+
 def main_path(dev):
     """Full width, bf16, serving config.  Each run is issued under
     ``set_sync_debug_mode("error")``: a host synchronisation raises.
@@ -635,16 +695,10 @@ def main_path(dev):
     # summed over the three
     outs, run_counts = [], []
     for pipe, frames, area, b, h, w, roi_impl in runs:
-        reset_launch_counts()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            outs.append(pipe.run_fused(frames, area_scale=area))
-        except RuntimeError as e:
-            fail(f"run_fused b={b} {h}x{w} {roi_impl} synchronised the host: {e}")
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        run_counts.append(launch_counts())
-    torch.cuda.synchronize()
+        out, run_count = issue_sync_free(lambda: pipe.run_fused(frames, area_scale=area),
+                                         f"run_fused b={b} {h}x{w} {roi_impl}")
+        outs.append(out)
+        run_counts.append(run_count)
     counts = {name: sum(c[name] for c in run_counts) for name in run_counts[0]}
     print("main path: every run issued without a host synchronisation")
     for out, (pipe, _, _, b, h, w, roi_impl) in zip(outs, runs):
@@ -686,16 +740,7 @@ def check_detect(dev):
     conf = float(scores[:, k // 2 - 1].min())
     pipe.detect(canvas, conf)  # warm-up
     torch.cuda.synchronize()
-    reset_launch_counts()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = pipe.detect(canvas, conf)
-    except RuntimeError as e:
-        fail(f"detect b={b} synchronised the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    counts = launch_counts()
-    torch.cuda.synchronize()
+    out, counts = issue_sync_free(lambda: pipe.detect(canvas, conf), f"detect b={b}")
     if counts["nms_suppress"] != 1:
         fail(f"detect launched the NMS kernel {counts['nms_suppress']} times, not once")
     d = cfg.nms.max_detections
@@ -803,6 +848,136 @@ def check_streaming(dev, pipe, device_fps: float):
     return result
 
 
+# --------------------------------------------------------------------- #
+# the zoo: injected detectors and the other classifiers                 #
+# --------------------------------------------------------------------- #
+
+def seeded_state(model, seed: int) -> dict:
+    """``model``'s state with conv and linear weights N(0, ZOO_GAIN^2 /
+    fan_in) from a ``torch.Generator`` seed, biases 0, BatchNorm at its
+    identity init."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (ZOO_GAIN / m.weight[0].numel() ** 0.5))
+                if m.bias is not None:
+                    m.bias.zero_()
+    return model.state_dict()
+
+
+def zoo_pipeline(cfg, variant: str, arch: str, device, dtype=torch.float32, seed: int = 7):
+    """A pipeline on ``cfg`` with the ``variant`` detector injected
+    (``detector_kwargs``) and the ``arch`` classifier, weights from
+    :func:`seeded_state`."""
+    cfg = dataclasses.replace(cfg, classifier_arch=arch)
+    kw = detector_kwargs(variant, cfg, device)
+    clf = build_classifier(arch, cfg.num_classifier_classes)
+    return TwoStagePipeline(cfg, seeded_state(kw["det_model"], seed), seeded_state(clf, seed + 1),
+                            dtype, device, **kw)
+
+
+def check_zoo_kernels(pipe, frames, area, what: str) -> dict:
+    """K1 and K2 on one zoo run's own inputs, the candidates and boxes its
+    ``run_fused`` hands them (through the pipeline's stage methods), against
+    their plain versions: the NMS keep mask bit-equal to
+    ``suppress_sorted``, the dense crop within ROI_TOL of
+    ``crop_and_resize_plain``.  At B=32, D=8 the crop kernel cuts each box
+    into row bands sized from B*D, a shape the kernel checks do not reach."""
+    cfg = pipe.cfg
+    conf, thr = cfg.benchmark_conf, cfg.nms.iou_threshold
+    with torch.inference_mode():
+        boxes, scores, cls = pipe._candidates(pipe._detect(pipe._stem(frames)))
+        valid = scores > conf
+        keep = nms_suppress_cuda(boxes, cls.to(torch.int32), valid, thr)
+        want = suppress_sorted(boxes, valid, cls, thr)
+        torch.cuda.synchronize()
+        mismatches = int((keep != want).sum())
+        if mismatches:
+            fail(f"{what}: {mismatches} NMS keep bits differ from suppress_sorted on the "
+                 "run's candidates")
+        bx, _, _, v = pipe._suppress(boxes, scores, cls, conf)
+        orig, v = pipe._unmap(bx, v, int(frames.shape[1]), int(frames.shape[2]), area)
+        if not bool(v.any()):
+            fail(f"{what}: no box to crop")
+        roi_err = roi_error(frames, orig, v, cfg.cls_input_size, "dense")[0]
+    result = dict(nms_valid=int(valid.sum()), nms_kept=int(keep.sum()), nms_mismatches=0,
+                  roi_boxes=int(v.sum()), roi_max_abs_err=roi_err)
+    print(f"{what}: on the run's inputs the NMS kernel equals suppress_sorted "
+          f"({result['nms_kept']} of {result['nms_valid']} valid candidates kept) and the "
+          "dense crop is within "
+          f"{roi_err} of the plain crop ({result['roi_boxes']} boxes)")
+    return result
+
+
+def zoo_path(dev):
+    """ZOO_RUNS at the serving configuration in bf16 on device frames: each
+    ``run_fused`` sync-free, with the NMS and dense ROI kernels launched
+    once each and the stem kernel and pyramid crop never; both kernels held
+    against their plain versions on the run's own inputs; timed in WINDOWS
+    windows; the kernels' device time inside the first run; and
+    the anchor-based detector's ``detect_candidates`` over every
+    prediction."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    s = ZOO_SERVING.det_input_size
+    want_counts = {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0, "stem": 0}
+    runs = []
+    for i, (variant, arch, b) in enumerate(ZOO_RUNS):
+        cfg = dataclasses.replace(ZOO_SERVING, cls_crop_budget=4 * b)
+        what = f"zoo {variant} + {arch} b={b}"
+        pipe = zoo_pipeline(cfg, variant, arch, dev, torch.bfloat16, seed=10 * i)
+        frames = torch.randint(0, 256, (b, s, s, 3), generator=gen, device=dev, dtype=torch.uint8)
+        area = torch.ones(b, device=dev)
+        pipe.run_fused(frames, area_scale=area)  # warm-up (cuDNN algorithm selection)
+        out, counts = issue_sync_free(lambda: pipe.run_fused(frames, area_scale=area), what)
+        if counts != want_counts:
+            fail(f"{what}: launch counts {counts}, expected {want_counts}")
+        check_outputs(out, b, cfg.crop_det_budget, s, s, cfg.num_classifier_classes, what)
+        if not bool(out["valid"].any()):
+            fail(f"{what}: no valid detection")
+        kernel_checks = check_zoo_kernels(pipe, frames, area, what)
+        ms, windows = median_ms(lambda: pipe.run_fused(frames), 20, 2)
+        host = host_ms(lambda: pipe.run_fused(frames), 10)
+        run = dict(detector=variant, classifier=arch, batch=b, frame=f"{s}x{s}", launches=counts,
+                   valid=int(out["valid"].sum()), ms_per_batch=ms, fps=b / ms * 1e3,
+                   windows_ms=windows, host_ms=host, kernel_checks=kernel_checks)
+        if i == 0:
+            fused = lambda: pipe.run_fused(frames)  # noqa: E731
+            run["nms_device_ms"] = device_ms(fused, 10, "nms_")
+            run["roi_device_ms"] = device_ms(fused, 10, "roi_crop_kernel")
+        print(f"{what} {s}x{s}: sync-free, launches {counts}, {run['valid']} valid; "
+              f"{ms:.3f} ms/batch, {run['fps']:.1f} FPS (windows {windows}), host issue "
+              f"{host:.3f} ms"
+              + (f"; NMS {run['nms_device_ms']:.4f} ms, ROI {run['roi_device_ms']:.4f} ms "
+                 "device" if i == 0 else ""))
+        runs.append(run)
+        if variant == "yolov5n_legacy":
+            runs[-1]["detect_candidates"] = check_zoo_candidates(pipe, gen, b, s)
+        del pipe, frames, out
+    return runs
+
+
+def check_zoo_candidates(pipe, gen, b: int, s: int) -> dict:
+    """``detect_candidates`` of the anchor-based detector at
+    ``eval_max_candidates=0``: every one of its 3 x 8,400 predictions per
+    image, score-descending and finite, issued without a host
+    synchronisation; NMS and crop kernels not launched."""
+    canvas = torch.rand((b, s, s, 3), generator=gen, device=pipe.device)
+    (boxes, scores, cls), counts = issue_sync_free(
+        lambda: pipe.detect_candidates(canvas), "zoo detect_candidates")
+    k, n = pipe.cfg.nms.eval_max_candidates, 3 * sum((s // st) ** 2 for st in (8, 16, 32))
+    if k != 0 or tuple(scores.shape) != (b, n) or tuple(boxes.shape) != (b, n, 4):
+        fail(f"zoo detect_candidates at eval_max_candidates={k}: scores {tuple(scores.shape)}")
+    if not (bool(torch.isfinite(boxes).all()) and bool((scores[:, :-1] >= scores[:, 1:]).all())):
+        fail("zoo detect_candidates: boxes not finite or scores not descending")
+    if any(counts.values()):
+        fail(f"zoo detect_candidates launched kernels: {counts}")
+    print(f"zoo detect_candidates b={b}: {scores.shape[1]} candidates per image, sync-free")
+    return dict(batch=b, candidates_per_image=int(scores.shape[1]), launches=counts,
+                class_ids=sorted(int(c) for c in cls.unique()))
+
+
 def run(dev) -> None:
     """Every phase on ``dev``; prints the kernels and e2e JSON lines and the
     card's name and power limit.  Raises on any failure."""
@@ -817,11 +992,25 @@ def run(dev) -> None:
     stem = check_stem(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
+    t0 = time.perf_counter()
+    for variant, arch in ZOO_SMALL_PAIRS:
+        for seed, h, w in SMALL_SCENES:
+            check_small_pipeline(dev, seed, h, w, lambda d: zoo_pipeline(ZOO_SMALL, variant, arch, d),
+                                 f"zoo {variant} + {arch}")
+    zoo_seconds = time.perf_counter() - t0
     counts, run_counts, timings, runs = main_path(dev)
     detect = check_detect(dev)
     streaming = check_streaming(dev, runs[0][0], timings[0]["fps"])
+    del runs
+    t0 = time.perf_counter()
+    zoo = zoo_path(dev)
+    zoo_seconds += time.perf_counter() - t0
+    print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
     smi_after = nvidia_smi()
     print_resources(paths, smi_after, "after the timed windows")
+
+    zoo_launches = {name: {f"{z['detector']}+{z['classifier']}": z["launches"][name] for z in zoo}
+                    for name in ("nms_suppress", "roi_crop_dense", "stem")}
 
     def entry(name, source, replaces, launches, r, err, shape, **extra):
         return dict(name=name, route="cuda", source=f"litepi_tpu_torch/csrc/{source}",
@@ -838,14 +1027,17 @@ def run(dev) -> None:
     kernels = [
         # launches: K=64 on the three run_fused runs, K=512 on the detect run
         entry("nms_suppress", "nms.cu", nms_at, counts["nms_suppress"], nms[k0], 0,
-              f"B={NMS_BATCH} K={k0}, 1 class"),
+              f"B={NMS_BATCH} K={k0}, 1 class", zoo_launches=zoo_launches["nms_suppress"],
+              zoo_device_ms=zoo[0]["nms_device_ms"]),
         entry("nms_suppress_k512", "nms.cu", nms_at, detect["launches"]["nms_suppress"],
               nms[k1], 0, f"B={NMS_BATCH} K={k1}, 1 class",
               detect_device_ms=detect["nms_device_ms"]),
         # dense launches per run: B=128 640x640, then B=8 1080x1920
         entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
-              library_max_abs_diff=dense["library_err"]),
+              library_max_abs_diff=dense["library_err"],
+              zoo_launches=zoo_launches["roi_crop_dense"], zoo_device_ms=zoo[0]["roi_device_ms"],
+              zoo_max_abs_err=max(z["kernel_checks"]["roi_max_abs_err"] for z in zoo)),
         entry("roi_crop_dense_b8", "roi.cu", roi_at, run_counts[1]["roi_crop_dense"],
               dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
               library=grid_sample, library_max_abs_diff=dense_b8["library_err"]),
@@ -858,10 +1050,10 @@ def run(dev) -> None:
               stem["f32_err"], "B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0]),
               library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
               library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
-              bf16_max_ulps=stem["bf16_ulps"]),
+              bf16_max_ulps=stem["bf16_ulps"], zoo_launches=zoo_launches["stem"]),
     ]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming,
+    print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
                       "power": smi_after}))
     print(smi_after)
 

@@ -1,5 +1,21 @@
-from litepi_tpu_torch.models.registry import build_classifier
+from litepi_tpu_torch.models.efficientnet import EfficientNetB0
+from litepi_tpu_torch.models.mobilenetv2 import MobileNetV2
+from litepi_tpu_torch.models.registry import build_classifier, detector_kwargs
+from litepi_tpu_torch.models.resnet import ResNet18
 from litepi_tpu_torch.models.shufflenetv2 import ShuffleNetV2
 from litepi_tpu_torch.models.yolo import YoloLitePi
+from litepi_tpu_torch.models.yolov5 import V5CandidateDecoder, YoloV5
+from litepi_tpu_torch.models.yolov11 import YoloV11
 
-__all__ = ["ShuffleNetV2", "YoloLitePi", "build_classifier"]
+__all__ = [
+    "EfficientNetB0",
+    "MobileNetV2",
+    "ResNet18",
+    "ShuffleNetV2",
+    "V5CandidateDecoder",
+    "YoloLitePi",
+    "YoloV5",
+    "YoloV11",
+    "build_classifier",
+    "detector_kwargs",
+]

@@ -1,22 +1,44 @@
 """Building blocks of the detector family, as PyTorch modules (NCHW).
 
 Conventions of the JAX package kept for weight parity: convs pad
-symmetrically by ``k // 2``, BatchNorm uses eps 1e-3 (momentum 0.03), the
-activation is SiLU.  Submodule names follow the Flax names (``conv``,
-``bn``, ``cv1``, ``m0``, ...) so that ``weights/jax_bridge.py`` maps a Flax
-variable tree onto a ``state_dict`` key by key.
+symmetrically by ``k // 2`` unless told otherwise, the detectors' BatchNorm
+uses eps 1e-3 (momentum 0.03) and SiLU, the classifiers' torchvision's eps
+1e-5 (``CLASSIFIER_BN_EPS``).  Submodule names follow the Flax names
+(``conv``, ``bn``, ``cv1``, ``m0``, ...) so that ``weights/jax_bridge.py``
+maps a Flax variable tree onto a ``state_dict`` key by key.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+# all four reference classifiers use torchvision's BatchNorm2d epsilon
+CLASSIFIER_BN_EPS = 1e-5
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+_ACTS = {
+    None: _identity,
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "silu": F.silu,
+}
+
+
 class ConvBN(nn.Module):
-    """Conv2d + BatchNorm + optional SiLU.  ``fused=True`` is the deploy
-    form: a biased conv with BN folded in (``weights/fold_bn.py``)."""
+    """Conv2d + BatchNorm (eps ``bn_eps``) + ``act`` (``"silu"``,
+    ``"relu"``, ``"relu6"`` or None).  ``fused=True`` is the deploy form: a
+    biased conv with BN folded in (``weights/fold_bn.py``).  ``padding`` -1
+    pads by ``kernel // 2``; 0 or more pads by that much (YOLOv5's 6x6/2
+    stem pads by 2)."""
 
     def __init__(
         self,
@@ -25,22 +47,24 @@ class ConvBN(nn.Module):
         kernel: int = 1,
         stride: int = 1,
         groups: int = 1,
-        act: bool = True,
+        act: Optional[str] = "silu",
         fused: bool = False,
         bn_eps: float = 1e-3,
+        padding: int = -1,
     ) -> None:
         super().__init__()
+        pad = kernel // 2 if padding < 0 else padding
         self.conv = nn.Conv2d(
-            c_in, c_out, kernel, stride, kernel // 2, groups=groups, bias=fused
+            c_in, c_out, kernel, stride, pad, groups=groups, bias=fused
         )
         self.bn = None if fused else nn.BatchNorm2d(c_out, eps=bn_eps, momentum=0.03)
-        self.act = act
+        self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return F.silu(x) if self.act else x
+        return self.act(x)
 
 
 class Bottleneck(nn.Module):
@@ -98,6 +122,12 @@ class SPPF(nn.Module):
         for _ in range(3):
             pools.append(F.max_pool2d(pools[-1], self.pool, 1, self.pool // 2))
         return self.cv2(torch.cat(pools, dim=1))
+
+
+def flatten_anchors(x: torch.Tensor) -> torch.Tensor:
+    """A head's (B, C, H, W) output -> (B, H*W, C), anchors row-major (y, x)
+    as the JAX head flattens NHWC (an NCHW reshape would reorder them)."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, x.shape[1])
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

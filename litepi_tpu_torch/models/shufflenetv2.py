@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
     """NCHW channel shuffle: out[:, j] = in[:, (j % g) * (c // g) + j // g]."""
@@ -20,25 +22,6 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
     return (
         x.view(b, groups, c // groups, h, w).transpose(1, 2).reshape(b, c, h, w)
     )
-
-
-class _ConvBNReLU(nn.Module):
-    def __init__(
-        self, c_in: int, c_out: int, kernel: int = 1, stride: int = 1,
-        groups: int = 1, relu: bool = True, fused: bool = False,
-    ) -> None:
-        super().__init__()
-        self.conv = nn.Conv2d(
-            c_in, c_out, kernel, stride, kernel // 2, groups=groups, bias=fused
-        )
-        self.bn = None if fused else nn.BatchNorm2d(c_out, eps=1e-5, momentum=0.1)
-        self.relu = relu
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x)
-        return F.relu(x) if self.relu else x
 
 
 class InvertedResidual(nn.Module):
@@ -50,12 +33,16 @@ class InvertedResidual(nn.Module):
         half = c_out // 2
         self.stride = stride
         b2_in = c_in if stride != 1 else c_in // 2
-        self.b2_pw1 = _ConvBNReLU(b2_in, half, 1, fused=fused)
-        self.b2_dw = _ConvBNReLU(half, half, 3, stride, half, relu=False, fused=fused)
-        self.b2_pw2 = _ConvBNReLU(half, half, 1, fused=fused)
+        self.b2_pw1 = ConvBN(b2_in, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.b2_dw = ConvBN(
+            half, half, 3, stride, half, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS
+        )
+        self.b2_pw2 = ConvBN(half, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
         if stride != 1:
-            self.b1_dw = _ConvBNReLU(c_in, c_in, 3, stride, c_in, relu=False, fused=fused)
-            self.b1_pw = _ConvBNReLU(c_in, half, 1, fused=fused)
+            self.b1_dw = ConvBN(
+                c_in, c_in, 3, stride, c_in, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS
+            )
+            self.b1_pw = ConvBN(c_in, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
 
     def _branch2(self, x: torch.Tensor) -> torch.Tensor:
         return self.b2_pw2(self.b2_dw(self.b2_pw1(x)))
@@ -83,7 +70,9 @@ class ShuffleNetV2(nn.Module):
     ) -> None:
         super().__init__()
         self.stage_repeats = tuple(stage_repeats)
-        self.conv1 = _ConvBNReLU(3, stage_channels[0], 3, 2, fused=fused)
+        self.conv1 = ConvBN(
+            3, stage_channels[0], 3, 2, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS
+        )
         c_in = stage_channels[0]
         for s, (reps, ch) in enumerate(
             zip(stage_repeats, stage_channels[1:4]), start=2
@@ -92,7 +81,9 @@ class ShuffleNetV2(nn.Module):
             for i in range(1, reps):
                 setattr(self, f"stage{s}_{i}", InvertedResidual(ch, ch, 1, fused))
             c_in = ch
-        self.conv5 = _ConvBNReLU(c_in, stage_channels[4], 1, fused=fused)
+        self.conv5 = ConvBN(
+            c_in, stage_channels[4], 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS
+        )
         self.fc = nn.Linear(stage_channels[4], num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,16 @@ serving program stage for stage: stem on raw pixels (the stem kernel on
 canvas-sized frames, else letterbox + a stem conv with the input scale
 folded in) -> detector -> DFL decode + top-K -> NMS (kernel) -> per-frame
 crop budget -> un-letterbox, clip, min-area -> ROI crop (kernel) -> global
-classifier budget -> ShuffleNetV2 -> softmax.  Shapes are static: NMS
+classifier budget -> classifier -> softmax.  Shapes are static: NMS
 emits ``max_detections`` padded slots and ``valid`` masks the real ones.
 On device-resident frames it never synchronises the host with the card.
+
+The default detector is YoloLitePi.  Any other detector module plugs in as
+``det_model`` (YoloV11, YoloV5 with either head); it then runs as the JAX
+package runs an injected detector: letterbox, x 1/255, BGR -> RGB, the
+whole model with its BatchNorm, and ``candidate_decoder`` in place of the
+DFL decode where its head needs one.  The classifier is any of
+``models/registry.py``'s four.
 
 The staged programs (:meth:`~TwoStagePipeline.detect`,
 :meth:`~TwoStagePipeline.detect_candidates`,
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +39,7 @@ from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import PipelineConfig
 from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.models import YoloLitePi, build_classifier
-from litepi_tpu_torch.models.registry import CLASSIFIER_BN_EPS
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS
 from litepi_tpu_torch.ops.anchors import make_anchors
 from litepi_tpu_torch.ops.boxes import box_area, clip_boxes
 from litepi_tpu_torch.ops.dfl import decode_candidates, topk_stable
@@ -49,6 +56,10 @@ from litepi_tpu_torch.weights.fold_bn import (
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
 StateDict = Dict[str, torch.Tensor]
+# (head output, k) -> (boxes (B, k, 4), scores (B, k), class_ids (B, k))
+CandidateDecoder = Callable[
+    [Dict[str, torch.Tensor], int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+]
 
 
 def _lecun_normal_(model: nn.Module, gen: torch.Generator) -> None:
@@ -69,8 +80,9 @@ class TwoStagePipeline:
     """Holds the deploy-form models and runs the fused program.
 
     ``det_state`` / ``cls_state`` are ``state_dict``s of
-    :class:`~litepi_tpu_torch.models.YoloLitePi` and the classifier, with
-    BatchNorm (folded here: eps 1e-3 / 1e-5) or already deploy-form.
+    :class:`~litepi_tpu_torch.models.YoloLitePi` (or of ``det_model``) and
+    the classifier, with BatchNorm (folded here: eps 1e-3 / 1e-5, the
+    injected detector's kept) or already deploy-form.
     ``dtype`` is float32 or bfloat16: weights and activations take it,
     decode and softmax run in float32.  A float32 pipeline on the card
     turns TF32 off for cuDNN convs and matmuls (process-wide), because
@@ -84,21 +96,16 @@ class TwoStagePipeline:
         cls_state: StateDict,
         dtype: torch.dtype = torch.float32,
         device="cuda",
-        candidate_decoder=None,
+        det_model: Optional[nn.Module] = None,
+        candidate_decoder: Optional[CandidateDecoder] = None,
         candidate_capacity: Optional[int] = None,
     ) -> None:
-        if candidate_decoder is not None or candidate_capacity is not None:
-            raise NotImplementedError(
-                "candidate_decoder / candidate_capacity (detectors with their "
-                "own head, e.g. anchor-based YOLOv5) are not ported "
-                "(ROADMAP queue 1, M10)"
-            )
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         if cfg.roi_impl == "windowed":
             raise NotImplementedError(
-                "roi_impl='windowed' is not ported (ROADMAP queue 1, M6); "
+                "roi_impl='windowed' is not ported (ROADMAP queue 1, M10); "
                 "use 'dense' or 'pallas'"
             )
         if cfg.roi_impl not in ("dense", "pallas"):
@@ -109,6 +116,48 @@ class TwoStagePipeline:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
 
+        # any detector with the {reg, cls} output contract plugs in
+        # (YoloV11, anchor-free YoloV5, ...); a detector with another head
+        # (anchor-based YoloV5) brings ``candidate_decoder(out, k) -> (boxes,
+        # scores, class_ids)``, the top-k score-descending candidates in
+        # input pixels, and its prediction count as ``candidate_capacity``
+        self._candidate_decoder = candidate_decoder
+        self._injected = det_model is not None
+        if self._injected:
+            # an injected detector runs as given, BatchNorm included, on
+            # [0, 1] RGB canvases: no BN fold, no stem-input fold, no stem
+            # kernel
+            self.det_model = self._place(copy.deepcopy(det_model), det_state)
+        else:
+            self._init_default_detector(det_state)
+
+        cls_state = fold_pipeline_state(cls_state, CLASSIFIER_BN_EPS)
+        self.cls_model = self._place(
+            build_classifier(
+                cfg.classifier_arch, cfg.num_classifier_classes, fused=True
+            ),
+            cls_state,
+            float32=("fc",),  # the JAX classifier's Dense is float32
+        )
+
+        pts, strides = make_anchors(cfg.det_input_size, cfg.detector.strides)
+        self._anchors = torch.as_tensor(pts, device=self.device)
+        self._strides = torch.as_tensor(strides, device=self.device)
+        # eval_max_candidates=0 means every prediction of the detector: the
+        # anchor-free grid, or the decoder's own count (3x for YOLOv5's
+        # anchor-based head)
+        self._candidate_capacity = int(
+            candidate_capacity if candidate_capacity is not None else pts.shape[0]
+        )
+        self._mean = torch.tensor(cfg.cls_mean, dtype=torch.float32, device=self.device)
+        self._std = torch.tensor(cfg.cls_std, dtype=torch.float32, device=self.device)
+        # letterbox geometry tensors per frame size, made once on the device
+        self._unmap_geometry: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _init_default_detector(self, det_state: StateDict) -> None:
+        """The default detector, YoloLitePi, in deploy form with the stem
+        kernel's weights."""
+        cfg = self.cfg
         det_state = fold_pipeline_state(det_state, BN_EPS)
         self.det_model = self._place(YoloLitePi(cfg.detector, fused=True), det_state)
         # the port always runs the deploy form, so the fused program feeds
@@ -129,27 +178,21 @@ class TwoStagePipeline:
         with torch.no_grad():
             raw_stem.conv.weight.copy_(fold_stem_input(stem_w, 1.0 / 255.0, flip))
         self._raw_stem = raw_stem
-        # letterbox geometry tensors per frame size, made once on the device
-        self._unmap_geometry: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
-        cls_state = fold_pipeline_state(cls_state, CLASSIFIER_BN_EPS)
-        self.cls_model = self._place(
-            build_classifier(
-                cfg.classifier_arch, cfg.num_classifier_classes, fused=True
-            ),
-            cls_state,
-        )
-        self.cls_model.fc.float()  # the JAX classifier's Dense is float32
-
-        pts, strides = make_anchors(cfg.det_input_size, cfg.detector.strides)
-        self._anchors = torch.as_tensor(pts, device=self.device)
-        self._strides = torch.as_tensor(strides, device=self.device)
-        self._mean = torch.tensor(cfg.cls_mean, dtype=torch.float32, device=self.device)
-        self._std = torch.tensor(cfg.cls_std, dtype=torch.float32, device=self.device)
-
-    def _place(self, model: nn.Module, state: StateDict) -> nn.Module:
+    def _place(self, model: nn.Module, state: StateDict, float32=()) -> nn.Module:
+        """``model`` on the device in the pipeline's dtype with ``state``
+        loaded.  BatchNorm (an injected detector keeps it) and the
+        submodules named in ``float32`` stay float32 with the state's
+        values unrounded, as the JAX models keep them (flax BatchNorm's
+        float32 parameters and statistics, the classifiers' float32
+        ``Dense``); BatchNorm normalises in float32 and returns the
+        activations in their own dtype."""
+        model = model.eval().to(device=self.device, dtype=self.dtype)
+        for name, m in model.named_modules():
+            if isinstance(m, nn.BatchNorm2d) or name in float32:
+                m.float()
         model.load_state_dict(state)
-        return model.eval().to(device=self.device, dtype=self.dtype)
+        return model
 
     # ------------------------------------------------------------------ #
     # construction helpers                                                #
@@ -162,16 +205,22 @@ class TwoStagePipeline:
         seed: int = 0,
         dtype: torch.dtype = torch.float32,
         device="cuda",
+        det_model: Optional[nn.Module] = None,
+        candidate_decoder: Optional[CandidateDecoder] = None,
+        candidate_capacity: Optional[int] = None,
     ) -> "TwoStagePipeline":
         """A pipeline with freshly initialised (untrained) weights drawn from
-        ``torch.Generator`` seeds ``seed`` (detector) and ``seed + 1``
-        (classifier)."""
+        ``torch.Generator`` seeds ``seed`` (detector: YoloLitePi, or
+        ``det_model``) and ``seed + 1`` (classifier)."""
         resolve_device(device)
-        det = YoloLitePi(cfg.detector)
+        det = YoloLitePi(cfg.detector) if det_model is None else copy.deepcopy(det_model)
         clf = build_classifier(cfg.classifier_arch, cfg.num_classifier_classes)
         _lecun_normal_(det, torch.Generator().manual_seed(seed))
         _lecun_normal_(clf, torch.Generator().manual_seed(seed + 1))
-        return cls(cfg, det.state_dict(), clf.state_dict(), dtype, device)
+        return cls(
+            cfg, det.state_dict(), clf.state_dict(), dtype, device,
+            det_model, candidate_decoder, candidate_capacity,
+        )
 
     @classmethod
     def from_jax_vars(
@@ -181,13 +230,17 @@ class TwoStagePipeline:
         cls_vars,
         dtype: torch.dtype = torch.float32,
         device="cuda",
+        det_model: Optional[nn.Module] = None,
+        candidate_decoder: Optional[CandidateDecoder] = None,
+        candidate_capacity: Optional[int] = None,
     ) -> "TwoStagePipeline":
         """A pipeline on the JAX package's variables (numpy trees, folded
-        or not) through ``weights/jax_bridge.py``."""
+        or not) through ``weights/jax_bridge.py``; ``det_vars`` are
+        ``det_model``'s where one is given."""
         resolve_device(device)
         return cls(
             cfg, jax_to_state_dict(det_vars), jax_to_state_dict(cls_vars),
-            dtype, device,
+            dtype, device, det_model, candidate_decoder, candidate_capacity,
         )
 
     # ------------------------------------------------------------------ #
@@ -218,7 +271,12 @@ class TwoStagePipeline:
         kernel on the card) with float32 weights and no letterbox; other
         sizes through the letterbox and a conv module in the pipeline's
         dtype.  A failing kernel raises; it never selects the other branch.
+
+        With an injected detector this stage is the letterbox and the 1/255
+        scale: (B, 3, S, S) canvases in [0, 1], host colour order.
         """
+        if self._injected:
+            return self._letterbox(frames) * (1.0 / 255.0)
         if self._canvas_sized(frames):
             act = fused_stem(
                 frames, self._stem_kernel, self._stem_bias, self.dtype, self._stem_params
@@ -228,15 +286,26 @@ class TwoStagePipeline:
 
     def _detect(self, stem_act: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Stem activations -> head output ``{reg, cls}``: the detector
-        after its stem."""
-        return self.det_model(stem_act, from_stem=True)
+        after its stem.  An injected detector runs whole on the [0, 1]
+        canvases, flipped to RGB first where the host sends BGR."""
+        if not self._injected:
+            return self.det_model(stem_act, from_stem=True)
+        if self.cfg.input_color == "bgr":
+            stem_act = stem_act.flip(1)
+        return self.det_model(stem_act)
 
-    def _candidates(self, head: torch.Tensor):
-        """DFL decode + top-K: boxes (B, K, 4), scores (B, K), class ids."""
+    def _candidates(self, head: Dict[str, torch.Tensor], k: Optional[int] = None):
+        """Top-``k`` (default ``max_candidates``) score-descending
+        candidates: boxes (B, K, 4) in input pixels, scores (B, K), class
+        ids; from the candidate decoder where one is given, else DFL decode
+        + top-K."""
         cfg = self.cfg
+        k = k or cfg.nms.max_candidates
+        if self._candidate_decoder is not None:
+            return self._candidate_decoder(head, k)
         return decode_candidates(
-            head, self._anchors, self._strides, cfg.detector.reg_max,
-            cfg.nms.max_candidates, cfg.candidate_selector,
+            head, self._anchors, self._strides, cfg.detector.reg_max, k,
+            cfg.candidate_selector,
         )
 
     def _suppress(self, boxes, scores, class_ids, conf: float):
@@ -384,12 +453,7 @@ class TwoStagePipeline:
         x = torch.as_tensor(canvas01).to(device=self.device, dtype=self.dtype)
         if self.cfg.input_color == "bgr":
             x = x.flip(-1)  # the detector computes in RGB
-        head = self.det_model(x.permute(0, 3, 1, 2))
-        cfg = self.cfg
-        return decode_candidates(
-            head, self._anchors, self._strides, cfg.detector.reg_max, k,
-            cfg.candidate_selector,
-        )
+        return self._candidates(self.det_model(x.permute(0, 3, 1, 2)), k)
 
     @torch.inference_mode()
     def detect(self, canvas01, conf_threshold: Optional[float] = None) -> Dict[str, torch.Tensor]:
@@ -411,9 +475,11 @@ class TwoStagePipeline:
         """Decoded score-descending candidates without suppression, for a
         host-NMS evaluation pass: (boxes (B, K, 4) letterbox-space xyxy,
         scores (B, K), class_ids (B, K)) with K = ``max_candidates``, by
-        default ``nms.eval_max_candidates``; 0 means every anchor."""
+        default ``nms.eval_max_candidates``; 0 means every prediction, and
+        K never exceeds ``candidate_capacity`` (the anchor count, or the
+        decoder's)."""
         k = max_candidates or self.cfg.nms.eval_max_candidates
-        cap = int(self._anchors.shape[0])
+        cap = self._candidate_capacity
         return self._detect_top(canvas01, min(k, cap) if k else cap)
 
     @torch.inference_mode()

@@ -1,19 +1,22 @@
 """Where the fused program's time goes on the card: per-stage device times
 and the device's idle share.
 
-    python -m litepi_tpu_torch.tools.stage_split
+    python -m litepi_tpu_torch.tools.stage_split [--detector V] [--classifier A] [--batch B]
 
 Builds the serving configuration at full width (yolo_plus_v2 +
 ShuffleNetV2-91, B=128 640x640 BGR frames, bfloat16, 64 candidates, 16
 detections, crop_det_budget 8, cls_crop_budget 4*B) with seeded random
-weights, then:
+weights, or with a zoo detector injected (``--detector yolov11n``,
+``yolov5n``, ``yolov5n_legacy``), another classifier (``--classifier
+resnet18``, ...) and another batch, then:
 
 * times ``run_fused`` end to end in several back-to-back windows (CUDA
   events, after warm-up), so that the spread between windows shows;
 * times each stage alone on the inputs the previous stage produced,
   through the pipeline's own stage methods, the ones ``run_fused`` calls:
   the stem (at this canvas size the stem kernel K3 on the uint8 frames,
-  with no letterbox stage), the rest of the detector, decode + top-K,
+  with no letterbox stage; for an injected detector the letterbox, x 1/255
+  and nothing else), the rest of the detector (all of an injected one), decode + top-K,
   NMS + crop budget, box unmapping, ROI crop, classifier;
 * traces a few ``run_fused`` calls with ``torch.profiler`` and sums device
   time by kind and by kernel name.  The idle share is read in that same
@@ -27,6 +30,7 @@ Prints one JSON line.  Exits non-zero when no CUDA device is present.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -114,22 +118,26 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def measure(dev) -> dict:
+def measure(dev, detector: str = "yolo_plus_v2", classifier: str = "shufflenetv2",
+            batch: int = BATCH) -> dict:
     """Every measurement of the module docstring, on ``dev``."""
     from torch.profiler import ProfilerActivity, profile
 
     from litepi_tpu_torch.core.types import NMSConfig, PipelineConfig
+    from litepi_tpu_torch.models import detector_kwargs
     from litepi_tpu_torch.pipeline import TwoStagePipeline
 
     cfg = PipelineConfig(
         nms=NMSConfig(max_candidates=64, max_detections=16),
+        classifier_arch=classifier,
         input_color="bgr",
         crop_det_budget=8,
-        cls_crop_budget=4 * BATCH,
+        cls_crop_budget=4 * batch,
     )
-    pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=DTYPE, device=dev)
+    zoo = {} if detector == "yolo_plus_v2" else detector_kwargs(detector, cfg, dev)
+    pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=DTYPE, device=dev, **zoo)
     gen = torch.Generator(device=dev).manual_seed(0)
-    frames = torch.randint(0, 256, (BATCH, 640, 640, 3), generator=gen, device=dev,
+    frames = torch.randint(0, 256, (batch, 640, 640, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
     h, w = int(frames.shape[1]), int(frames.shape[2])
     conf = cfg.benchmark_conf
@@ -137,7 +145,8 @@ def measure(dev) -> dict:
     stages = {}
     with torch.inference_mode():
         e2e = cuda_ms_windows(lambda: pipe.run_fused(frames), ITERS, E2E_WINDOWS)
-        stages["stem (K3)"] = cuda_ms(lambda: pipe._stem(frames), ITERS)
+        stem_name = "letterbox, x 1/255" if zoo else "stem (K3)"
+        stages[stem_name] = cuda_ms(lambda: pipe._stem(frames), ITERS)
         stem = pipe._stem(frames)
         stages["detector_body"] = cuda_ms(lambda: pipe._detect(stem), ITERS)
         head = pipe._detect(stem)
@@ -182,11 +191,13 @@ def measure(dev) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     e2e_sorted = sorted(e2e)
     return {
-        "batch": BATCH,
+        "detector": detector,
+        "classifier": classifier,
+        "batch": batch,
         "dtype": str(DTYPE).removeprefix("torch."),
         "e2e_ms_per_batch_windows": e2e,
         "e2e_ms_per_batch": e2e_sorted[len(e2e) // 2],
-        "fps": BATCH / e2e_sorted[len(e2e) // 2] * 1e3,
+        "fps": batch / e2e_sorted[len(e2e) // 2] * 1e3,
         "stage_ms": stages,
         "stage_sum_ms": sum(stages.values()),
         "profiled": {
@@ -209,10 +220,17 @@ def measure(dev) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--detector", default="yolo_plus_v2",
+                        choices=["yolo_plus_v2", "yolov11n", "yolov5n", "yolov5n_legacy"])
+    parser.add_argument("--classifier", default="shufflenetv2",
+                        choices=["shufflenetv2", "resnet18", "mobilenetv2", "efficientnet"])
+    parser.add_argument("--batch", type=int, default=BATCH)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("stage_split: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    result = measure(torch.device("cuda", 0))
+    result = measure(torch.device("cuda", 0), args.detector, args.classifier, args.batch)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

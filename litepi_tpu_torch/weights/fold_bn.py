@@ -9,7 +9,7 @@ On ``state_dict``s of the port's modules, with the JAX package's formula::
 in float32 numpy, as the JAX package folds, so the folded weights equal
 its bit for bit (numpy's sqrt is correctly rounded; torch's vectorised CPU
 sqrt is not always).  Detector ConvBNs use eps 1e-3, the classifiers 1e-5
-(``models/registry.py::CLASSIFIER_BN_EPS``).
+(``models/layers.py::CLASSIFIER_BN_EPS``).
 """
 
 from __future__ import annotations
@@ -34,30 +34,33 @@ def has_batchnorm(state: StateDict) -> bool:
 
 
 def fold_batchnorm(state: StateDict, eps: float = BN_EPS) -> StateDict:
-    """Deploy-form state: every ``<p>.conv`` with a ``<p>.bn`` sibling
-    becomes a biased conv and the ``<p>.bn.*`` entries disappear.  Entries
-    without a bn sibling (plain output convs, linear layers) pass through.
-    Raises on a BatchNorm with no conv sibling."""
+    """Deploy-form state: every BatchNorm ``<p>bnX`` with a ``<p>convX``
+    sibling (``bn``/``conv`` in the ConvBN units, ``bn1``/``conv1`` in
+    ResNet18's stem) becomes a biased conv and the ``<p>bnX.*`` entries
+    disappear.  Entries without a bn sibling (plain output convs, linear
+    layers) pass through.  Raises on a BatchNorm with no conv sibling."""
     out = dict(state)
     for key in state:
-        if not key.endswith(".bn.running_var"):
+        if not key.endswith(".running_var"):
             continue
-        p = key[: -len(".bn.running_var")]
-        if f"{p}.conv.weight" not in state:
-            raise ValueError(f"unfoldable BatchNorm at '{p}.bn': no conv sibling")
+        bn = key[: -len(".running_var")]
+        prefix, dot, name = bn.rpartition(".")
+        conv = f"{prefix}{dot}conv{name[2:]}"
+        if not name.startswith("bn") or f"{conv}.weight" not in state:
+            raise ValueError(f"unfoldable BatchNorm at '{bn}': no conv sibling")
         gamma, beta, mean, var, w = (
-            _np(state[f"{p}.{n}"])
-            for n in ("bn.weight", "bn.bias", "bn.running_mean",
-                      "bn.running_var", "conv.weight")
+            _np(state[k])
+            for k in (f"{bn}.weight", f"{bn}.bias", f"{bn}.running_mean",
+                      f"{bn}.running_var", f"{conv}.weight")
         )
         s = gamma / np.sqrt(var + np.float32(eps))
-        base = state.get(f"{p}.conv.bias")
+        base = state.get(f"{conv}.bias")
         base = np.zeros_like(s) if base is None else _np(base)
-        out[f"{p}.conv.weight"] = torch.from_numpy(
+        out[f"{conv}.weight"] = torch.from_numpy(
             w * s.reshape(-1, *([1] * (w.ndim - 1)))
         )
-        out[f"{p}.conv.bias"] = torch.from_numpy(base * s + beta - mean * s)
-        for k in [k for k in out if k.startswith(f"{p}.bn.")]:
+        out[f"{conv}.bias"] = torch.from_numpy(base * s + beta - mean * s)
+        for k in [k for k in out if k.startswith(f"{bn}.")]:
             del out[k]
     return out
 

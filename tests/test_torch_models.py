@@ -156,8 +156,12 @@ def test_channel_shuffle_permutation():
 
 
 def test_unported_classifiers_raise():
-    for arch in ("resnet18", "mobilenetv2", "efficientnet"):
-        with pytest.raises(NotImplementedError, match="M10"):
-            build_classifier(arch, 10)
+    """All four reference classifiers build, unfused and deploy-form, with
+    a float32 ``fc`` head; an arch the registry does not hold raises."""
+    for arch in ("shufflenetv2", "resnet18", "mobilenetv2", "efficientnet"):
+        for fused in (False, True):
+            model = build_classifier(arch, 10, fused=fused)
+            assert model.fc.out_features == 10 and model.fc.weight.dtype == torch.float32
+            assert any(k.endswith(".running_var") for k in model.state_dict()) != fused
     with pytest.raises(ValueError, match="unknown classifier"):
         build_classifier("vgg", 10)

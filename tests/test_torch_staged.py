@@ -140,8 +140,39 @@ def test_nms_fixed_matches_jax(shape, budgets):
 
 
 def test_candidate_decoder_not_ported():
+    """An injected detector with a candidate decoder and a declared
+    capacity, as the JAX pipeline takes them: SMALL's unfolded YoloLitePi
+    whose decoder is the DFL decode it would run anyway, capacity 100.
+    ``detect_candidates`` clamps K to the capacity (0 and 500 give 100),
+    every K reaches the decoder, and the candidates match the JAX
+    pipeline's on the same injection."""
+    from litepi_tpu.models import YoloLitePi as JaxYolo
+    from litepi_tpu.ops.dfl import decode_candidates as jax_decode
+    from litepi_tpu_torch.models import YoloLitePi
+    from litepi_tpu_torch.ops.dfl import decode_candidates
+
     det, clf = jax_init_vars(SMALL, seed=0)
-    for kw in (dict(candidate_decoder=lambda out, k: out), dict(candidate_capacity=100)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TwoStagePipeline(port_config(SMALL), jax_to_state_dict(det),
-                             jax_to_state_dict(clf), device="cpu", **kw)
+    cfg = port_config(SMALL)
+    canvas = np.asarray(jax_letterbox(peaked_frames(), SMALL.det_input_size, jnp.float32))
+    canvas01 = canvas / np.float32(255.0)
+    jp = JaxPipeline(
+        SMALL, det, clf, det_model=JaxYolo(SMALL.detector),
+        candidate_decoder=lambda out, k: jax_decode(out, jp._anchors, jp._strides, 16, k),
+        candidate_capacity=100,
+    )
+    asked = []
+
+    def decoder(out, k):
+        asked.append(k)
+        return decode_candidates(out, port._anchors, port._strides, 16, k)
+
+    port = TwoStagePipeline(cfg, jax_to_state_dict(det), jax_to_state_dict(clf), device="cpu",
+                            det_model=YoloLitePi(cfg.detector), candidate_decoder=decoder,
+                            candidate_capacity=100)
+    assert port.det_model.backbone.stem.bn is not None  # injected: BN kept
+    for k in (None, 0, 500, 7):
+        want = [np.asarray(x) for x in jp.detect_candidates(canvas01, k)]
+        got = [x.numpy() for x in port.detect_candidates(canvas01, k)]
+        assert got[1].shape == (2, 7 if k == 7 else 100)
+        _assert_same_candidates(got, want)
+    assert asked == [100, 100, 100, 7]
