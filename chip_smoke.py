@@ -15,11 +15,13 @@ source, in parallel), then:
    NMSConfig default) on 1-class inputs, the serving detector's;
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
    640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
-   levels) and on an all-invalid batch; dense timed on both sizes (beside
-   ``F.grid_sample``), pyramid on the second, both alone and, for
-   pyramid, with the level build the main path runs; tolerance 1e-3 on
-   0-255 values (both round each f32 product and sum once, in the same
-   order; 0 is expected);
+   levels) and on an all-invalid batch, the dense mode also with the bf16
+   rounding a bf16 pipeline's crop runs (tap weights and y-lerps rounded
+   to bf16 values, as the JAX bf16 crop rounds); dense timed on both sizes
+   (beside ``F.grid_sample``; the bf16 rounding at the serving size),
+   pyramid on the second, both alone and, for pyramid, with the level
+   build the main path runs; tolerance 1e-3 on 0-255 values (both round
+   each f32 product and sum once, in the same order; 0 is expected);
 3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem),
    B=2 160x240 C=32, and the tile and pair edges: H in {2, 6, 80}, W in
    {2, 10, 642} (642: an odd output width), C in {16, 32} (weights as
@@ -72,7 +74,22 @@ source, in parallel), then:
    batch (near ms/batch, the run is host-bound); the NMS and ROI kernels' device
    time inside the YOLOv11n run; and the anchor-based detector's
    ``detect_candidates`` at ``eval_max_candidates=0`` (25,200 candidates
-   per image, score-descending, sync-free).
+   per image, score-descending, sync-free);
+9. the evaluation core: ``PipelineEvaluator`` (frames served from memory
+   through ``_read_image``) on the card vs on the CPU with SMALL's float32
+   pipeline (TF32 off) on 5 frames of 200x300 and 300x200 at batch 2 (a
+   trailing partial batch), the thresholds in gaps of the candidate scores
+   20x the card-vs-CPU noise wide: ``run_images`` with and without
+   ``eval_budget`` per image (counts equal, boxes 1e-3 px, det scores
+   1e-6, labels exact, cls scores 1e-5) and the reference metric row within
+   1e-6; then ``evaluate_dataset(metrics_mode="reference")`` at the e2e
+   app's defaults (yolo_plus_v2 + ShuffleNetV2-91, 640, B=8, float32,
+   dense, 512 candidates, 8,400 per image in the mAP pass, yolo_conf
+   0.001, benchmark_conf 0.25) over 32 random 2048x2048 frames, printing
+   its FPS, stage times, each pass's seconds, the metric row and the
+   launch counts (zeroed just before, read just after: the NMS kernel at
+   least once, the dense crop at least 4 times, the stem kernel and the
+   pyramid crop never).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -85,7 +102,9 @@ traced apart from the timed windows, summed over the kernels of one call
 the host's time to issue one call, so that where ``host_ms`` is near
 ``ms`` the window timed the host and ``device_ms`` is the kernel's time;
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
-and 67 TFLOP/s float32), an ``{"e2e": ..., "zoo": ...}`` JSON line, and last
+and 67 TFLOP/s float32; ``eval_launches`` the eval phase's full-width
+launches on the entry of their shape), an ``{"e2e": ..., "zoo": ...,
+"eval": ...}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -94,8 +113,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -109,7 +130,7 @@ from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
-from litepi_tpu_torch.models import build_classifier, detector_kwargs
+from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
 from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops import nms as nms_ops
 from litepi_tpu_torch.ops.nms import suppress_sorted
@@ -122,11 +143,16 @@ from litepi_tpu_torch.ops.roi import (
     roi_geometry,
 )
 from litepi_tpu_torch.ops.stem import fused_stem, stem_plain
-from litepi_tpu_torch.pipeline import StreamingRunner, TwoStagePipeline
+from litepi_tpu_torch.pipeline import PipelineEvaluator, StreamingRunner, TwoStagePipeline
 from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
 from litepi_tpu_torch.tools.nms_ab import nms_inputs
 from litepi_tpu_torch.tools.roi_ab import roi_inputs, touched_bytes
-from litepi_tpu_torch.tools.stage_split import cuda_ms, cuda_ms_windows, kernel_device_ms
+from litepi_tpu_torch.tools.stage_split import (
+    cuda_ms,
+    cuda_ms_windows,
+    kernel_device_ms,
+    kernel_device_times,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
@@ -183,6 +209,13 @@ SMALL = PipelineConfig(
 ZOO_SMALL = dataclasses.replace(SMALL, detector=dataclasses.replace(YOLOV8N, input_size=160))
 # e2e.py's detector config for the zoo variants (1 class, reg_max 16)
 ZOO_SERVING = dataclasses.replace(SERVING, detector=YOLOV8N)
+# the evaluation core: small card-vs-CPU frames (h, w) at batch 2 (landscape,
+# portrait, a trailing partial batch), and the e2e app's defaults at full
+# width (PipelineConfig's: yolo_plus_v2 + ShuffleNetV2-91, 640, B=8, dense,
+# 512 candidates, every anchor in the mAP pass) on TT100K-sized frames
+EVAL_SMALL_SIZES = ((200, 300), (200, 300), (300, 200), (300, 200), (200, 300))
+EVAL_FULL = PipelineConfig(input_color="bgr")
+EVAL_FULL_FRAMES, EVAL_FULL_SIZE = 32, 2048
 
 
 def fail(msg: str) -> None:
@@ -331,17 +364,19 @@ def grid_for(boxes, h: int, w: int, out_size: int):
     return grid.reshape(b, d * out_size, out_size, 2)
 
 
-def roi_error(frames, boxes, valid, out_size: int, mode: str):
-    """The ROI kernel vs its plain version in one mode; returns (max abs
-    error, kernel output, levels)."""
+def roi_error(frames, boxes, valid, out_size: int, mode: str, round_bf16: bool = False):
+    """The ROI kernel vs its plain version in one mode (with ``round_bf16``,
+    the dense crop of a bf16 pipeline); returns (max abs error, kernel
+    output, levels)."""
     h, w = int(frames.shape[1]), int(frames.shape[2])
     levels = [frames] if mode == "dense" else build_pyramid(frames, len(pyramid_scales(h, w)))
-    got = roi_crop_cuda(levels, boxes, valid, out_size, EXACT_EXTENT, mode)
-    want = crop_and_resize_plain(levels, boxes, valid, out_size)
+    got = roi_crop_cuda(levels, boxes, valid, out_size, EXACT_EXTENT, mode, round_bf16)
+    want = crop_and_resize_plain(levels, boxes, valid, out_size, round_bf16=round_bf16)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    what = f"{mode}{', bf16 rounding' if round_bf16 else ''}"
     if not err <= ROI_TOL:
-        fail(f"ROI kernel ({mode}, {h}x{w}): max abs error {err} > {ROI_TOL}")
+        fail(f"ROI kernel ({what}, {h}x{w}): max abs error {err} > {ROI_TOL}")
     return err, got, levels
 
 
@@ -390,6 +425,13 @@ def check_roi(dev):
     err, got, _ = roi_error(frames, boxes, valid, s, "dense")
     result["dense"] = dict(err=err, **roi_timings(frames, boxes, valid, got, s))
     print(f"roi dense B={b} {h}x{w}: max err {err}, " + timing_text(result["dense"]))
+    # the bf16 rounding mode, which a bf16 pipeline's dense crop runs
+    err_bf16 = roi_error(frames, boxes, valid, s, "dense", True)[0]
+    bf16_kernel = lambda: roi_crop_cuda([frames], boxes, valid, s, EXACT_EXTENT, "dense", True)  # noqa: E731
+    result["dense"].update(bf16_err=err_bf16, bf16_ms=median_ms(bf16_kernel, 100)[0],
+                           bf16_device_ms=device_ms(bf16_kernel, 100, "roi_crop_kernel"))
+    print(f"roi dense B={b} {h}x{w} bf16 rounding: max err {err_bf16}, kernel "
+          f"{result['dense']['bf16_ms']:.4f} ms, device {result['dense']['bf16_device_ms']:.4f} ms")
 
     # 1080x1920: dense mode (the B=8 dense main run's shape) checked and
     # timed beside grid_sample, then pyramid mode with levels 1/4, 1/16 and
@@ -398,6 +440,8 @@ def check_roi(dev):
     frames, boxes, valid = roi_inputs(gen, b, d, h, w, dev)
     err_b8, got, _ = roi_error(frames, boxes, valid, s, "dense")
     result["dense"]["err"] = max(result["dense"]["err"], err_b8)
+    result["dense"]["bf16_err"] = max(result["dense"]["bf16_err"],
+                                      roi_error(frames, boxes, valid, s, "dense", True)[0])
     result["dense_b8"] = roi_timings(frames, boxes, valid, got, s)
     print(f"roi dense B={b} {h}x{w}: max err {err_b8}, "
           + timing_text(result["dense_b8"]))
@@ -410,9 +454,11 @@ def check_roi(dev):
     host = host_ms(kernel, 100)
     dev_ms = device_ms(kernel, 100, "roi_crop_kernel")
     plain_ms = cuda_ms(lambda: crop_and_resize_plain(levels, boxes, valid, s), 10, 1)
-    with_levels_ms, with_levels_windows = median_ms(
-        lambda: crop_and_resize_pyramid(frames, boxes, valid, s), 100
-    )
+    with_levels = lambda: crop_and_resize_pyramid(frames, boxes, valid, s)  # noqa: E731
+    with_levels_ms, with_levels_windows = median_ms(with_levels, 100)
+    # every kernel of the call (the level build's and K2), per call
+    traced = kernel_device_times(with_levels, 100, "")
+    with_levels_device_ms = sum(ms * n for ms, n in traced.values()) / 100
     n_valid_out = int(valid.sum()) * s * s * 3
     io_bytes = boxes.numel() * 4 + valid.numel() + got.numel() * 4
     n_bytes = touched_bytes(levels, boxes, valid, s) + io_bytes
@@ -424,19 +470,21 @@ def check_roi(dev):
                              levels=len(levels), bound=bound(n_bytes, 9 * n_valid_out),
                              with_levels_ms=with_levels_ms,
                              with_levels_windows=with_levels_windows,
+                             with_levels_device_ms=with_levels_device_ms,
                              with_levels_bound=with_levels_bound)
     print(f"roi pyramid ({len(levels)} levels): max err {err}, kernel {ms:.4f} ms "
           f"(windows {windows}), device {dev_ms:.4f} ms, host issue {host:.4f} ms, plain "
           f"{plain_ms:.3f} ms, levels+kernel {with_levels_ms:.4f} ms (windows "
-          f"{with_levels_windows})")
+          f"{with_levels_windows}), device {with_levels_device_ms:.4f} ms in "
+          f"{sum(n for _, n in traced.values()) / 100:.1f} kernels per call")
 
     # an all-invalid batch: every slot zero, in both modes
     valid = torch.zeros_like(valid)
-    for mode in ("dense", "pyramid"):
-        got = roi_error(frames, boxes, valid, s, mode)[1]
+    for mode, round_bf16 in (("dense", False), ("dense", True), ("pyramid", False)):
+        got = roi_error(frames, boxes, valid, s, mode, round_bf16)[1]
         if bool(got.any()):
             fail(f"ROI kernel ({mode}): an all-invalid batch gave non-zero crops")
-    print("roi: an all-invalid batch gives zero crops in both modes")
+    print("roi: an all-invalid batch gives zero crops in both modes and with bf16 rounding")
     return result
 
 
@@ -852,16 +900,16 @@ def check_streaming(dev, pipe, device_fps: float):
 # the zoo: injected detectors and the other classifiers                 #
 # --------------------------------------------------------------------- #
 
-def seeded_state(model, seed: int) -> dict:
-    """``model``'s state with conv and linear weights N(0, ZOO_GAIN^2 /
-    fan_in) from a ``torch.Generator`` seed, biases 0, BatchNorm at its
-    identity init."""
+def seeded_state(model, seed: int, gain: float = ZOO_GAIN) -> dict:
+    """``model``'s state with conv and linear weights N(0, gain^2 / fan_in)
+    from a ``torch.Generator`` seed, biases 0, BatchNorm at its identity
+    init."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               * (ZOO_GAIN / m.weight[0].numel() ** 0.5))
+                               * (gain / m.weight[0].numel() ** 0.5))
                 if m.bias is not None:
                     m.bias.zero_()
     return model.state_dict()
@@ -901,7 +949,8 @@ def check_zoo_kernels(pipe, frames, area, what: str) -> dict:
         orig, v = pipe._unmap(bx, v, int(frames.shape[1]), int(frames.shape[2]), area)
         if not bool(v.any()):
             fail(f"{what}: no box to crop")
-        roi_err = roi_error(frames, orig, v, cfg.cls_input_size, "dense")[0]
+        roi_err = roi_error(frames, orig, v, cfg.cls_input_size, "dense",
+                            pipe.dtype == torch.bfloat16)[0]
     result = dict(nms_valid=int(valid.sum()), nms_kept=int(keep.sum()), nms_mismatches=0,
                   roi_boxes=int(v.sum()), roi_max_abs_err=roi_err)
     print(f"{what}: on the run's inputs the NMS kernel equals suppress_sorted "
@@ -978,6 +1027,222 @@ def check_zoo_candidates(pipe, gen, b: int, s: int) -> dict:
                 class_ids=sorted(int(c) for c in cls.unique()))
 
 
+# --------------------------------------------------------------------- #
+# the evaluation core                                                   #
+# --------------------------------------------------------------------- #
+
+class RamEvaluator(PipelineEvaluator):
+    """A PipelineEvaluator whose frames come from memory (path -> frame)
+    and which records the wall time of its timed fused pass and of its
+    staged mAP pass."""
+
+    def __init__(self, pipe, frames: dict):
+        super().__init__(pipe)
+        self.frames = frames
+        self.seconds = {"fused_pass": 0.0, "map_pass": 0.0}
+
+    def _read_image(self, path):
+        return self.frames.get(path)
+
+    def _timed_fused_pass(self, *args):
+        t0 = time.perf_counter()
+        fps = super()._timed_fused_pass(*args)
+        self.seconds["fused_pass"] += time.perf_counter() - t0
+        return fps
+
+    def run_images(self, images, conf, timings=None, eval_budget=False):
+        t0 = time.perf_counter()
+        out = super().run_images(images, conf, timings, eval_budget)
+        if eval_budget:
+            self.seconds["map_pass"] += time.perf_counter() - t0
+        return out
+
+
+def eval_states(seed: int):
+    """SMALL's detector and classifier states, N(0, 1/fan_in) from a seed,
+    with the detector's class outputs x3000 and the classifier's Dense x300
+    (candidate scores and class probabilities spread over (0, 1), far apart
+    next to the card-vs-CPU noise) and the DFL bins given a falling bias
+    (small, varied boxes, about ten per frame after NMS)."""
+    det = seeded_state(YoloLitePi(SMALL.detector), seed, gain=1.0)
+    clf = seeded_state(build_classifier(SMALL.classifier_arch, SMALL.num_classifier_classes),
+                       seed + 1, gain=1.0)
+    for i in range(3):
+        det[f"head.cls{i}_out.weight"] *= 3000.0
+        det[f"head.reg{i}_out.weight"] *= 30.0
+        det[f"head.reg{i}_out.bias"] = (-0.7 * torch.arange(16.0)).repeat(4)
+    clf["fc.weight"] *= 300.0
+    return det, clf
+
+
+def separated_conf(scores: np.ndarray, lo: int, hi: int, sep: float) -> float:
+    """A threshold in a gap of ``scores`` (images x candidates) with
+    ``lo``..``hi`` scores over it in every image, each of them further than
+    ``sep`` from it and from the others of its image."""
+    flat = np.unique(scores.ravel())[::-1]
+    for a, b in zip(flat[:-1], flat[1:]):
+        conf = (float(a) + float(b)) / 2
+        above = [np.sort(x[x > conf]) for x in scores]
+        if (all(lo <= len(x) <= hi for x in above) and a - b > 2 * sep
+                and all((np.diff(x) > sep).all() for x in above)):
+            return conf
+    fail(f"eval: no conf threshold with {lo}..{hi} candidates separated by {sep}")
+
+
+def write_labels(labels_dir: str, paths, frames: dict, results, rng, num_classes: int) -> None:
+    """YOLO labels from ``results`` (one per path; jittered, some dropped,
+    some of another class); the last path gets no label file."""
+    for p, res in zip(paths[:-1], results):
+        h, w = frames[p].shape[:2]
+        rows = []
+        for b, c in zip(res["boxes"], res["labels"]):
+            if rng.uniform() < 0.2:
+                continue
+            b = b + rng.normal(0, 3.0, 4)
+            c = int(c) if rng.uniform() < 0.8 else (int(c) + 1) % num_classes
+            rows.append(f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} "
+                        f"{(b[2] - b[0]) / w:.6f} {(b[3] - b[1]) / h:.6f}\n")
+        with open(os.path.join(labels_dir, os.path.basename(p) + ".txt"), "w") as f:
+            f.writelines(rows)
+
+
+def compare_eval_results(got, want, what: str) -> int:
+    """Card results vs CPU results, image by image: counts equal, boxes
+    within 1e-3 px (and no coordinate within 1e-3 of an integer unless both
+    hold the same value, so truncation cannot differ), det scores 1e-6,
+    labels exact, cls scores 1e-5.  Returns the detection count."""
+    n = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g["boxes"]) != len(w["boxes"]):
+            fail(f"{what} image {i}: {len(g['boxes'])} detections on the card, "
+                 f"{len(w['boxes'])} on the CPU")
+        n += len(w["boxes"])
+        far = np.abs(w["boxes"] - np.round(w["boxes"])) > 1e-3
+        if not (far | (g["boxes"] == w["boxes"])).all():
+            fail(f"{what} image {i}: a box edge within 1e-3 of an integer")
+        if not np.array_equal(g["labels"], w["labels"]):
+            fail(f"{what} image {i}: labels differ card vs CPU")
+        for k, tol in (("boxes", 1e-3), ("det_scores", 1e-6), ("cls_scores", 1e-5)):
+            err = float(np.abs(g[k] - w[k]).max()) if len(w[k]) else 0.0
+            if not err <= tol:
+                fail(f"{what} image {i}: {k} differs by {err} > {tol}")
+    if n == 0:
+        fail(f"{what}: no detection to compare")
+    return n
+
+
+def metric_row(m: dict) -> dict:
+    return {k: (float(m[k]) if k not in ("tp", "fp", "fn") else int(m[k]))
+            for k in ("precision", "recall", "f1", "mAP50", "mAP50_95", "tp", "fp", "fn")}
+
+
+def check_eval_small(dev, tmp: str) -> dict:
+    """The evaluator on the card vs on the CPU: SMALL's float32 pipeline
+    (TF32 off) with :func:`eval_states` weights, EVAL_SMALL_SIZES frames
+    from memory (landscape and portrait, a trailing partial batch), labels
+    from the CPU run's detections.  The thresholds sit in gaps of the
+    candidate scores more than 20x the card-vs-CPU noise wide; ``run_images``
+    at both ``eval_budget`` settings per image as in
+    :func:`compare_eval_results`; the reference metric row within 1e-6."""
+    cfg = dataclasses.replace(SMALL, batch_size=2, input_color="bgr")
+    frames = {f"ram://small/{i}": peaked_frames(seed=60 + i, batch=1, h=h, w=w)[0]
+              for i, (h, w) in enumerate(EVAL_SMALL_SIZES)}
+    paths = list(frames)
+    det, clf = eval_states(11)
+    card = RamEvaluator(TwoStagePipeline(cfg, det, clf, device=dev), frames)
+    cpu = RamEvaluator(TwoStagePipeline(cfg, det, clf, device="cpu"), frames)
+    images = [frames[p] for p in paths]
+    canvases, _ = cpu._letterbox_batch(images)
+    up = card._to_unit(canvases).cpu().numpy()
+    if not np.array_equal(up, canvases.astype(np.float32) / 255.0):
+        fail("eval: canvases divided by 255 on the card differ from the host's")
+    s_cpu = cpu.pipe.detect_candidates(cpu._to_unit(canvases))[1].numpy()
+    s_card = card.pipe.detect_candidates(card._to_unit(canvases))[1].cpu().numpy()
+    noise = float(np.abs(s_cpu - s_card).max())
+    sep = max(20 * noise, 1e-6)
+    yolo_conf = separated_conf(s_cpu, 10, 22, sep)
+    bench_conf = separated_conf(s_cpu[:, : cfg.nms.max_candidates], 3, 8, sep)
+    n = {}
+    for budget, conf in ((False, bench_conf), (True, yolo_conf)):
+        want = cpu.run_images(images, conf, eval_budget=budget)
+        n[budget] = compare_eval_results(card.run_images(images, conf, eval_budget=budget), want,
+                                         f"eval run_images eval_budget={budget}")
+        if budget:
+            write_labels(tmp, paths, frames, want, np.random.default_rng(9),
+                         cfg.num_classifier_classes)
+    kw = dict(yolo_conf=yolo_conf, benchmark_conf=bench_conf, warmup=1)
+    n_cls = cfg.num_classifier_classes
+    want = metric_row(cpu.evaluate_dataset(paths, tmp, n_cls, **kw))
+    got = metric_row(card.evaluate_dataset(paths, tmp, n_cls, **kw))
+    for k, v in want.items():
+        if not abs(got[k] - v) <= 1e-6:
+            fail(f"eval reference row: {k} {got[k]} on the card, {v} on the CPU")
+    if not 0 < want["mAP50"] < 1:
+        fail(f"eval: a degenerate metric row {want}")
+    print(f"eval small: card == CPU (score noise {noise:.3g}, yolo_conf {yolo_conf:.6f}, "
+          f"benchmark_conf {bench_conf:.6f}; {n[False]} and {n[True]} detections), "
+          f"reference row {got}")
+    return dict(score_noise=noise, yolo_conf=yolo_conf, benchmark_conf=bench_conf,
+                detections={"staged": n[False], "eval_budget": n[True]}, row=got)
+
+
+def check_eval_full(dev, tmp: str) -> dict:
+    """``evaluate_dataset(metrics_mode="reference")`` at the e2e app's
+    defaults (yolo_plus_v2 + ShuffleNetV2-91, 640, B=8, float32, dense, 512
+    candidates, 8,400 per image in the mAP pass, yolo_conf 0.001,
+    benchmark_conf 0.25) over EVAL_FULL_FRAMES random 2048x2048 BGR frames
+    from memory with random labels; launch counts zeroed just before and
+    read just after: K1 at least once, K2 dense at least 4 times, K3 and
+    the pyramid crop never."""
+    pipe = TwoStagePipeline.initialize(EVAL_FULL, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, s = EVAL_FULL_FRAMES, EVAL_FULL_SIZE
+    pixels = torch.randint(0, 256, (n, s, s, 3), generator=gen, device=dev,
+                           dtype=torch.uint8).cpu().numpy()
+    frames = {f"ram://full/{i:03d}": pixels[i] for i in range(n)}
+    rng = np.random.default_rng(13)
+    for p in frames:
+        xy = rng.uniform(0.05, 0.8, (4, 2))
+        wh = rng.uniform(0.01, 0.15, (4, 2))
+        with open(os.path.join(tmp, os.path.basename(p) + ".txt"), "w") as f:
+            f.writelines(f"{rng.integers(0, EVAL_FULL.num_classifier_classes)} {x + w / 2:.6f} {y + h / 2:.6f} {w:.6f} {h:.6f}\n"
+                         for (x, y), (w, h) in zip(xy, wh))
+    ev = RamEvaluator(pipe, frames)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m = ev.evaluate_dataset(list(frames), tmp, EVAL_FULL.num_classifier_classes,
+                            yolo_conf=EVAL_FULL.yolo_conf,
+                            benchmark_conf=EVAL_FULL.benchmark_conf, metrics_mode="reference")
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if (counts["nms_suppress"] < 1 or counts["roi_crop_dense"] < 4 or counts["stem"]
+            or counts["roi_crop_pyramid"]):
+        fail(f"eval full width: launch counts {counts}")
+    row = metric_row(m)
+    if not all(0 <= row[k] <= 1 for k in ("precision", "recall", "f1", "mAP50", "mAP50_95")):
+        fail(f"eval full width: metric row out of range {row}")
+    if not (m["num_images"] == n and m["fps"] > 0):
+        fail(f"eval full width: {m['num_images']} images, fps {m['fps']}")
+    result = dict(frames=n, frame=f"{s}x{s}", batch=EVAL_FULL.batch_size, fps=m["fps"],
+                  stage_ms_per_batch=m["stage_ms_per_batch"], seconds=seconds,
+                  fused_pass_s=ev.seconds["fused_pass"], map_pass_s=ev.seconds["map_pass"],
+                  staged_s=seconds - ev.seconds["fused_pass"] - ev.seconds["map_pass"],
+                  row=row, launches=counts)
+    print(f"eval full width: {json.dumps(result)}")
+    return result
+
+
+def eval_phase(dev) -> dict:
+    """The evaluation core: small card vs CPU, then the e2e app's defaults
+    at full width."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as small, tempfile.TemporaryDirectory() as full:
+        result = dict(small=check_eval_small(dev, small), full=check_eval_full(dev, full))
+    result["seconds"] = time.perf_counter() - t0
+    print(f"eval phase (small check and full-width run): {result['seconds']:.1f} s")
+    return result
+
+
 def run(dev) -> None:
     """Every phase on ``dev``; prints the kernels and e2e JSON lines and the
     card's name and power limit.  Raises on any failure."""
@@ -1006,6 +1271,8 @@ def run(dev) -> None:
     zoo = zoo_path(dev)
     zoo_seconds += time.perf_counter() - t0
     print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
+    evaluation = eval_phase(dev)
+    eval_counts = evaluation["full"]["launches"]
     smi_after = nvidia_smi()
     print_resources(paths, smi_after, "after the timed windows")
 
@@ -1018,6 +1285,14 @@ def run(dev) -> None:
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
                     library_ms=r.get("library_ms"), host_ms=r["host_ms"],
                     device_ms=r["device_ms"], shape=shape, **extra)
+
+    # the eval phase's full-width launches go on the entry of their shape:
+    # K1 at K=512 (detect and run_fused at 512 candidates), K2 dense at B=8
+    # (2048x2048 frames)
+    eval_launches = {"nms_suppress": 0, "nms_suppress_k512": eval_counts["nms_suppress"],
+                     "roi_crop_dense": 0, "roi_crop_dense_b8": eval_counts["roi_crop_dense"],
+                     "roi_crop_pyramid": eval_counts["roi_crop_pyramid"],
+                     "stem": eval_counts["stem"]}
 
     nms_at = "litepi_tpu/ops/pallas_nms.py:98"
     roi_at = "litepi_tpu/ops/pallas_roi.py:207"
@@ -1037,7 +1312,9 @@ def run(dev) -> None:
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
               library_max_abs_diff=dense["library_err"],
               zoo_launches=zoo_launches["roi_crop_dense"], zoo_device_ms=zoo[0]["roi_device_ms"],
-              zoo_max_abs_err=max(z["kernel_checks"]["roi_max_abs_err"] for z in zoo)),
+              zoo_max_abs_err=max(z["kernel_checks"]["roi_max_abs_err"] for z in zoo),
+              bf16_mode_max_abs_err=dense["bf16_err"], bf16_mode_ms=dense["bf16_ms"],
+              bf16_mode_device_ms=dense["bf16_device_ms"]),
         entry("roi_crop_dense_b8", "roi.cu", roi_at, run_counts[1]["roi_crop_dense"],
               dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
               library=grid_sample, library_max_abs_diff=dense_b8["library_err"]),
@@ -1045,6 +1322,7 @@ def run(dev) -> None:
               "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
               + f", {pyr['levels']} levels built in advance",
               with_levels_ms=pyr["with_levels_ms"],
+              with_levels_device_ms=pyr["with_levels_device_ms"],
               with_levels_bound_ms=pyr["with_levels_bound"][0]),
         entry("stem", "stem.cu", "litepi_tpu/ops/pallas_stem.py:111", counts["stem"], stem,
               stem["f32_err"], "B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0]),
@@ -1052,9 +1330,11 @@ def run(dev) -> None:
               library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
               bf16_max_ulps=stem["bf16_ulps"], zoo_launches=zoo_launches["stem"]),
     ]
+    for k in kernels:
+        k["eval_launches"] = eval_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
-                      "power": smi_after}))
+                      "eval": evaluation, "power": smi_after}))
     print(smi_after)
 
 

@@ -15,6 +15,10 @@
 // floor(u) and floor(u) + 1 carry weights max(0, 1 - |u - g|), which is the
 // JAX hat matrix row restricted to its non-zero entries.  Lerp along y at
 // the two source columns, then along x.  Invalid slots are written 0.
+// With round_bf16 (the dense crop of a bf16 pipeline) the tap weights and
+// both y-lerps are rounded to bf16 values, where the JAX bf16 dense crop
+// rounds its hat matrices and its y-stage; each product is then exact in
+// float32, so every two-tap sum rounds once, as in the plain version.
 //
 // What bounds it on the H100: bytes.  At the serving size (B=128, D=8,
 // S=64, C=3) it writes 50 MB of float32 and reads at most 4 taps per
@@ -46,6 +50,7 @@
 // Built with --fmad=false so that every product and sum rounds as in the
 // plain version.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +84,13 @@ struct __align__(16) Tap {
   float w0, w1;
 };
 
+// x rounded to the nearest bf16 value (ties to even) when kBf16
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float x) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
+
+template <bool kBf16>
 __device__ __forceinline__ Taps axis_taps(int o, float start, float extent,
                                           float limit, int out_size) {
   const float step = extent / (float)out_size;
@@ -87,8 +99,8 @@ __device__ __forceinline__ Taps axis_taps(int o, float start, float extent,
   const float g0 = floorf(u);
   const float g1 = g0 + 1.f;
   Taps t;
-  t.w0 = fmaxf(1.f - fabsf(u - g0), 0.f);
-  t.w1 = fmaxf(1.f - fabsf(u - g1), 0.f);
+  t.w0 = rnd<kBf16>(fmaxf(1.f - fabsf(u - g0), 0.f));
+  t.w1 = rnd<kBf16>(fmaxf(1.f - fabsf(u - g1), 0.f));
   t.i0 = (int)g0;
   t.i1 = (int)fminf(g1, limit - 1.f);
   return t;
@@ -115,17 +127,18 @@ __device__ __forceinline__ void walk(float* o, int f0, int f1, V value, V4 value
 // one output value from its two source rows r0, r1 (in device or shared
 // memory), in the plain version's order: lerp along y at both source
 // columns, then along x
+template <bool kBf16>
 __device__ __forceinline__ float lerp(const uint8_t* r0, const uint8_t* r1, const Tap& y,
                                       const Tap& x, int c) {
-  const float t0 = y.w0 * (float)r0[x.off0 + c] + y.w1 * (float)r1[x.off0 + c];
-  const float t1 = y.w0 * (float)r0[x.off1 + c] + y.w1 * (float)r1[x.off1 + c];
+  const float t0 = rnd<kBf16>(y.w0 * (float)r0[x.off0 + c] + y.w1 * (float)r1[x.off0 + c]);
+  const float t1 = rnd<kBf16>(y.w0 * (float)r0[x.off1 + c] + y.w1 * (float)r1[x.off1 + c]);
   return x.w0 * t0 + x.w1 * t1;
 }
 
 // the four values from float f of the ROI on; rows(oy, r0, r1) points r0
 // and r1 at output row oy's two source rows, with column byte 0 at offset 0.
 // A tap is read from the tables only when the output column or row moves.
-template <typename Rows>
+template <bool kBf16, typename Rows>
 __device__ __forceinline__ void values4(int f, int C, int S, const Tap* ty, const Tap* tx,
                                         Rows rows, float* v) {
   const int p = f / C;
@@ -135,7 +148,7 @@ __device__ __forceinline__ void values4(int f, int C, int S, const Tap* ty, cons
   rows(oy, r0, r1);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    v[j] = lerp(r0, r1, y, x, c);
+    v[j] = lerp<kBf16>(r0, r1, y, x, c);
     if (j < 3 && ++c == C) {
       c = 0;
       if (++ox == S) {
@@ -156,8 +169,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 // one block per ROI slot and band of `band` output rows (gridDim.y bands).
 // kC: the channel count, or 0 to take it from c_rt at run time; C = 3
 // (every frame the pipeline crops) has its own instantiation, 4% faster on
-// an H100 at B=128, D=8, 640x640 (tools/roi_ab.py)
-template <int kC>
+// an H100 at B=128, D=8, 640x640 (tools/roi_ab.py).  kBf16: round_bf16.
+template <int kC, bool kBf16>
 __global__ void __launch_bounds__(kThreads) roi_crop_kernel(
     Levels lv, const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
     float* __restrict__ out, int D, int c_rt, int S, int band, float exact_extent) {
@@ -195,8 +208,8 @@ __global__ void __launch_bounds__(kThreads) roi_crop_kernel(
   const int row = lw * C;
   for (int i = threadIdx.x; i < 2 * S; i += blockDim.x) {
     const bool along_y = i < S;
-    const Taps t = along_y ? axis_taps(i, y1 / s, bh / s, (float)lh, S)
-                           : axis_taps(i - S, x1 / s, bw / s, (float)lw, S);
+    const Taps t = along_y ? axis_taps<kBf16>(i, y1 / s, bh / s, (float)lh, S)
+                           : axis_taps<kBf16>(i - S, x1 / s, bw / s, (float)lw, S);
     const int stride = along_y ? row : C;
     ty[i] = Tap{t.i0 * stride, t.i1 * stride, t.w0, t.w1};
   }
@@ -239,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) roi_crop_kernel(
       const int g1 = (oy0 + nr) * S * C / 4;
       for (int g = oy0 * S * C / 4 + threadIdx.x; g < g1; g += blockDim.x) {
         float v[4];
-        values4(4 * g, C, S, ty, tx, rows, v);
+        values4<kBf16>(4 * g, C, S, ty, tx, rows, v);
         o4[g] = make_float4(v[0], v[1], v[2], v[3]);
       }
       __syncthreads();
@@ -258,9 +271,9 @@ __global__ void __launch_bounds__(kThreads) roi_crop_kernel(
         const int p = f / C, oy = p / S;
         const uint8_t *r0, *r1;
         rows(oy, r0, r1);
-        return lerp(r0, r1, ty[oy], tx[p - oy * S], f - p * C);
+        return lerp<kBf16>(r0, r1, ty[oy], tx[p - oy * S], f - p * C);
       },
-      [&](int f, float* v) { values4(f, C, S, ty, tx, rows, v); });
+      [&](int f, float* v) { values4<kBf16>(f, C, S, ty, tx, rows, v); });
 }
 
 }  // namespace
@@ -270,7 +283,7 @@ extern "C" int litepi_roi_crop(const void* const* level_ptrs,
                                int n_levels, const void* boxes,
                                const void* valid, void* out, int B, int D,
                                int C, int out_size, float exact_extent,
-                               void* stream) {
+                               void* stream, int round_bf16) {
   if (n_levels < 1 || n_levels > kMaxLevels || B <= 0 || D <= 0 || C <= 0 ||
       out_size <= 0 || out_size > kMaxOut)
     return cudaErrorInvalidValue;
@@ -291,7 +304,8 @@ extern "C" int litepi_roi_crop(const void* const* level_ptrs,
   const int want = (int)std::min<long long>(out_size, (kBlocksPerSm * sms + rois - 1) / rois);
   const int band = (out_size + want - 1) / want;
   const dim3 grid((unsigned)rois, (unsigned)((out_size + band - 1) / band));
-  const auto kernel = C == 3 ? roi_crop_kernel<3> : roi_crop_kernel<0>;
+  const auto kernel = round_bf16 ? (C == 3 ? roi_crop_kernel<3, true> : roi_crop_kernel<0, true>)
+                                 : (C == 3 ? roi_crop_kernel<3, false> : roi_crop_kernel<0, false>);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       lv, static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
       static_cast<float*>(out), D, C, out_size, band, exact_extent);

@@ -38,6 +38,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int,
             ctypes.c_float,
             ctypes.c_void_p,
+            ctypes.c_int,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -50,11 +51,14 @@ def roi_crop_cuda(
     out_size: int,
     exact_extent: float,
     mode: str,
+    round_bf16: bool = False,
 ) -> torch.Tensor:
     """(B, D, out, out, C) float32 crops of ``levels`` (level 0 the
     (B, H, W, C) uint8 frames; ``mode="dense"`` passes only it) at boxes
     (B, D, 4) float32 with valid (B, D) bool, all contiguous on one CUDA
-    device.  ``mode`` ("dense" or "pyramid") also names the launch count."""
+    device.  ``mode`` ("dense" or "pyramid") also names the launch count;
+    ``round_bf16`` rounds the tap weights and y-lerps to bf16 values, as
+    ``crop_and_resize_plain(..., round_bf16=True)`` does."""
     if mode not in ("dense", "pyramid"):
         raise ValueError(f"unknown ROI crop mode {mode!r}")
     if mode == "dense" and len(levels) != 1:
@@ -101,7 +105,7 @@ def roi_crop_cuda(
         status = _lib().litepi_roi_crop(
             ptrs, hs, ws, n,
             boxes.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            b, d, c, int(out_size), float(exact_extent), stream,
+            b, d, c, int(out_size), float(exact_extent), stream, int(bool(round_bf16)),
         )
     check(status, f"roi_crop ({mode}) launch")
     LAUNCHES[f"roi_crop_{mode}"] += 1

@@ -5,15 +5,25 @@ padding 114 split as ``round(d - 0.1)`` top/left and ``round(d + 0.1)``
 bottom/right (Python ``round``, half to even).  The resize is half-pixel
 bilinear without antialiasing, source coordinates clamped to
 ``[0, limit - 1]``: ``F.interpolate(mode="bilinear", align_corners=False,
-antialias=False)`` computes that map.
+antialias=False)`` computes that map in float32.  In bfloat16 the resize
+rounds where the JAX package's does: the tap weights and the rows of the
+y-stage go to bf16 (:func:`_resize_bf16`).
+
+:func:`letterbox_host` is the reference's host letterbox (cv2.resize with
+``INTER_LINEAR`` + a constant border) without cv2: :func:`resize_linear_u8`
+transcribes cv2's fixed-point uint8 bilinear resize bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from litepi_tpu_torch.ops.roi import axis_taps
 
 PAD_VALUE = 114
 
@@ -38,7 +48,8 @@ def letterbox_nchw(
     images: torch.Tensor, new_shape: int = 640, dtype=torch.float32
 ) -> torch.Tensor:
     """(B, H, W, 3) uint8 frames -> (B, 3, new, new) canvas in ``dtype``,
-    values in [0, 255].  The resize runs in float32 and is cast once."""
+    values in [0, 255].  The resize runs in float32 and is cast once, or in
+    bfloat16 rounds as the JAX package's bf16 letterbox does."""
     b, h, w = images.shape[0], images.shape[1], images.shape[2]
     _, _, _, (new_w, new_h), (top, _, left, _) = letterbox_params(h, w, new_shape)
     x = images.permute(0, 3, 1, 2)
@@ -47,6 +58,8 @@ def letterbox_nchw(
         return x.to(dtype)
     if (new_w, new_h) == (w, h):
         resized = x.to(dtype)
+    elif dtype == torch.bfloat16:
+        resized = _resize_bf16(x, new_h, new_w)
     else:
         resized = F.interpolate(
             x.float(),
@@ -65,9 +78,136 @@ def letterbox_nchw(
     return canvas
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_taps(src: int, dst: int, device: torch.device):
+    """:func:`~litepi_tpu_torch.ops.roi.axis_taps` of a whole axis (start 0,
+    extent and limit ``src``, ``dst`` samples), the tap weights rounded to
+    bf16 values; made on ``device`` from fill kernels, so that no call copies
+    from the host (and synchronises), and kept per size."""
+    full = torch.full((1, 1), float(src), device=device)
+    i0, i1, w0, w1 = axis_taps(torch.zeros_like(full), full, full, dst)
+    return i0[0, 0], i1[0, 0], w0[0, 0].bfloat16().float(), w1[0, 0].bfloat16().float()
+
+
+def _resize_bf16(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(B, C, H, W) uint8 -> (B, C, out_h, out_w) bfloat16, rounded as the
+    JAX package's bf16 letterbox rounds: hat weights in bf16, a y-stage
+    whose float32 two-tap sums go to bf16, an x-stage summed in float32 and
+    cast once.  Every product is exact in float32 (8 significant bits by 8),
+    so each stage's sum rounds once, as the JAX contraction's does.  The
+    y-stage is computed only at the source columns the x-stage reads, from
+    uint8 taps gathered at the output size."""
+    h, w = int(x.shape[2]), int(x.shape[3])
+    y0, y1, wy0, wy1 = _resize_taps(h, out_h, x.device)
+    x0, x1, wx0, wx1 = _resize_taps(w, out_w, x.device)
+    wy0, wy1, y0, y1 = wy0[:, None], wy1[:, None], y0[:, None], y1[:, None]
+
+    def y_stage(cols):
+        p0, p1 = x[:, :, y0, cols].float(), x[:, :, y1, cols].float()
+        return (wy0 * p0 + wy1 * p1).bfloat16().float()
+
+    return (wx0 * y_stage(x0) + wx1 * y_stage(x1)).bfloat16()
+
+
 def letterbox_device(
     images: torch.Tensor, new_shape: int = 640, dtype=torch.float32
 ) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> (B, new, new, 3) in ``dtype``, values in
     [0, 255]: the JAX package's NHWC layout (a view of the NCHW canvas)."""
     return letterbox_nchw(images, new_shape, dtype).permute(0, 2, 3, 1)
+
+
+# --------------------------------------------------------------------- #
+# host letterbox: cv2's INTER_LINEAR without cv2                        #
+# --------------------------------------------------------------------- #
+
+_COEF_SCALE = 2048  # cv2 INTER_RESIZE_COEF_SCALE: 11 fractional bits
+
+
+def _cv2_axis(src: int, dst: int):
+    """cv2's linear taps along one axis: (source index, fraction) per
+    output sample, ``f = float32((d + 0.5) * scale - 0.5)`` with cv2's
+    ``scale = 1 / (dst / src)`` in double, ``s = floor(f)``, ``f -= s``."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    return s.astype(np.int64), f - s
+
+
+def _cv2_coefs(frac: np.ndarray):
+    """Fixed-point tap weights ``rint(w * 2048)`` of the float32 weights
+    ``1 - frac`` and ``frac``, each rounded half to even as cv2's
+    ``saturate_cast<short>`` rounds."""
+    one = np.float32(1.0)
+    scale = np.float32(_COEF_SCALE)
+    c0 = np.rint((one - frac) * scale).astype(np.int32)
+    c1 = np.rint(frac * scale).astype(np.int32)
+    return c0, c1
+
+
+def resize_linear_u8(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(image, size, interpolation=cv2.INTER_LINEAR)`` for an
+    (H, W) or (H, W, C) uint8 image, bit for bit, in numpy: ``size`` is
+    (width, height), and an (H, W, 1) image comes back (h, w) as from cv2.
+
+    cv2's fixed-point path: the column taps are clamped at the borders
+    (a negative source column becomes column 0 with fraction 0, a column
+    at or past the last becomes the last with fraction 0); the row
+    fractions are not reset, only the two row indices are clamped into
+    the image.  The horizontal pass sums ``I[sx] * c0 + I[sx + 1] * c1`` in
+    int32; the vertical pass rounds as cv2's vector code does,
+    ``((H0 >> 4) * b0 >> 16) + ((H1 >> 4) * b1 >> 16)``, then ``(t + 2) >>
+    2`` saturated to uint8.  With 2048-scaled weights and uint8 pixels no
+    intermediate leaves int32.
+    """
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"image must be (H, W[, C]) uint8, got {img.shape} {img.dtype}")
+    out_w, out_h = int(size[0]), int(size[1])
+    if out_w <= 0 or out_h <= 0:
+        raise ValueError(f"size must be positive (width, height), got {size}")
+    src_h, src_w = img.shape[:2]
+    x = img.reshape(src_h, src_w, -1)
+
+    sx, fx = _cv2_axis(src_w, out_w)
+    low, high = sx < 0, sx >= src_w - 1
+    fx[low | high] = 0.0
+    sx = np.clip(sx, 0, src_w - 1)
+    cx0, cx1 = _cv2_coefs(fx)
+    sx1 = np.minimum(sx + 1, src_w - 1)  # its weight is 0 where clamped
+
+    sy, fy = _cv2_axis(src_h, out_h)
+    cy0, cy1 = _cv2_coefs(fy)
+    sy0, sy1 = np.clip(sy, 0, src_h - 1), np.clip(sy + 1, 0, src_h - 1)
+
+    def horizontal(rows):
+        r = x[rows]
+        return (r[:, sx].astype(np.int32) * cx0[:, None]
+                + r[:, sx1].astype(np.int32) * cx1[:, None])
+
+    h0, h1 = horizontal(sy0), horizontal(sy1)
+    t = ((h0 >> 4) * cy0[:, None, None] >> 16) + ((h1 >> 4) * cy1[:, None, None] >> 16)
+    out = np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
+    # cv2 returns a one-channel image as (H, W)
+    return out.reshape((out_h, out_w) + tuple(c for c in img.shape[2:] if c != 1))
+
+
+def letterbox_host(
+    image: np.ndarray, new_shape: int = 640
+) -> Tuple[np.ndarray, float, Tuple[float, float]]:
+    """The reference's host letterbox, cv2-exact without cv2: ``image`` HWC
+    uint8 in any colour order -> (canvas (new, new, C) uint8, ratio, (dw,
+    dh)): :func:`resize_linear_u8` to the letterbox size, then a constant
+    114 border split top/bottom/left/right as :func:`letterbox_params`
+    gives it."""
+    h, w = image.shape[:2]
+    r, dw, dh, (new_w, new_h), (top, bottom, left, right) = letterbox_params(
+        h, w, new_shape
+    )
+    if (new_w, new_h) != (w, h):
+        image = resize_linear_u8(image, (new_w, new_h))
+    canvas = np.full(
+        (new_h + top + bottom, new_w + left + right) + image.shape[2:], PAD_VALUE, np.uint8
+    )
+    canvas[top : top + new_h, left : left + new_w] = image
+    return canvas, r, (dw, dh)

@@ -16,7 +16,12 @@ tensor and by :func:`crop_and_resize_plain` on a CPU tensor:
   uint8 pyramid on which its extent is at most :data:`EXACT_EXTENT`.
 
 The JAX package's ``roi_chunk`` loop knob has no meaning here (the kernel
-covers every ROI in one launch); the crop always computes in float32.
+covers every ROI in one launch).  The dense crop computes in float32, or,
+with ``compute_dtype=torch.bfloat16``, rounds where the JAX package's bf16
+dense crop rounds: the tap weights and the y-stage values go to bf16 (its
+hat matrices and its y-stage einsum output are bf16; every product of a
+bf16 weight and a uint8 or bf16 value is exact in float32, so each two-tap
+sum rounds once on both sides).  The pyramid crop computes in float32.
 """
 
 from __future__ import annotations
@@ -112,12 +117,14 @@ def crop_and_resize_plain(
     valid: torch.Tensor,
     out_size: int,
     exact_extent: int = EXACT_EXTENT,
+    round_bf16: bool = False,
 ) -> torch.Tensor:
     """Plain version of the ROI kernel, on any device.
 
     levels: [(B, H_k, W_k, C) uint8], level 0 the frames; one level is the
     dense crop.  The arithmetic is the kernel's, in the same order: lerp
-    along y at the two source columns, then along x.
+    along y at the two source columns, then along x; with ``round_bf16``
+    the tap weights and both y-lerps are rounded to bf16 values.
     """
     b, d = boxes.shape[0], boxes.shape[1]
     c = levels[0].shape[-1]
@@ -125,6 +132,8 @@ def crop_and_resize_plain(
     lv, ys, ye, xs, xe, yl, xl = roi_geometry(boxes, level_hw, exact_extent)
     y0, y1, wy0, wy1 = axis_taps(ys, ye, yl, out_size)
     x0, x1, wx0, wx1 = axis_taps(xs, xe, xl, out_size)
+    rnd = (lambda t: t.bfloat16().float()) if round_bf16 else (lambda t: t)
+    wy0, wy1, wx0, wx1 = rnd(wy0), rnd(wy1), rnd(wx0), rnd(wx1)
 
     # one flat buffer over every level; per ROI its level's offset/width
     flat = torch.cat([l.reshape(-1) for l in levels])
@@ -149,8 +158,8 @@ def crop_and_resize_plain(
 
     wy0, wy1 = wy0[..., :, None, None], wy1[..., :, None, None]
     wx0, wx1 = wx0[..., None, :, None], wx1[..., None, :, None]
-    t0 = wy0 * tap(y0, x0) + wy1 * tap(y1, x0)
-    t1 = wy0 * tap(y0, x1) + wy1 * tap(y1, x1)
+    t0 = rnd(wy0 * tap(y0, x0) + wy1 * tap(y1, x0))
+    t1 = rnd(wy0 * tap(y0, x1) + wy1 * tap(y1, x1))
     crops = wx0 * t0 + wx1 * t1
     return torch.where(valid[..., None, None, None], crops, 0.0).reshape(
         b, d, out_size, out_size, c
@@ -165,14 +174,14 @@ def _check_frames(images: torch.Tensor) -> None:
         )
 
 
-def _crop(levels, boxes, valid, out_size, exact_extent, mode):
+def _crop(levels, boxes, valid, out_size, exact_extent, mode, round_bf16=False):
     if boxes.is_cuda:
         from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 
-        return roi_crop_cuda(levels, boxes, valid, out_size, exact_extent, mode)
+        return roi_crop_cuda(levels, boxes, valid, out_size, exact_extent, mode, round_bf16)
     if boxes.device.type != "cpu":
         raise ValueError(f"no ROI crop for device {boxes.device}")
-    return crop_and_resize_plain(levels, boxes, valid, out_size, exact_extent)
+    return crop_and_resize_plain(levels, boxes, valid, out_size, exact_extent, round_bf16)
 
 
 def crop_and_resize(
@@ -181,16 +190,22 @@ def crop_and_resize(
     valid: torch.Tensor,
     out_size: int = 64,
     chunk: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Dense crop: exact 2-tap bilinear on the frame at any box extent.
 
     images (B, H, W, C) uint8; boxes (B, D, 4) xyxy float32 in frame
-    pixels; valid (B, D) bool.  Returns (B, D, out, out, C) float32.
-    ``chunk`` is the JAX package's TPU loop knob: accepted and ignored.
+    pixels; valid (B, D) bool.  Returns (B, D, out, out, C) float32,
+    computed in float32 or rounded as the JAX bf16 crop rounds
+    (``compute_dtype``).  ``chunk`` is the JAX package's TPU loop knob:
+    accepted and ignored.
     """
     del chunk
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     _check_frames(images)
-    return _crop([images], boxes, valid, out_size, EXACT_EXTENT, "dense")
+    return _crop([images], boxes, valid, out_size, EXACT_EXTENT, "dense",
+                 compute_dtype == torch.bfloat16)
 
 
 def crop_and_resize_pyramid(

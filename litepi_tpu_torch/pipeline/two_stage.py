@@ -166,11 +166,13 @@ class TwoStagePipeline:
         # (weights/fold_bn.py): the stem kernel's float32 HWIO kernel for
         # canvas-sized frames (with its host copy, packed once here as the
         # kernel's parameter block, so no call reads the weights back), a
-        # conv module for letterboxed canvases
+        # conv module for letterboxed canvases.  In bf16 the stem kernel's
+        # weights and bias are the bf16 values the JAX package's bf16 stem
+        # conv casts them to (the kernel still multiplies in float32)
         stem_w = det_state["backbone.stem.conv.weight"].float()
         flip = cfg.input_color == "bgr"
-        stem_kernel = stem_kernel_hwio(stem_w, flip)
-        stem_bias = det_state["backbone.stem.conv.bias"].float()
+        stem_kernel = stem_kernel_hwio(stem_w, flip).to(self.dtype).float()
+        stem_bias = det_state["backbone.stem.conv.bias"].to(self.dtype).float()
         self._stem_params = pack_stem_params(stem_kernel.reshape(27, -1), stem_bias)
         self._stem_kernel = stem_kernel.to(self.device)
         self._stem_bias = stem_bias.to(self.device)
@@ -360,12 +362,13 @@ class TwoStagePipeline:
         return orig_boxes, valid & (area >= self.cfg.nms.min_area)
 
     def _crop(self, frames, boxes, valid) -> torch.Tensor:
-        """ROI crop (kernel on the card) -> (B, D, c, c, 3) float32 in [0, 1]."""
+        """ROI crop (kernel on the card) -> (B, D, c, c, 3) float32 in [0, 1];
+        the dense crop rounds as the JAX crop in the pipeline's dtype."""
         size = self.cfg.cls_input_size
         if self.cfg.roi_impl == "pallas":
             crops = crop_and_resize_pyramid(frames, boxes, valid, size)
         else:
-            crops = crop_and_resize(frames, boxes, valid, size)
+            crops = crop_and_resize(frames, boxes, valid, size, compute_dtype=self.dtype)
         return crops * (1.0 / 255.0)
 
     def _classify(self, crops01: torch.Tensor) -> torch.Tensor:

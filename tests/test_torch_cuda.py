@@ -326,6 +326,30 @@ def test_roi_kernel_edge_boxes(cuda, d, out_size, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17])
+@pytest.mark.parametrize("out_size", [64, 7])
+def test_roi_kernel_round_bf16_mode(cuda, d, out_size):
+    """The dense crop's bf16 rounding mode (a bf16 pipeline's) on the edge
+    boxes, against the plain version in the same mode; the two modes
+    differ."""
+    h, w = 1080, 1920
+    pool = _edge_boxes(h, w)
+    b = -(-len(pool) // d)
+    gen = torch.Generator(device=cuda).manual_seed(d * 10 + out_size)
+    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    flat = [pool[i % len(pool)] for i in range(b * d)]
+    boxes = torch.tensor(flat, dtype=torch.float32, device=cuda).reshape(b, d, 4)
+    valid = (torch.arange(b * d, device=cuda) % 5 != 4).reshape(b, d)
+    got = roi_crop_cuda([frames], boxes, valid, out_size, EXACT_EXTENT, "dense", True)
+    want = crop_and_resize_plain([frames], boxes, valid, out_size, round_bf16=True)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    f32 = roi_crop_cuda([frames], boxes, valid, out_size, EXACT_EXTENT, "dense")
+    assert (f32 != got).any()
+    via_op = crop_and_resize(frames, boxes, valid, out_size, compute_dtype=torch.bfloat16)
+    assert torch.equal(via_op, got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("out_size", [64, 7])
 def test_roi_kernel_all_invalid_batch(cuda, out_size):
     gen = torch.Generator(device=cuda).manual_seed(out_size)

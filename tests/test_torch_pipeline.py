@@ -233,8 +233,8 @@ def test_windowed_roi_impl_not_ported(variables):
 
 def test_bfloat16_pipeline_runs(variables, frames):
     """bf16 weights and activations, f32 decode and softmax: the contract's
-    shapes, dtypes and finiteness (bf16 rounds at other places than XLA,
-    so values are not compared here)."""
+    shapes, dtypes and finiteness.  The values are held against the JAX
+    package's bf16 program in tests/test_torch_bf16_parity.py."""
     det, clf = variables
     port = TwoStagePipeline.from_jax_vars(
         port_config(SMALL), det, clf, dtype=torch.bfloat16, device="cpu"

@@ -25,8 +25,11 @@ from tests.torch_port_helpers import (
     SMALL,
     canvas_frames,
     jax_init_vars,
+    one_torch_thread,  # noqa: F401 (a fixture, used by pytestmark)
     port_config,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONF = CANVAS_SCENES["rgb"][1]
 RATIO = 0.5  # canvases of 320x240 sources: dw 0, dh 20

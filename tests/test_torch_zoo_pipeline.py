@@ -11,7 +11,9 @@ perturbed, the peaked scene of tests/test_pipeline.py.  The conf threshold
 is the middle of a gap of the JAX candidate scores wider than 4e-6, so
 float noise cannot flip a discrete decision; tolerances are
 tests/test_torch_pipeline.py's.  A bfloat16 run of each serving pair
-checks the contract's shapes, dtypes and finiteness.
+checks the contract's shapes, dtypes and finiteness; its values are held
+against the JAX package's bf16 program in
+tests/test_torch_bf16_zoo_parity.py.
 """
 
 import dataclasses

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 
 from litepi_tpu.core.types import DetectorConfig, NMSConfig, PipelineConfig
 
@@ -117,3 +118,19 @@ def canvas_frames(input_color="rgb"):
     branch runs."""
     seed = CANVAS_SCENES[input_color][0]
     return peaked_frames(seed=seed, h=SMALL.det_input_size, w=SMALL.det_input_size)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module's tests, then back.  The fast lane
+    runs six workers on the host's cores, and each worker's own torch
+    thread pool oversubscribes them: a module of many small torch calls ran
+    15-40x slower there than alone.  Use it as ``pytestmark =
+    pytest.mark.usefixtures("one_torch_thread")`` with the fixture
+    imported."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
