@@ -89,7 +89,9 @@ source, in parallel), then:
    its FPS, stage times, each pass's seconds, the metric row and the
    launch counts (zeroed just before, read just after: the NMS kernel at
    least once, the dense crop at least 4 times, the stem kernel and the
-   pyramid crop never).
+   pyramid crop never), then the NMS and dense ROI kernels against their
+   plain versions on that run's first batch (bit-equal at K=512, B=8;
+   within 1e-3 on the 2048x2048 frames).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -926,13 +928,15 @@ def zoo_pipeline(cfg, variant: str, arch: str, device, dtype=torch.float32, seed
                             dtype, device, **kw)
 
 
-def check_zoo_kernels(pipe, frames, area, what: str) -> dict:
-    """K1 and K2 on one zoo run's own inputs, the candidates and boxes its
+def check_path_kernels(pipe, frames, area, what: str) -> dict:
+    """K1 and K2 on one run's own inputs, the candidates and boxes its
     ``run_fused`` hands them (through the pipeline's stage methods), against
     their plain versions: the NMS keep mask bit-equal to
     ``suppress_sorted``, the dense crop within ROI_TOL of
-    ``crop_and_resize_plain``.  At B=32, D=8 the crop kernel cuts each box
-    into row bands sized from B*D, a shape the kernel checks do not reach."""
+    ``crop_and_resize_plain``.  The zoo runs reach shapes the kernel checks
+    do not (at B=32, D=8 the crop kernel cuts each box into row bands sized
+    from B*D), and so does the eval run (K1 at K=512 on B=8, K2 on
+    2048x2048 frames)."""
     cfg = pipe.cfg
     conf, thr = cfg.benchmark_conf, cfg.nms.iou_threshold
     with torch.inference_mode():
@@ -985,7 +989,7 @@ def zoo_path(dev):
         check_outputs(out, b, cfg.crop_det_budget, s, s, cfg.num_classifier_classes, what)
         if not bool(out["valid"].any()):
             fail(f"{what}: no valid detection")
-        kernel_checks = check_zoo_kernels(pipe, frames, area, what)
+        kernel_checks = check_path_kernels(pipe, frames, area, what)
         ms, windows = median_ms(lambda: pipe.run_fused(frames), 20, 2)
         host = host_ms(lambda: pipe.run_fused(frames), 10)
         run = dict(detector=variant, classifier=arch, batch=b, frame=f"{s}x{s}", launches=counts,
@@ -1193,12 +1197,13 @@ def check_eval_full(dev, tmp: str) -> dict:
     benchmark_conf 0.25) over EVAL_FULL_FRAMES random 2048x2048 BGR frames
     from memory with random labels; launch counts zeroed just before and
     read just after: K1 at least once, K2 dense at least 4 times, K3 and
-    the pyramid crop never."""
+    the pyramid crop never.  Then K1 and K2 on the first batch's own
+    inputs against their plain versions (:func:`check_path_kernels`)."""
     pipe = TwoStagePipeline.initialize(EVAL_FULL, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(12)
     n, s = EVAL_FULL_FRAMES, EVAL_FULL_SIZE
-    pixels = torch.randint(0, 256, (n, s, s, 3), generator=gen, device=dev,
-                           dtype=torch.uint8).cpu().numpy()
+    on_card = torch.randint(0, 256, (n, s, s, 3), generator=gen, device=dev, dtype=torch.uint8)
+    pixels = on_card.cpu().numpy()
     frames = {f"ram://full/{i:03d}": pixels[i] for i in range(n)}
     rng = np.random.default_rng(13)
     for p in frames:
@@ -1218,6 +1223,9 @@ def check_eval_full(dev, tmp: str) -> dict:
     if (counts["nms_suppress"] < 1 or counts["roi_crop_dense"] < 4 or counts["stem"]
             or counts["roi_crop_pyramid"]):
         fail(f"eval full width: launch counts {counts}")
+    kernel_checks = check_path_kernels(pipe, on_card[: EVAL_FULL.batch_size], None,
+                                       "eval full width")
+    del on_card
     row = metric_row(m)
     if not all(0 <= row[k] <= 1 for k in ("precision", "recall", "f1", "mAP50", "mAP50_95")):
         fail(f"eval full width: metric row out of range {row}")
@@ -1227,7 +1235,7 @@ def check_eval_full(dev, tmp: str) -> dict:
                   stage_ms_per_batch=m["stage_ms_per_batch"], seconds=seconds,
                   fused_pass_s=ev.seconds["fused_pass"], map_pass_s=ev.seconds["map_pass"],
                   staged_s=seconds - ev.seconds["fused_pass"] - ev.seconds["map_pass"],
-                  row=row, launches=counts)
+                  row=row, launches=counts, kernel_checks=kernel_checks)
     print(f"eval full width: {json.dumps(result)}")
     return result
 
@@ -1273,6 +1281,7 @@ def run(dev) -> None:
     print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
     evaluation = eval_phase(dev)
     eval_counts = evaluation["full"]["launches"]
+    eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
     print_resources(paths, smi_after, "after the timed windows")
 
@@ -1306,7 +1315,8 @@ def run(dev) -> None:
               zoo_device_ms=zoo[0]["nms_device_ms"]),
         entry("nms_suppress_k512", "nms.cu", nms_at, detect["launches"]["nms_suppress"],
               nms[k1], 0, f"B={NMS_BATCH} K={k1}, 1 class",
-              detect_device_ms=detect["nms_device_ms"]),
+              detect_device_ms=detect["nms_device_ms"],
+              eval_nms_mismatches=eval_checks["nms_mismatches"]),
         # dense launches per run: B=128 640x640, then B=8 1080x1920
         entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
@@ -1317,7 +1327,8 @@ def run(dev) -> None:
               bf16_mode_device_ms=dense["bf16_device_ms"]),
         entry("roi_crop_dense_b8", "roi.cu", roi_at, run_counts[1]["roi_crop_dense"],
               dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
-              library=grid_sample, library_max_abs_diff=dense_b8["library_err"]),
+              library=grid_sample, library_max_abs_diff=dense_b8["library_err"],
+              eval_max_abs_err=eval_checks["roi_max_abs_err"]),
         entry("roi_crop_pyramid", "roi.cu", roi_at, counts["roi_crop_pyramid"], pyr, pyr["err"],
               "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
               + f", {pyr['levels']} levels built in advance",

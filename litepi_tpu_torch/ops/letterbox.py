@@ -9,9 +9,8 @@ antialias=False)`` computes that map in float32.  In bfloat16 the resize
 rounds where the JAX package's does: the tap weights and the rows of the
 y-stage go to bf16 (:func:`_resize_bf16`).
 
-:func:`letterbox_host` is the reference's host letterbox (cv2.resize with
-``INTER_LINEAR`` + a constant border) without cv2: :func:`resize_linear_u8`
-transcribes cv2's fixed-point uint8 bilinear resize bit for bit.
+:func:`letterbox_host` is the reference's host letterbox (``cv2.resize``
+with ``INTER_LINEAR`` + a constant border), with cv2 imported when called.
 """
 
 from __future__ import annotations
@@ -48,65 +47,68 @@ def letterbox_nchw(
     images: torch.Tensor, new_shape: int = 640, dtype=torch.float32
 ) -> torch.Tensor:
     """(B, H, W, 3) uint8 frames -> (B, 3, new, new) canvas in ``dtype``,
-    values in [0, 255].  The resize runs in float32 and is cast once, or in
-    bfloat16 rounds as the JAX package's bf16 letterbox does."""
+    values in [0, 255].  The resize runs in float32 (in bfloat16 with the
+    JAX package's bf16 letterbox's roundings) and is cast once, as it is
+    written into the canvas's image region."""
     b, h, w = images.shape[0], images.shape[1], images.shape[2]
     _, _, _, (new_w, new_h), (top, _, left, _) = letterbox_params(h, w, new_shape)
     x = images.permute(0, 3, 1, 2)
     if (w, h) == (new_shape, new_shape):
         # identity size: no resample, no pad band; the cast is the whole op
         return x.to(dtype)
-    if (new_w, new_h) == (w, h):
-        resized = x.to(dtype)
-    elif dtype == torch.bfloat16:
-        resized = _resize_bf16(x, new_h, new_w)
-    else:
-        resized = F.interpolate(
-            x.float(),
-            size=(new_h, new_w),
-            mode="bilinear",
-            align_corners=False,
-            antialias=False,
-        ).to(dtype)
     canvas = torch.full(
         (b, x.shape[1], new_shape, new_shape),
         float(PAD_VALUE),
         dtype=dtype,
         device=images.device,
     )
-    canvas[:, :, top : top + new_h, left : left + new_w] = resized
+    region = canvas[:, :, top : top + new_h, left : left + new_w]
+    if (new_w, new_h) == (w, h):
+        region.copy_(x)
+    elif dtype == torch.bfloat16:
+        _resize_bf16(x, region)
+    else:
+        region.copy_(
+            F.interpolate(
+                x.float(),
+                size=(new_h, new_w),
+                mode="bilinear",
+                align_corners=False,
+                antialias=False,
+            )
+        )
     return canvas
 
 
 @functools.lru_cache(maxsize=32)
 def _resize_taps(src: int, dst: int, device: torch.device):
     """:func:`~litepi_tpu_torch.ops.roi.axis_taps` of a whole axis (start 0,
-    extent and limit ``src``, ``dst`` samples), the tap weights rounded to
-    bf16 values; made on ``device`` from fill kernels, so that no call copies
-    from the host (and synchronises), and kept per size."""
+    extent and limit ``src``, ``dst`` samples): both taps' indices in one
+    (2 * dst,) tensor, then each tap's weights rounded to bf16 values; made
+    on ``device`` from fill kernels, so that no call copies from the host
+    (and synchronises), and kept per size."""
     full = torch.full((1, 1), float(src), device=device)
     i0, i1, w0, w1 = axis_taps(torch.zeros_like(full), full, full, dst)
-    return i0[0, 0], i1[0, 0], w0[0, 0].bfloat16().float(), w1[0, 0].bfloat16().float()
+    return torch.cat([i0[0, 0], i1[0, 0]]), w0[0, 0].bfloat16().float(), w1[0, 0].bfloat16().float()
 
 
-def _resize_bf16(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """(B, C, H, W) uint8 -> (B, C, out_h, out_w) bfloat16, rounded as the
+def _resize_bf16(x: torch.Tensor, out: torch.Tensor) -> None:
+    """(B, C, H, W) uint8 -> ``out`` (B, C, h, w) bfloat16, rounded as the
     JAX package's bf16 letterbox rounds: hat weights in bf16, a y-stage
     whose float32 two-tap sums go to bf16, an x-stage summed in float32 and
-    cast once.  Every product is exact in float32 (8 significant bits by 8),
-    so each stage's sum rounds once, as the JAX contraction's does.  The
-    y-stage is computed only at the source columns the x-stage reads, from
-    uint8 taps gathered at the output size."""
-    h, w = int(x.shape[2]), int(x.shape[3])
-    y0, y1, wy0, wy1 = _resize_taps(h, out_h, x.device)
-    x0, x1, wx0, wx1 = _resize_taps(w, out_w, x.device)
-    wy0, wy1, y0, y1 = wy0[:, None], wy1[:, None], y0[:, None], y1[:, None]
-
-    def y_stage(cols):
-        p0, p1 = x[:, :, y0, cols].float(), x[:, :, y1, cols].float()
-        return (wy0 * p0 + wy1 * p1).bfloat16().float()
-
-    return (wx0 * y_stage(x0) + wx1 * y_stage(x1)).bfloat16()
+    cast once as it is written.  Every product is exact in float32 (8
+    significant bits by 8), so each stage's sum rounds once, as the JAX
+    contraction's does.  One gather takes the uint8 pixels at both row taps
+    and both column taps, so the y-stage runs only at the columns the
+    x-stage reads; each stage's sum is written straight into its bf16
+    tensor."""
+    out_h, out_w = int(out.shape[2]), int(out.shape[3])
+    rows, wy0, wy1 = _resize_taps(int(x.shape[2]), out_h, x.device)
+    cols, wx0, wx1 = _resize_taps(int(x.shape[3]), out_w, x.device)
+    p = x[:, :, rows[:, None], cols]  # (B, C, 2 * out_h, 2 * out_w) uint8
+    y = torch.empty(p.shape[:2] + (out_h, 2 * out_w), dtype=torch.bfloat16, device=x.device)
+    torch.addcmul(wy0[:, None] * p[:, :, :out_h], wy1[:, None], p[:, :, out_h:], out=y)
+    torch.addcmul(wx0 * y[..., :out_w], wx1, y[..., out_w:], out=out)
 
 
 def letterbox_device(
@@ -117,97 +119,23 @@ def letterbox_device(
     return letterbox_nchw(images, new_shape, dtype).permute(0, 2, 3, 1)
 
 
-# --------------------------------------------------------------------- #
-# host letterbox: cv2's INTER_LINEAR without cv2                        #
-# --------------------------------------------------------------------- #
-
-_COEF_SCALE = 2048  # cv2 INTER_RESIZE_COEF_SCALE: 11 fractional bits
-
-
-def _cv2_axis(src: int, dst: int):
-    """cv2's linear taps along one axis: (source index, fraction) per
-    output sample, ``f = float32((d + 0.5) * scale - 0.5)`` with cv2's
-    ``scale = 1 / (dst / src)`` in double, ``s = floor(f)``, ``f -= s``."""
-    scale = 1.0 / (dst / src)
-    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f)
-    return s.astype(np.int64), f - s
-
-
-def _cv2_coefs(frac: np.ndarray):
-    """Fixed-point tap weights ``rint(w * 2048)`` of the float32 weights
-    ``1 - frac`` and ``frac``, each rounded half to even as cv2's
-    ``saturate_cast<short>`` rounds."""
-    one = np.float32(1.0)
-    scale = np.float32(_COEF_SCALE)
-    c0 = np.rint((one - frac) * scale).astype(np.int32)
-    c1 = np.rint(frac * scale).astype(np.int32)
-    return c0, c1
-
-
-def resize_linear_u8(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(image, size, interpolation=cv2.INTER_LINEAR)`` for an
-    (H, W) or (H, W, C) uint8 image, bit for bit, in numpy: ``size`` is
-    (width, height), and an (H, W, 1) image comes back (h, w) as from cv2.
-
-    cv2's fixed-point path: the column taps are clamped at the borders
-    (a negative source column becomes column 0 with fraction 0, a column
-    at or past the last becomes the last with fraction 0); the row
-    fractions are not reset, only the two row indices are clamped into
-    the image.  The horizontal pass sums ``I[sx] * c0 + I[sx + 1] * c1`` in
-    int32; the vertical pass rounds as cv2's vector code does,
-    ``((H0 >> 4) * b0 >> 16) + ((H1 >> 4) * b1 >> 16)``, then ``(t + 2) >>
-    2`` saturated to uint8.  With 2048-scaled weights and uint8 pixels no
-    intermediate leaves int32.
-    """
-    img = np.asarray(image)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
-        raise ValueError(f"image must be (H, W[, C]) uint8, got {img.shape} {img.dtype}")
-    out_w, out_h = int(size[0]), int(size[1])
-    if out_w <= 0 or out_h <= 0:
-        raise ValueError(f"size must be positive (width, height), got {size}")
-    src_h, src_w = img.shape[:2]
-    x = img.reshape(src_h, src_w, -1)
-
-    sx, fx = _cv2_axis(src_w, out_w)
-    low, high = sx < 0, sx >= src_w - 1
-    fx[low | high] = 0.0
-    sx = np.clip(sx, 0, src_w - 1)
-    cx0, cx1 = _cv2_coefs(fx)
-    sx1 = np.minimum(sx + 1, src_w - 1)  # its weight is 0 where clamped
-
-    sy, fy = _cv2_axis(src_h, out_h)
-    cy0, cy1 = _cv2_coefs(fy)
-    sy0, sy1 = np.clip(sy, 0, src_h - 1), np.clip(sy + 1, 0, src_h - 1)
-
-    def horizontal(rows):
-        r = x[rows]
-        return (r[:, sx].astype(np.int32) * cx0[:, None]
-                + r[:, sx1].astype(np.int32) * cx1[:, None])
-
-    h0, h1 = horizontal(sy0), horizontal(sy1)
-    t = ((h0 >> 4) * cy0[:, None, None] >> 16) + ((h1 >> 4) * cy1[:, None, None] >> 16)
-    out = np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
-    # cv2 returns a one-channel image as (H, W)
-    return out.reshape((out_h, out_w) + tuple(c for c in img.shape[2:] if c != 1))
-
-
 def letterbox_host(
     image: np.ndarray, new_shape: int = 640
 ) -> Tuple[np.ndarray, float, Tuple[float, float]]:
-    """The reference's host letterbox, cv2-exact without cv2: ``image`` HWC
-    uint8 in any colour order -> (canvas (new, new, C) uint8, ratio, (dw,
-    dh)): :func:`resize_linear_u8` to the letterbox size, then a constant
-    114 border split top/bottom/left/right as :func:`letterbox_params`
-    gives it."""
+    """The reference's host letterbox: ``image`` HWC uint8 in any colour
+    order -> (canvas (new, new, C) uint8, ratio, (dw, dh)): ``cv2.resize``
+    (``INTER_LINEAR``) to the letterbox size, then a constant 114 border
+    split top/bottom/left/right as :func:`letterbox_params` gives it."""
+    import cv2
+
     h, w = image.shape[:2]
     r, dw, dh, (new_w, new_h), (top, bottom, left, right) = letterbox_params(
         h, w, new_shape
     )
     if (new_w, new_h) != (w, h):
-        image = resize_linear_u8(image, (new_w, new_h))
-    canvas = np.full(
-        (new_h + top + bottom, new_w + left + right) + image.shape[2:], PAD_VALUE, np.uint8
+        image = cv2.resize(image, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+    image = cv2.copyMakeBorder(
+        image, top, bottom, left, right, cv2.BORDER_CONSTANT,
+        value=(PAD_VALUE, PAD_VALUE, PAD_VALUE),
     )
-    canvas[top : top + new_h, left : left + new_w] = image
-    return canvas, r, (dw, dh)
+    return image, r, (dw, dh)

@@ -10,15 +10,15 @@ kernel, classifier in one issue per batch), and the mAP pass runs the staged
 programs with the exact per-class greedy NMS on the host in original-image
 space (``eval_budget``).
 
-Host side, as the reference: the letterbox (:func:`~litepi_tpu_torch.ops.
-letterbox.letterbox_host`) and the ROI crops of the mAP pass
-(integer-truncated slices of the original image resized by
-:func:`~litepi_tpu_torch.ops.letterbox.resize_linear_u8`, e2e.py:459-485)
-are cv2's ``INTER_LINEAR`` bit for bit without cv2; only decoding uses cv2,
-in :meth:`PipelineEvaluator._read_image`.  The evaluator runs on its
-pipeline's device: canvases and crops go up as uint8 and are divided by 255
-there (true division, bit-equal to the host's float32 ``/ 255.0``), and each
-staged call's outputs come back to the host once per batch.
+Host side, as the reference, with cv2 (imported where it is used): decoding
+(:meth:`PipelineEvaluator._read_image`), the letterbox
+(:func:`~litepi_tpu_torch.ops.letterbox.letterbox_host`), the ROI crops of
+the mAP pass (integer-truncated slices of the original image through
+``cv2.resize``, e2e.py:459-485) and the annotated images.  The evaluator
+runs on its pipeline's device: canvases and crops go up as uint8 and are
+divided by 255 there (true division, bit-equal to the host's float32
+``/ 255.0``), and each staged call's outputs come back to the host once per
+batch.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from __future__ import annotations
 import csv
 import os
 import time
-import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -37,7 +36,7 @@ from litepi_tpu_torch.evals.labels import parse_yolo_label
 from litepi_tpu_torch.evals.level0 import evaluate_predictions_level0
 from litepi_tpu_torch.evals.map import evaluate_predictions
 from litepi_tpu_torch.evals.reference import evaluate_predictions_reference
-from litepi_tpu_torch.ops.letterbox import letterbox_host, resize_linear_u8
+from litepi_tpu_torch.ops.letterbox import letterbox_host
 from litepi_tpu_torch.ops.nms import nms_numpy_reference
 from litepi_tpu_torch.pipeline.two_stage import TwoStagePipeline
 
@@ -64,37 +63,6 @@ def int_crop_coords(boxes: np.ndarray, w: int, h: int):
     return xi1, yi1, xi2, yi2
 
 
-def _png_bytes(image: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> a PNG file's bytes (8-bit truecolour, no
-    filter), with the standard library's zlib."""
-    h, w = image.shape[:2]
-    raw = b"".join(b"\x00" + image[y].tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return len(data).to_bytes(4, "big") + body + zlib.crc32(body).to_bytes(4, "big")
-
-    header = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-
-
-def _draw_box(canvas: np.ndarray, box, color, thickness: int = 2) -> None:
-    """A ``thickness``-pixel rectangle outline of int-truncated ``box`` on
-    ``canvas`` (H, W, 3), clipped to the image."""
-    h, w = canvas.shape[:2]
-    x1, y1, x2, y2 = (int(v) for v in box)
-    xa, xb = max(min(x1, x2), 0), min(max(x1, x2), w - 1)
-    ya, yb = max(min(y1, y2), 0), min(max(y1, y2), h - 1)
-    if xa > xb or ya > yb:
-        return
-    t = thickness
-    canvas[ya : min(ya + t, yb + 1), xa : xb + 1] = color
-    canvas[max(yb - t + 1, ya) : yb + 1, xa : xb + 1] = color
-    canvas[ya : yb + 1, xa : min(xa + t, xb + 1)] = color
-    canvas[ya : yb + 1, max(xb - t + 1, xa) : xb + 1] = color
-
-
 class PipelineEvaluator:
     """Runs a port :class:`TwoStagePipeline` over labelled images on the
     pipeline's own device (the card by default; a CPU pipeline runs here on
@@ -118,8 +86,7 @@ class PipelineEvaluator:
 
     def _read_image(self, path: str) -> Optional[np.ndarray]:
         """Decode one image file to an (H, W, 3) uint8 BGR array, or None
-        where it cannot be read (cv2's contract).  The evaluator's only use
-        of cv2."""
+        where it cannot be read (cv2's contract)."""
         import cv2
 
         return cv2.imread(path)
@@ -153,9 +120,12 @@ class PipelineEvaluator:
         return np.stack(canvases), geoms
 
     def _crop_rois(self, image: np.ndarray, boxes: np.ndarray) -> np.ndarray:
-        """Host ROI crops, reference semantics: int-truncated slice + a
-        cv2-exact ``INTER_LINEAR`` resize to cls_input_size of the uint8
-        crop (e2e_optimize.py's no-PIL variant).  (N, c, c, 3) uint8."""
+        """Host ROI crops, reference semantics: int-truncated slice +
+        ``cv2.resize`` (``INTER_LINEAR``) of the uint8 crop to
+        cls_input_size (e2e_optimize.py's no-PIL variant).  (N, c, c, 3)
+        uint8."""
+        import cv2
+
         c = self.pipe.cfg.cls_input_size
         crops = np.zeros((len(boxes), c, c, 3), np.uint8)
         xi1, yi1, xi2, yi2 = int_crop_coords(
@@ -165,7 +135,7 @@ class PipelineEvaluator:
         )
         for i in range(len(boxes)):
             roi = image[yi1[i] : yi2[i], xi1[i] : xi2[i]]
-            crops[i] = resize_linear_u8(roi, (c, c))
+            crops[i] = cv2.resize(roi, (c, c), interpolation=cv2.INTER_LINEAR)
         return crops
 
     def run_batch(
@@ -327,30 +297,32 @@ class PipelineEvaluator:
         conf: float,
     ) -> None:
         """Annotated prediction image (reference visualize_prediction,
-        e2e.py:826-887), without cv2: GT boxes blue, detections above
-        ``conf`` green, as ``{stem}.png`` in ``viz_dir`` (BGR frames shown
-        in RGB), with ``{stem}.txt`` beside it holding one line per drawn
-        detection: ``name score x1 y1 x2 y2`` (the reference writes the
-        label and score onto the image)."""
+        e2e.py:826-887): GT boxes blue, detections above ``conf`` green with
+        classifier label + score, written under the frame's file name."""
+        import cv2
+
         os.makedirs(viz_dir, exist_ok=True)
         canvas = img.copy()
         for b in gt_boxes:
-            _draw_box(canvas, b, (255, 128, 0))
-        lines = []
+            x1, y1, x2, y2 = (int(v) for v in b)
+            cv2.rectangle(canvas, (x1, y1), (x2, y2), (255, 128, 0), 2)
         for i in range(len(res["boxes"])):
             if res["det_scores"][i] < conf:
                 continue
+            x1, y1, x2, y2 = (int(v) for v in res["boxes"][i])
             label = int(res["labels"][i]) if "labels" in res else -1
             name = self.class_names.get(label, str(label))
-            _draw_box(canvas, res["boxes"][i], (0, 220, 0))
-            x1, y1, x2, y2 = (int(v) for v in res["boxes"][i])
-            lines.append(f"{name} {res['det_scores'][i]:.2f} {x1} {y1} {x2} {y2}\n")
-        stem = os.path.splitext(os.path.basename(path))[0]
-        rgb = canvas[..., ::-1] if self.pipe.cfg.input_color == "bgr" else canvas
-        with open(os.path.join(viz_dir, stem + ".png"), "wb") as f:
-            f.write(_png_bytes(np.ascontiguousarray(rgb)))
-        with open(os.path.join(viz_dir, stem + ".txt"), "w") as f:
-            f.writelines(lines)
+            cv2.rectangle(canvas, (x1, y1), (x2, y2), (0, 220, 0), 2)
+            cv2.putText(
+                canvas,
+                f"{name} {res['det_scores'][i]:.2f}",
+                (x1, max(y1 - 5, 12)),
+                cv2.FONT_HERSHEY_SIMPLEX,
+                0.5,
+                (0, 220, 0),
+                1,
+            )
+        cv2.imwrite(os.path.join(viz_dir, os.path.basename(path)), canvas)
 
     def _timed_fused_pass(
         self,

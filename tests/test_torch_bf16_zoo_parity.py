@@ -11,19 +11,22 @@ conf threshold in a gap of the JAX bf16 candidate scores wider than both
 score drifts and the labels' top-two gaps wider than the port's difference
 (checked), as in tests/test_torch_bf16_parity.py.
 
-These pairs do not meet the default pair's bound.  Their deep nets (C3k2
+Not every output meets the default pair's bound.  These deep nets (C3k2
 and C2PSA, CSP, ResNet18, MobileNetV2, EfficientNet-B0 with BatchNorm)
-round at every layer, and the two frameworks round each conv differently:
-flax rounds the conv's output to bf16 and then its bias add, cuDNN and
-oneDNN add the bias before the one rounding.  So the port's bf16 noise is
-of the same size as JAX's own and not inside it (ROADMAP.md section 3).
-Each float output of the valid slots is held within 4 times JAX's drift
-(floors 1e-6 scores, 1e-3 px boxes, 1e-5 probabilities).  Measured ratios
-of the port's difference to JAX's drift: YOLOv11n + ResNet18 boxes 0.94,
-scores 1.43, probabilities 1.76, cls scores 0.88; YOLOv5n-u + MobileNetV2
-boxes and scores 0 (floors), probabilities 1.00, cls scores 1.12;
-anchor-based YOLOv5n + EfficientNet-B0 boxes 1.64, scores 2.48,
-probabilities 0.81, cls scores 1.02.
+round at every layer, and the two frameworks' bf16 kernels round in other
+places (a biased conv: flax rounds the conv's output and then the bias add,
+oneDNN rounds once).  So the port's bf16 noise is of the same size as JAX's
+own, not inside it (ROADMAP.md section 3).  Each float output of the valid
+slots is held within its bound where it lies inside it, and otherwise
+within 1.2 times its measured ratio of the port's difference to JAX's drift
+(floors 1e-6 scores, 1e-3 px boxes, 1e-5 probabilities).
+Measured ratios: YOLOv11n + ResNet18 boxes 0.93, scores 1.43, probabilities
+1.76, cls scores 0.88; YOLOv5n-u + MobileNetV2 boxes and scores 0 (floors),
+probabilities 0.996, cls scores 1.12; anchor-based YOLOv5n + EfficientNet-B0
+boxes 1.64, scores 2.48, probabilities 0.81, cls scores 1.02.  Outside the
+bound: the detection scores of YOLOv11n and of the anchor-based YOLOv5n,
+ResNet18's probabilities, the anchor-based boxes, and the cls scores of
+MobileNetV2 and EfficientNet-B0.
 """
 
 import dataclasses
@@ -59,13 +62,16 @@ from tests.torch_port_helpers import (
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (detector, classifier, extra config, detector seed, frames over the
-# threshold): random-init zoo detectors rank their candidates in bf16 steps
-# (1e-5 to 2e-4 of score here), so each pair's seed and count put the
-# threshold in a gap of the scores 4 to 9 times wider than both drifts
+# threshold, factors over the bound): random-init zoo detectors rank their
+# candidates in bf16 steps (1e-5 to 2e-4 of score here), so each pair's seed
+# and count put the threshold in a gap of the scores 4 to 9 times wider than
+# both drifts; each factor is 1.2 times the output's measured ratio
 PAIRS = {
-    "v11_resnet18": ("yolov11n", "resnet18", dict(input_color="bgr"), 1, (1, 1)),
-    "v5u_mobilenetv2": ("yolov5n", "mobilenetv2", {}, 3, (2, 2)),
-    "v5legacy_efficientnet": ("yolov5n_legacy", "efficientnet", {}, 4, (1, 1)),
+    "v11_resnet18": ("yolov11n", "resnet18", dict(input_color="bgr"), 1, (1, 1),
+                     dict(det_scores=1.72, cls_probs=2.11)),
+    "v5u_mobilenetv2": ("yolov5n", "mobilenetv2", {}, 3, (2, 2), dict(cls_scores=1.34)),
+    "v5legacy_efficientnet": ("yolov5n_legacy", "efficientnet", {}, 4, (1, 1),
+                              dict(boxes=1.96, det_scores=2.98, cls_scores=1.23)),
 }
 
 
@@ -84,7 +90,7 @@ def _jax_pipeline(variant, cfg, det, clf, dtype):
 
 @pytest.mark.parametrize("pair", list(PAIRS))
 def test_zoo_run_fused_bf16_matches_jax_bf16(pair):
-    variant, arch, extra, seed, (min_above, max_above) = PAIRS[pair]
+    variant, arch, extra, seed, (min_above, max_above), factors = PAIRS[pair]
     cfg = dataclasses.replace(ZOO, classifier_arch=arch, **extra)
     jdet = JaxYoloV11(num_classes=1) if variant == "yolov11n" else JaxYoloV5(
         anchor_free=variant == "yolov5n")
@@ -107,4 +113,4 @@ def test_zoo_run_fused_bf16_matches_jax_bf16(pair):
     got = numpy_out(port.run_fused(frames, conf))
     want = numpy_out(jb.run_fused(frames, conf))
     ref32 = numpy_out(jf.run_fused(frames, conf))
-    compare(got, want, ref32, factor=4.0)
+    compare(got, want, ref32, factors)

@@ -161,8 +161,8 @@ def test_canvas_upload_is_the_host_division(setup):
 
 
 def test_host_crops_equal_jax(setup):
-    """``_crop_rois``: int-truncated slices resized cv2-exactly, equal to
-    the JAX evaluator's cv2 crops."""
+    """``_crop_rois``: int-truncated slices through ``cv2.resize``, equal to
+    the JAX evaluator's crops (uint8 here, float32 there)."""
     img = setup["images"][0]
     boxes = np.array([[3.7, 5.2, 120.9, 80.1], [0, 0, 300, 200], [250.5, 150.5, 251.0, 151.0],
                       [-4, 190, 10, 240]], np.float32)
@@ -229,14 +229,25 @@ def test_write_results_byte_equal(setup, tmp_path):
 
 
 def test_viz_and_unknown_mode(setup, tmp_path):
-    """``viz_dir``: one PNG (and its label lines) per image with labels;
-    an unknown metrics mode raises before any work."""
+    """``viz_dir``: one annotated image per image with labels, under the
+    frame's file name, pixel-equal to the JAX evaluator's for the same
+    results; an unknown metrics mode raises before any work."""
     kw = dict(yolo_conf=setup["yolo_conf"], benchmark_conf=setup["yolo_conf"], warmup=0)
     setup["port"].evaluate_dataset(setup["paths"][:2], setup["labels"], 10,
-                                   viz_dir=str(tmp_path), **kw)
-    img = cv2.imread(str(tmp_path / "frame0.png"))
+                                   viz_dir=str(tmp_path / "port"), **kw)
+    img = cv2.imread(str(tmp_path / "port" / "frame0.png"))
     assert img is not None and img.shape == setup["images"][0].shape
-    assert (tmp_path / "frame0.txt").read_text().count("\n") >= 1
+    assert not np.array_equal(img, setup["images"][0])  # something was drawn
+    res = setup["port"].run_images(setup["images"][:1], setup["yolo_conf"], eval_budget=True)[0]
+    gt = np.array([[10.5, 20.2, 60.9, 70.0]], np.float32)
+    names = {int(c): f"c{int(c)}" for c in res["labels"]}
+    for side, ev in (("port", setup["port"]), ("jax", setup["jax"])):
+        ev.class_names = names
+        ev._save_viz(str(tmp_path / f"{side}_direct"), setup["paths"][0], setup["images"][0],
+                     res, gt, setup["yolo_conf"])
+        ev.class_names = {}
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "port_direct" / "frame0.png")),
+                                  cv2.imread(str(tmp_path / "jax_direct" / "frame0.png")))
     with pytest.raises(ValueError, match="metrics_mode"):
         setup["port"].evaluate_dataset(setup["paths"], setup["labels"], 10, metrics_mode="x")
 
