@@ -15,13 +15,14 @@ source, in parallel), then:
    NMSConfig default) on 1-class inputs, the serving detector's;
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
    640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
-   levels) and on an all-invalid batch, the dense mode also with the bf16
+   levels) and on an all-invalid batch, both modes also with the bf16
    rounding a bf16 pipeline's crop runs (tap weights and y-lerps rounded
-   to bf16 values, as the JAX bf16 crop rounds); dense timed on both sizes
-   (beside ``F.grid_sample``; the bf16 rounding at the serving size),
-   pyramid on the second, both alone and, for pyramid, with the level
-   build the main path runs; tolerance 1e-3 on 0-255 values (both round
-   each f32 product and sum once, in the same order; 0 is expected);
+   to bf16 values, as the JAX bf16 dense crop and the Pallas kernel
+   round); dense timed on both sizes (beside ``F.grid_sample``; the bf16
+   rounding at the serving size), pyramid on the second in both roundings,
+   alone and, for float32, with the level build the main path runs;
+   tolerance 1e-3 on 0-255 values (both round each f32 product and sum
+   once, in the same order; 0 is expected);
 3. stem kernel vs ``stem_plain`` on B=128 640x640 C=16 (the serving stem),
    B=2 160x240 C=32, and the tile and pair edges: H in {2, 6, 80}, W in
    {2, 10, 642} (642: an odd output width), C in {16, 32} (weights as
@@ -43,10 +44,12 @@ source, in parallel), then:
    configuration (64 candidates, 16 detections, crop_det_budget 8,
    cls_crop_budget 4*B, BGR frames): B=128 at 640x640 (the stem kernel's
    path) and B=8 at 1080x1920, then B=8 at 1080x1920 with the pyramid
-   crop, each on device frames and a device ``area_scale`` under
+   crop, and that once more in float32 (the pyramid mode without bf16
+   rounding), each on device frames and a device ``area_scale`` under
    ``torch.cuda.set_sync_debug_mode("error")``, so any host
    synchronisation fails the run.  Launch counts are zeroed just before
-   each run and read just after; every kernel must have run;
+   each run and read just after; every kernel must have run, the pyramid
+   crop in both roundings;
 6. the staged ``detect`` at full width with the default NMSConfig (512
    candidates, 64 detections) on B=32 640x640 [0, 1] canvases, the path
    that runs the NMS kernel at K=512: issued under the same sync check,
@@ -91,7 +94,28 @@ source, in parallel), then:
    least once, the dense crop at least 4 times, the stem kernel and the
    pyramid crop never), then the NMS and dense ROI kernels against their
    plain versions on that run's first batch (bit-equal at K=512, B=8;
-   within 1e-3 on the 2048x2048 frames).
+   within 1e-3 on the 2048x2048 frames);
+10. the e2e CLI (``apps/e2e.py::main``, in this process) on deployed
+   artifacts written on the card with torch only: an Ultralytics training
+   container of the YOLOv8 mirror (``tests/torch_yolo_ref.py``) at
+   yolo_plus_v2's widths, read back through the stub unpickler (each value
+   the source's fp16 rounding), its imported head outputs (float32, TF32
+   off) against the mirror's own forward within 1e-4 of their largest
+   magnitude, and a torchvision ShuffleNetV2-91 ``.pth``; the CLI with
+   ``--device cuda`` and ``--device cpu`` at ``--det_input_size 160
+   --num_samples 2`` on JPEG frames, the thresholds in score gaps as in
+   phase 9, metric rows and per-class rows within 1e-6; then at its
+   defaults (yolo_plus_v2 + ShuffleNetV2-91, 640, B=8, float32, dense, 512
+   candidates) and in bf16 with ``--roi_impl pallas`` on 32 2048x2048 JPEG
+   frames from disk, each with its launch counts zeroed just before and
+   read just after (the NMS kernel at least once; the dense crop at least
+   4 times in the float32 run, the pyramid crop's bf16 mode at least once
+   in the bf16 run, the other crops never; the stem kernel never) and its
+   output files checked; wall seconds and the fused pass's FPS printed;
+   then, in a pipeline built as the CLI builds its own, the NMS kernel
+   and the crop in the run's mode and rounding against their plain
+   versions on the inputs of the fused pass's first batch (in the bf16
+   run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -105,15 +129,18 @@ the host's time to issue one call, so that where ``host_ms`` is near
 ``ms`` the window timed the host and ``device_ms`` is the kernel's time;
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
 and 67 TFLOP/s float32; ``eval_launches`` the eval phase's full-width
-launches on the entry of their shape), an ``{"e2e": ..., "zoo": ...,
-"eval": ...}`` JSON line, and last
+launches on the entry of their shape, ``e2e_cli_launches`` the e2e CLI
+phase's), an ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ...}``
+JSON line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -125,8 +152,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from litepi_tpu_torch.core.types import YOLOV8N, DetectorConfig, NMSConfig, PipelineConfig
+from litepi_tpu_torch.apps import e2e as e2e_cli
+from litepi_tpu_torch.core.types import (
+    YOLO_PLUS_V2,
+    YOLOV8N,
+    DetectorConfig,
+    NMSConfig,
+    PipelineConfig,
+)
 from litepi_tpu_torch.data import native_loader
+from litepi_tpu_torch.evals.labels import sample_images
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
@@ -155,6 +190,26 @@ from litepi_tpu_torch.tools.stage_split import (
     kernel_device_ms,
     kernel_device_times,
 )
+from litepi_tpu_torch.weights.onnx_import import defuse_state_dict
+from litepi_tpu_torch.weights.seeded import seeded_state
+from litepi_tpu_torch.weights.torch_import import (
+    convert_classifier_state_dict,
+    convert_detector_state_dict,
+    load_torch_state_dict,
+)
+
+def load_test_module(name: str):
+    """The torch-only module ``tests/<name>.py`` of this checkout, loaded
+    by its path: a machine may have another package named ``tests``
+    installed, which ``import tests...`` would find first."""
+    mod_name = f"litepi_tests_{name}"
+    if mod_name not in sys.modules:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        sys.modules[mod_name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[mod_name])
+    return sys.modules[mod_name]
+
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, published
@@ -176,8 +231,10 @@ STEM_TOL = 1e-4
 # (the stem kernel's branch); each seed's frames have top candidate scores
 # more than 20x the card-vs-CPU noise apart under SMALL's seed-3 weights
 SMALL_SCENES = ((11, 200, 300), (44, 160, 160))
-MAIN_RUNS = ((128, 640, 640, "dense"), (8, 1080, 1920, "dense"),
-             (8, 1080, 1920, "pallas"))
+# (B, H, W, roi_impl, dtype): the serving path in bf16, and the pyramid crop
+# also in float32 (the ROI kernel's pyramid mode without bf16 rounding)
+MAIN_RUNS = ((128, 640, 640, "dense", torch.bfloat16), (8, 1080, 1920, "dense", torch.bfloat16),
+             (8, 1080, 1920, "pallas", torch.bfloat16), (8, 1080, 1920, "pallas", torch.float32))
 DETECT_BATCH = 32  # the staged detect at K=512; B=32 keeps the phase short
 STREAM_BATCH, STREAM_BATCHES, STREAM_DISTINCT = 128, 12, 3
 STREAM_SOURCE = (1080, 1920)  # the canvases' source frame: ratio 1/3, dh 140
@@ -218,6 +275,14 @@ ZOO_SERVING = dataclasses.replace(SERVING, detector=YOLOV8N)
 EVAL_SMALL_SIZES = ((200, 300), (200, 300), (300, 200), (300, 200), (200, 300))
 EVAL_FULL = PipelineConfig(input_color="bgr")
 EVAL_FULL_FRAMES, EVAL_FULL_SIZE = 32, 2048
+# the e2e CLI phase: JPEG frames (h, w) of the card-vs-CPU run at a 160
+# input (the CLI samples 2), the full-width runs' frames from disk, and the
+# imported detector's tolerance against its torch source, relative to the
+# outputs' largest magnitude (the BN fold in float32: ~1e-6 measured on the
+# CPU)
+E2E_CLI_SMALL_FRAMES = ((200, 320), (240, 320), (320, 200))
+E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE = 32, 2048
+ARTIFACT_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -424,6 +489,7 @@ def check_roi(dev):
     b, d, h, w = ROI_DENSE
     frames, boxes, valid = roi_inputs(gen, b, d, h, w, dev)
     err_pyr_640 = roi_error(frames, boxes, valid, s, "pyramid")[0]
+    err_pyr_bf16_640 = roi_error(frames, boxes, valid, s, "pyramid", True)[0]
     err, got, _ = roi_error(frames, boxes, valid, s, "dense")
     result["dense"] = dict(err=err, **roi_timings(frames, boxes, valid, got, s))
     print(f"roi dense B={b} {h}x{w}: max err {err}, " + timing_text(result["dense"]))
@@ -479,14 +545,31 @@ def check_roi(dev):
           f"{plain_ms:.3f} ms, levels+kernel {with_levels_ms:.4f} ms (windows "
           f"{with_levels_windows}), device {with_levels_device_ms:.4f} ms in "
           f"{sum(n for _, n in traced.values()) / 100:.1f} kernels per call")
+    # the bf16 rounding mode, which a bf16 pipeline's pyramid crop runs
+    # (roi_impl="pallas"): the same levels and boxes, timed on its own
+    err_bf16 = max(roi_error(frames, boxes, valid, s, "pyramid", True)[0], err_pyr_bf16_640)
+    bf16_kernel = lambda: roi_crop_cuda(levels, boxes, valid, s, EXACT_EXTENT, "pyramid", True)  # noqa: E731
+    ms, windows = median_ms(bf16_kernel, 100)
+    result["pyramid_bf16"] = dict(
+        err=err_bf16, ms=ms, windows=windows, host_ms=host_ms(bf16_kernel, 100),
+        device_ms=device_ms(bf16_kernel, 100, "roi_crop_kernel"),
+        plain_ms=cuda_ms(lambda: crop_and_resize_plain(levels, boxes, valid, s, round_bf16=True),
+                         10, 1),
+        bound=result["pyramid"]["bound"])
+    print(f"roi pyramid bf16 rounding: max err {err_bf16}, kernel {ms:.4f} ms (windows "
+          f"{windows}), device {result['pyramid_bf16']['device_ms']:.4f} ms, host issue "
+          f"{result['pyramid_bf16']['host_ms']:.4f} ms, plain "
+          f"{result['pyramid_bf16']['plain_ms']:.3f} ms")
 
     # an all-invalid batch: every slot zero, in both modes
     valid = torch.zeros_like(valid)
-    for mode, round_bf16 in (("dense", False), ("dense", True), ("pyramid", False)):
-        got = roi_error(frames, boxes, valid, s, mode, round_bf16)[1]
-        if bool(got.any()):
-            fail(f"ROI kernel ({mode}): an all-invalid batch gave non-zero crops")
-    print("roi: an all-invalid batch gives zero crops in both modes and with bf16 rounding")
+    for mode in ("dense", "pyramid"):
+        for round_bf16 in (False, True):
+            got = roi_error(frames, boxes, valid, s, mode, round_bf16)[1]
+            if bool(got.any()):
+                fail(f"ROI kernel ({mode}): an all-invalid batch gave non-zero crops")
+    print("roi: an all-invalid batch gives zero crops in both modes, with and without bf16 "
+          "rounding")
     return result
 
 
@@ -724,19 +807,20 @@ def issue_sync_free(fn, what: str):
 
 
 def main_path(dev):
-    """Full width, bf16, serving config.  Each run is issued under
+    """Full width, serving config, the MAIN_RUNS.  Each run is issued under
     ``set_sync_debug_mode("error")``: a host synchronisation raises.
     Returns launch counts, timings and the runs (pipeline, frames, ...)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     runs = []
-    for b, h, w, roi_impl in MAIN_RUNS:
+    for b, h, w, roi_impl, dtype in MAIN_RUNS:
         cfg = dataclasses.replace(SERVING, cls_crop_budget=4 * b, roi_impl=roi_impl)
         t0 = time.perf_counter()
-        pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+        pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=dtype, device=dev)
         frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=dev, dtype=torch.uint8)
         area = torch.ones(b, device=dev)
         pipe.run_fused(frames, area_scale=area)  # warm-up (cuDNN algorithm selection)
         torch.cuda.synchronize()
+        roi_impl = f"{roi_impl} {str(dtype).split('.')[-1]}"
         print(f"pipeline b={b} {h}x{w} {roi_impl}: init + first run "
               f"{time.perf_counter() - t0:.1f} s")
         runs.append((pipe, frames, area, b, h, w, roi_impl))
@@ -902,41 +986,28 @@ def check_streaming(dev, pipe, device_fps: float):
 # the zoo: injected detectors and the other classifiers                 #
 # --------------------------------------------------------------------- #
 
-def seeded_state(model, seed: int, gain: float = ZOO_GAIN) -> dict:
-    """``model``'s state with conv and linear weights N(0, gain^2 / fan_in)
-    from a ``torch.Generator`` seed, biases 0, BatchNorm at its identity
-    init."""
-    gen = torch.Generator().manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-            with torch.no_grad():
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               * (gain / m.weight[0].numel() ** 0.5))
-                if m.bias is not None:
-                    m.bias.zero_()
-    return model.state_dict()
-
-
 def zoo_pipeline(cfg, variant: str, arch: str, device, dtype=torch.float32, seed: int = 7):
     """A pipeline on ``cfg`` with the ``variant`` detector injected
     (``detector_kwargs``) and the ``arch`` classifier, weights from
-    :func:`seeded_state`."""
+    ``weights/seeded.py::seeded_state`` at ZOO_GAIN."""
     cfg = dataclasses.replace(cfg, classifier_arch=arch)
     kw = detector_kwargs(variant, cfg, device)
     clf = build_classifier(arch, cfg.num_classifier_classes)
-    return TwoStagePipeline(cfg, seeded_state(kw["det_model"], seed), seeded_state(clf, seed + 1),
-                            dtype, device, **kw)
+    return TwoStagePipeline(cfg, seeded_state(kw["det_model"], seed, ZOO_GAIN),
+                            seeded_state(clf, seed + 1, ZOO_GAIN), dtype, device, **kw)
 
 
 def check_path_kernels(pipe, frames, area, what: str) -> dict:
     """K1 and K2 on one run's own inputs, the candidates and boxes its
     ``run_fused`` hands them (through the pipeline's stage methods), against
     their plain versions: the NMS keep mask bit-equal to
-    ``suppress_sorted``, the dense crop within ROI_TOL of
-    ``crop_and_resize_plain``.  The zoo runs reach shapes the kernel checks
-    do not (at B=32, D=8 the crop kernel cuts each box into row bands sized
-    from B*D), and so does the eval run (K1 at K=512 on B=8, K2 on
-    2048x2048 frames)."""
+    ``suppress_sorted``, the crop within ROI_TOL of ``crop_and_resize_plain``
+    in the mode and rounding the pipeline runs (dense, or the pyramid for
+    ``roi_impl="pallas"``; bf16 rounding in a bf16 pipeline).  The zoo runs
+    reach shapes the kernel checks do not (at B=32, D=8 the crop kernel
+    cuts each box into row bands sized from B*D), and so do the eval and
+    e2e CLI runs (K1 at K=512 on B=8, K2 on 2048x2048 frames, the pyramid
+    over 4 levels at D=64)."""
     cfg = pipe.cfg
     conf, thr = cfg.benchmark_conf, cfg.nms.iou_threshold
     with torch.inference_mode():
@@ -953,13 +1024,16 @@ def check_path_kernels(pipe, frames, area, what: str) -> dict:
         orig, v = pipe._unmap(bx, v, int(frames.shape[1]), int(frames.shape[2]), area)
         if not bool(v.any()):
             fail(f"{what}: no box to crop")
-        roi_err = roi_error(frames, orig, v, cfg.cls_input_size, "dense",
-                            pipe.dtype == torch.bfloat16)[0]
+        mode = "pyramid" if cfg.roi_impl == "pallas" else "dense"
+        bf16 = pipe.dtype == torch.bfloat16
+        roi_err = roi_error(frames, orig, v, cfg.cls_input_size, mode, bf16)[0]
+    roi_mode = mode + (", bf16 rounding" if bf16 else "")
     result = dict(nms_valid=int(valid.sum()), nms_kept=int(keep.sum()), nms_mismatches=0,
-                  roi_boxes=int(v.sum()), roi_max_abs_err=roi_err)
+                  roi_boxes=int(v.sum()), roi_shape=list(orig.shape[:2]), roi_mode=roi_mode,
+                  roi_max_abs_err=roi_err)
     print(f"{what}: on the run's inputs the NMS kernel equals suppress_sorted "
           f"({result['nms_kept']} of {result['nms_valid']} valid candidates kept) and the "
-          "dense crop is within "
+          f"crop ({roi_mode}, B, D = {result['roi_shape']}) is within "
           f"{roi_err} of the plain crop ({result['roi_boxes']} boxes)")
     return result
 
@@ -974,7 +1048,8 @@ def zoo_path(dev):
     prediction."""
     gen = torch.Generator(device=dev).manual_seed(8)
     s = ZOO_SERVING.det_input_size
-    want_counts = {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0, "stem": 0}
+    want_counts = {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0,
+                   "roi_crop_pyramid_bf16": 0, "stem": 0}
     runs = []
     for i, (variant, arch, b) in enumerate(ZOO_RUNS):
         cfg = dataclasses.replace(ZOO_SERVING, cls_crop_budget=4 * b)
@@ -1106,7 +1181,8 @@ def write_labels(labels_dir: str, paths, frames: dict, results, rng, num_classes
             c = int(c) if rng.uniform() < 0.8 else (int(c) + 1) % num_classes
             rows.append(f"{c} {(b[0] + b[2]) / 2 / w:.6f} {(b[1] + b[3]) / 2 / h:.6f} "
                         f"{(b[2] - b[0]) / w:.6f} {(b[3] - b[1]) / h:.6f}\n")
-        with open(os.path.join(labels_dir, os.path.basename(p) + ".txt"), "w") as f:
+        stem = os.path.splitext(os.path.basename(p))[0]
+        with open(os.path.join(labels_dir, stem + ".txt"), "w") as f:
             f.writelines(rows)
 
 
@@ -1221,7 +1297,7 @@ def check_eval_full(dev, tmp: str) -> dict:
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     if (counts["nms_suppress"] < 1 or counts["roi_crop_dense"] < 4 or counts["stem"]
-            or counts["roi_crop_pyramid"]):
+            or counts["roi_crop_pyramid"] or counts["roi_crop_pyramid_bf16"]):
         fail(f"eval full width: launch counts {counts}")
     kernel_checks = check_path_kernels(pipe, on_card[: EVAL_FULL.batch_size], None,
                                        "eval full width")
@@ -1248,6 +1324,263 @@ def eval_phase(dev) -> dict:
         result = dict(small=check_eval_small(dev, small), full=check_eval_full(dev, full))
     result["seconds"] = time.perf_counter() - t0
     print(f"eval phase (small check and full-width run): {result['seconds']:.1f} s")
+    return result
+
+
+# --------------------------------------------------------------------- #
+# the e2e CLI on deployed artifacts                                     #
+# --------------------------------------------------------------------- #
+
+def write_artifacts(dev, root: str) -> dict:
+    """The deployed artifact forms, written on the card with torch only:
+    an Ultralytics training container (``best.pt``) of the YOLOv8 mirror at
+    yolo_plus_v2's widths (conv weights N(0, ZOO_GAIN^2 / fan_in) with
+    random BatchNorm statistics; the class outputs x200 with a bias of -25,
+    so that, as a trained detector's, a few percent of the anchors score
+    over the mAP pass's 0.001 and a few over 0.25; the DFL bins given a
+    falling bias, so that boxes vary)
+    and a torchvision ShuffleNetV2-91 ``.pth``.  The container loads back
+    through the port's stub unpickler, each value the source's fp16
+    rounding; the imported detector's head outputs (float32, TF32 off) are
+    held against the mirror's own forward on the same fp16-rounded weights
+    within ARTIFACT_TOL of the outputs' largest magnitude."""
+    refs = load_test_module("torch_refs")
+    c = YOLO_PLUS_V2
+    torch.manual_seed(30)
+    tm = load_test_module("torch_yolo_ref").YoloV8T(
+        c.channels, c.depths, nc=1, reg_max=c.reg_max, neck_shortcut=c.neck_shortcut,
+        neck_down=c.neck_down_channels)
+    seeded_state(tm, 31, ZOO_GAIN)
+    refs.randomize_bn_stats(tm, seed=32)
+    with torch.no_grad():
+        for i in range(3):
+            tm.model[22].cv3[i][2].weight *= 200.0
+            tm.model[22].cv3[i][2].bias.fill_(-25.0)
+            tm.model[22].cv2[i][2].weight *= 30.0
+            tm.model[22].cv2[i][2].bias.copy_((-0.7 * torch.arange(16.0)).repeat(4))
+    tm = tm.eval().to(dev)
+    clf = refs.ShuffleNetV2T(EVAL_FULL.num_classifier_classes)
+    refs.randomize_bn_stats(clf, seed=33)
+    art = {"pt": os.path.join(root, "best.pt"), "pth": os.path.join(root, "shufflenetv2.pth")}
+    load_test_module("torch_artifacts").save_ultralytics_container(tm, art["pt"])
+    torch.save(clf.to(dev).state_dict(), art["pth"])
+
+    sd = load_torch_state_dict(art["pt"])
+    want = {k: v.half().float().cpu().numpy() for k, v in tm.state_dict().items()}
+    if set(sd) != set(want) or not all(np.array_equal(sd[k], want[k]) for k in want):
+        fail("e2e artifacts: the container does not load back as the source's fp16 weights")
+    art["det_vars"] = convert_detector_state_dict(defuse_state_dict(sd), c.depths)
+    art["cls_vars"] = convert_classifier_state_dict("shufflenetv2",
+                                                    load_torch_state_dict(art["pth"]))
+    pipe = TwoStagePipeline.from_jax_vars(EVAL_FULL, art["det_vars"], art["cls_vars"], device=dev)
+    ref = copy.deepcopy(tm).half().float().eval()
+    x = torch.rand((2, 3, c.input_size, c.input_size),
+                   generator=torch.Generator(device=dev).manual_seed(34), device=dev)
+    with torch.inference_mode():
+        reg, cls = ref(x)
+        out = pipe.det_model(x)
+    err = {k: float((out[k] - r).abs().max() / r.abs().max()) for k, r in
+           (("reg", reg), ("cls", cls))}
+    if not max(err.values()) <= ARTIFACT_TOL:
+        fail(f"e2e artifacts: imported detector vs its source, relative error {err} > "
+             f"{ARTIFACT_TOL}")
+    art["detector_rel_err"] = err
+    print(f"e2e artifacts: best.pt (stub unpickler, torch {torch.__version__}) and "
+          f"shufflenetv2.pth load; imported detector vs the mirror's forward: relative error "
+          f"{err} (tolerance {ARTIFACT_TOL})")
+    del tm, ref, pipe
+    return art
+
+
+def write_jpegs(img_dir: str, sizes, gen) -> list:
+    """Frames of the given (h, w) as JPEG files: smooth random content
+    (a random 1/8-size image upsampled), with bright blocks on small ones."""
+    import cv2
+
+    os.makedirs(img_dir, exist_ok=True)
+    paths = []
+    for i, (h, w) in enumerate(sizes):
+        small = torch.randint(0, 120, (h // 8, w // 8, 3), generator=gen, dtype=torch.uint8)
+        img = cv2.resize(small.numpy(), (w, h), interpolation=cv2.INTER_LINEAR)
+        if max(h, w) <= 640:
+            for k in range(2):
+                x0, y0 = 30 + 90 * k + 20 * i, 40 + 30 * k
+                img[y0 : y0 + 40, x0 : x0 + 40] = 255
+        paths.append(os.path.join(img_dir, f"img{i:03d}.jpg"))
+        cv2.imwrite(paths[-1], img)
+    return paths
+
+
+def cli_outputs(out: str, combo: str, n_images: int, what: str) -> dict:
+    """The CLI's files under ``out``: the summary row and the per-class
+    results rows; fails when one is missing."""
+    import csv
+
+    files = [os.path.join(out, "comparison_summary.csv"),
+             os.path.join(out, combo, f"{combo}_results.csv"),
+             os.path.join(out, combo, f"{combo}_test_files.txt")]
+    missing = [f for f in files if not os.path.isfile(f)]
+    if missing:
+        fail(f"{what}: the CLI wrote no {missing}")
+    with open(files[0]) as f:
+        summary = list(csv.DictReader(f))
+    with open(files[1]) as f:
+        per_class = list(csv.DictReader(f))
+    with open(files[2]) as f:
+        listed = f.read().split()
+    if (len(summary) != 1 or int(summary[0]["num_test_images"]) != n_images
+            or len(listed) != n_images):
+        fail(f"{what}: summary {summary}, {len(listed)} files listed, expected {n_images}")
+    return dict(summary=summary[0], per_class=per_class)
+
+
+def check_cli_small(dev, art: dict, root: str) -> dict:
+    """``apps/e2e.py::main`` with ``--device cuda`` and with ``--device cpu``
+    at ``--det_input_size 160 --num_samples 2`` from the two artifacts, on
+    JPEG frames and labels made from the CPU pipeline's own detections; both
+    thresholds in gaps of the candidate scores more than 20x the card-vs-CPU
+    noise wide (as :func:`check_eval_small`).  rc 0 both times; the summary
+    row's metrics and the per-class rows within 1e-6, counts equal."""
+    img_dir, lbl_dir = os.path.join(root, "images"), os.path.join(root, "labels")
+    write_jpegs(img_dir, E2E_CLI_SMALL_FRAMES, torch.Generator().manual_seed(35))
+    os.makedirs(lbl_dir)
+    paths = sample_images(img_dir, 2, 42)  # the frames the CLI samples
+    cfg = dataclasses.replace(EVAL_FULL, det_input_size=160,
+                              detector=dataclasses.replace(YOLO_PLUS_V2, input_size=160))
+    evs = {d: PipelineEvaluator(TwoStagePipeline.from_jax_vars(
+        cfg, art["det_vars"], art["cls_vars"], device=d)) for d in (dev, "cpu")}
+    import cv2
+
+    images = [cv2.imread(p) for p in paths]
+    canvases = evs["cpu"]._letterbox_batch(images)[0]
+    s_cpu, s_card = (evs[d].pipe.detect_candidates(evs[d]._to_unit(canvases))[1].cpu().numpy()
+                     for d in ("cpu", dev))
+    noise = float(np.abs(s_cpu - s_card).max())
+    sep = max(20 * noise, 1e-6)
+    yolo_conf = separated_conf(s_cpu, 3, 40, sep)
+    bench_conf = separated_conf(s_cpu[:, : cfg.nms.max_candidates], 1, 8, sep)
+    results = evs["cpu"].run_images(images, yolo_conf, eval_budget=True)
+    # write_labels leaves its last path without a label file: a path past
+    # the two, so both sampled frames get labels
+    write_labels(lbl_dir, paths + ["unlabelled"], dict(zip(paths, images)), results,
+                 np.random.default_rng(36), cfg.num_classifier_classes)
+    del evs
+    argv = ["--input", img_dir, "--labels", lbl_dir, "--detector", art["pt"], "--classifier",
+            art["pth"], "--det_input_size", "160", "--num_samples", "2", "--yolo_conf",
+            repr(yolo_conf), "--benchmark_conf", repr(bench_conf), "--warmup", "1"]
+    combo = "yolo_plus_v2+shufflenetv2"
+    out = {}
+    for d in ("cuda", "cpu"):
+        rc = e2e_cli.main(argv + ["--device", d, "--output", os.path.join(root, d)])
+        if rc != 0:
+            fail(f"e2e CLI --device {d} at 160: rc {rc}")
+        out[d] = cli_outputs(os.path.join(root, d), combo, 2, f"e2e CLI --device {d}")
+    got, want = out["cuda"], out["cpu"]
+    for k in ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95"):
+        if not abs(float(got["summary"][k]) - float(want["summary"][k])) <= 1e-6:
+            fail(f"e2e CLI card vs CPU: {k} {got['summary'][k]} vs {want['summary'][k]}")
+    if [r["class"] for r in got["per_class"]] != [r["class"] for r in want["per_class"]]:
+        fail("e2e CLI card vs CPU: per-class rows differ")
+    for g, w in zip(got["per_class"], want["per_class"]):
+        if any(g[k] != w[k] for k in ("tp", "fp", "fn")) or any(
+                abs(float(g[k]) - float(w[k])) > 1e-6 for k in ("precision", "recall", "f1")):
+            fail(f"e2e CLI card vs CPU: class {w['class']}: {g} vs {w}")
+    if not 0 < float(want["summary"]["mAP50"]) < 1:
+        fail(f"e2e CLI: a degenerate metric row {want['summary']}")
+    row = {k: want["summary"][k] for k in ("mean_precision", "mean_recall", "mean_f1", "mAP50",
+                                           "mAP50-95")}
+    print(f"e2e CLI card == CPU at 160 (score noise {noise:.3g}, yolo_conf {yolo_conf:.6f}, "
+          f"benchmark_conf {bench_conf:.6f}; {len(want['per_class'])} classes): {row}")
+    return dict(score_noise=noise, yolo_conf=yolo_conf, benchmark_conf=bench_conf, row=row,
+                classes=len(want["per_class"]))
+
+
+def check_cli_full(dev, art: dict, img_dir: str, lbl_dir: str, root: str, extra, what: str,
+                   want_counts) -> dict:
+    """``apps/e2e.py::main`` at its defaults (``--dataset tt100k``: yolo_plus_v2
+    + ShuffleNetV2-91, 640, B=8, 512 candidates, 64 detections, every anchor
+    in the mAP pass; float32 dense unless ``extra`` says otherwise) on the
+    frames of ``img_dir`` from disk; launch counts zeroed just before and
+    read just after, each at least (or for 0, exactly) ``want_counts``.
+    Then K1 and K2 against their plain versions on the inputs of the fused
+    pass's first batch, in a pipeline built as the CLI builds its own
+    (``e2e.build_pipeline`` on the same arguments;
+    :func:`check_path_kernels`)."""
+    out = os.path.join(root, what.replace(" ", "_"))
+    argv = ["--input", img_dir, "--labels", lbl_dir, "--detector", art["pt"],
+            "--classifier", art["pth"], "--output", out, *extra]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = e2e_cli.main(argv)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if rc != 0:
+        fail(f"e2e CLI {what}: rc {rc}")
+    if any((counts[k] < n) if n else counts[k] for k, n in want_counts.items()):
+        fail(f"e2e CLI {what}: launch counts {counts}, expected at least {want_counts}")
+    res = cli_outputs(out, "yolo_plus_v2+shufflenetv2", E2E_CLI_FULL_FRAMES, f"e2e CLI {what}")
+    s = res["summary"]
+    for k in ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95"):
+        if not 0 <= float(s[k]) <= 1:
+            fail(f"e2e CLI {what}: {k} = {s[k]}")
+    args = e2e_cli.build_arg_parser().parse_args(argv)
+    pipe = e2e_cli.build_pipeline(args)
+    if isinstance(pipe, str):
+        fail(f"e2e CLI {what}: build_pipeline refused: {pipe}")
+    ev = PipelineEvaluator(pipe)
+    first = sample_images(img_dir, args.num_samples, args.seed)[: args.batch_size]
+    frames = torch.from_numpy(np.stack([ev._read_image(p) for p in first])).to(dev)
+    kernel_checks = check_path_kernels(pipe, frames, None, f"e2e CLI {what}")
+    del ev, pipe, frames
+    result = dict(args=list(extra), seconds=seconds, fused_pass_fps=float(s["fps"]),
+                  launches=counts, kernel_checks=kernel_checks,
+                  row={k: float(s[k]) for k in ("mean_precision", "mean_recall", "mAP50")})
+    print(f"e2e CLI {what}: rc 0 in {seconds:.1f} s, fused pass "
+          f"{result['fused_pass_fps']:.1f} FPS, launches {counts}")
+    return result
+
+
+def e2e_cli_phase(dev) -> dict:
+    """The deployed-artifact path: artifacts written on the card, the CLI
+    card vs CPU, then the CLI at full width at its defaults and in bf16
+    with the pyramid crop, on E2E_CLI_FULL_FRAMES frames of
+    E2E_CLI_FULL_SIZE^2 from disk."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        art = write_artifacts(dev, root)
+        small = check_cli_small(dev, art, os.path.join(root, "small"))
+        img_dir, lbl_dir = os.path.join(root, "full"), os.path.join(root, "full_labels")
+        n, s = E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE
+        paths = write_jpegs(img_dir, [(s, s)] * n, torch.Generator().manual_seed(37))
+        # the host's decode of every frame once (a CLI run decodes 89 frames:
+        # warm-up 2 x 8, the fused pass 32 + 1 probe, a staged batch 8, the
+        # mAP pass 32)
+        import cv2
+
+        t1 = time.perf_counter()
+        for p in paths:
+            cv2.imread(p)
+        decode_s = time.perf_counter() - t1
+        os.makedirs(lbl_dir)
+        rng = np.random.default_rng(38)
+        for p in paths:
+            xy, wh = rng.uniform(0.05, 0.8, (4, 2)), rng.uniform(0.01, 0.15, (4, 2))
+            stem = os.path.splitext(os.path.basename(p))[0]
+            with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
+                f.writelines(f"{rng.integers(0, 91)} {x + w / 2:.6f} {y + h / 2:.6f} {w:.6f} "
+                             f"{h:.6f}\n" for (x, y), (w, h) in zip(xy, wh))
+        dense = check_cli_full(dev, art, img_dir, lbl_dir, root, [], "defaults",
+                               {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
+                                "roi_crop_pyramid_bf16": 0, "stem": 0})
+        pallas = check_cli_full(dev, art, img_dir, lbl_dir, root,
+                                ["--dtype", "bfloat16", "--roi_impl", "pallas"], "bf16 pallas",
+                                {"nms_suppress": 1, "roi_crop_dense": 0, "roi_crop_pyramid": 0,
+                                 "roi_crop_pyramid_bf16": 1, "stem": 0})
+    result = dict(detector_rel_err=art["detector_rel_err"], small=small, full_dense=dense,
+                  full_bf16_pallas=pallas, decode_once_s=decode_s,
+                  seconds=time.perf_counter() - t0)
+    print(f"e2e CLI phase (artifacts, card vs CPU, two full-width runs): "
+          f"{result['seconds']:.1f} s; cv2 decodes the {n} frames once in {decode_s:.2f} s")
     return result
 
 
@@ -1280,6 +1613,7 @@ def run(dev) -> None:
     zoo_seconds += time.perf_counter() - t0
     print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
     evaluation = eval_phase(dev)
+    cli = e2e_cli_phase(dev)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
@@ -1301,22 +1635,40 @@ def run(dev) -> None:
     eval_launches = {"nms_suppress": 0, "nms_suppress_k512": eval_counts["nms_suppress"],
                      "roi_crop_dense": 0, "roi_crop_dense_b8": eval_counts["roi_crop_dense"],
                      "roi_crop_pyramid": eval_counts["roi_crop_pyramid"],
+                     "roi_crop_pyramid_bf16": eval_counts["roi_crop_pyramid_bf16"],
                      "stem": eval_counts["stem"]}
+    # the e2e CLI phase's full-width launches (both runs, zeroed before each):
+    # K1 at K=512, K2 dense at B=8 on 2048x2048 frames (the float32 run), K2
+    # pyramid in its bf16 mode (the bf16 run)
+    cli_runs = (cli["full_dense"], cli["full_bf16_pallas"])
+
+    def cli_sum(key):
+        return sum(r["launches"][key] for r in cli_runs)
+
+    cli_launches = {"nms_suppress": 0, "nms_suppress_k512": cli_sum("nms_suppress"),
+                    "roi_crop_dense": 0, "roi_crop_dense_b8": cli_sum("roi_crop_dense"),
+                    "roi_crop_pyramid": cli_sum("roi_crop_pyramid"),
+                    "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
+                    "stem": cli_sum("stem")}
+    cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
+                  "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
 
     nms_at = "litepi_tpu/ops/pallas_nms.py:98"
     roi_at = "litepi_tpu/ops/pallas_roi.py:207"
     grid_sample = "F.grid_sample(border, align_corners=False)"
     k0, k1 = NMS_KS
-    dense, dense_b8, pyr = roi["dense"], roi["dense_b8"], roi["pyramid"]
+    dense, dense_b8 = roi["dense"], roi["dense_b8"]
+    pyr, pyr_bf16 = roi["pyramid"], roi["pyramid_bf16"]
     kernels = [
-        # launches: K=64 on the three run_fused runs, K=512 on the detect run
+        # launches: K=64 on the four run_fused runs, K=512 on the detect run
         entry("nms_suppress", "nms.cu", nms_at, counts["nms_suppress"], nms[k0], 0,
               f"B={NMS_BATCH} K={k0}, 1 class", zoo_launches=zoo_launches["nms_suppress"],
               zoo_device_ms=zoo[0]["nms_device_ms"]),
         entry("nms_suppress_k512", "nms.cu", nms_at, detect["launches"]["nms_suppress"],
               nms[k1], 0, f"B={NMS_BATCH} K={k1}, 1 class",
               detect_device_ms=detect["nms_device_ms"],
-              eval_nms_mismatches=eval_checks["nms_mismatches"]),
+              eval_nms_mismatches=eval_checks["nms_mismatches"],
+              e2e_cli_nms_mismatches=sum(c["nms_mismatches"] for c in cli_checks.values())),
         # dense launches per run: B=128 640x640, then B=8 1080x1920
         entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
@@ -1328,13 +1680,23 @@ def run(dev) -> None:
         entry("roi_crop_dense_b8", "roi.cu", roi_at, run_counts[1]["roi_crop_dense"],
               dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
               library=grid_sample, library_max_abs_diff=dense_b8["library_err"],
-              eval_max_abs_err=eval_checks["roi_max_abs_err"]),
+              eval_max_abs_err=eval_checks["roi_max_abs_err"],
+              e2e_cli_max_abs_err=cli_checks["dense"]["roi_max_abs_err"]),
+        # the pyramid mode in float32 (the main path's float32 pallas run)
         entry("roi_crop_pyramid", "roi.cu", roi_at, counts["roi_crop_pyramid"], pyr, pyr["err"],
               "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
-              + f", {pyr['levels']} levels built in advance",
+              + f", {pyr['levels']} levels built in advance, float32",
               with_levels_ms=pyr["with_levels_ms"],
               with_levels_device_ms=pyr["with_levels_device_ms"],
               with_levels_bound_ms=pyr["with_levels_bound"][0]),
+        # and with bf16 rounding (the main path's bf16 pallas run)
+        entry("roi_crop_pyramid_bf16", "roi.cu", roi_at, counts["roi_crop_pyramid_bf16"],
+              pyr_bf16, pyr_bf16["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
+              + f", {pyr['levels']} levels built in advance, bf16 rounding",
+              e2e_cli_max_abs_err=cli_checks["pyramid_bf16"]["roi_max_abs_err"],
+              e2e_cli_shape="B={} D={} 2048x2048, {} boxes".format(
+                  *cli_checks["pyramid_bf16"]["roi_shape"],
+                  cli_checks["pyramid_bf16"]["roi_boxes"])),
         entry("stem", "stem.cu", "litepi_tpu/ops/pallas_stem.py:111", counts["stem"], stem,
               stem["f32_err"], "B={} {}x{} C={}, bf16 out".format(*STEM_CASES[0]),
               library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
@@ -1343,9 +1705,10 @@ def run(dev) -> None:
     ]
     for k in kernels:
         k["eval_launches"] = eval_launches[k["name"]]
+        k["e2e_cli_launches"] = cli_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
-                      "eval": evaluation, "power": smi_after}))
+                      "eval": evaluation, "e2e_cli": cli, "power": smi_after}))
     print(smi_after)
 
 

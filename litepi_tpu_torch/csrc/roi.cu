@@ -15,10 +15,12 @@
 // floor(u) and floor(u) + 1 carry weights max(0, 1 - |u - g|), which is the
 // JAX hat matrix row restricted to its non-zero entries.  Lerp along y at
 // the two source columns, then along x.  Invalid slots are written 0.
-// With round_bf16 (the dense crop of a bf16 pipeline) the tap weights and
-// both y-lerps are rounded to bf16 values, where the JAX bf16 dense crop
-// rounds its hat matrices and its y-stage; each product is then exact in
-// float32, so every two-tap sum rounds once, as in the plain version.
+// With round_bf16 (the crop of a bf16 pipeline, in either mode) the tap
+// weights and both y-lerps are rounded to bf16 values, where the JAX bf16
+// dense crop rounds its hat matrices and its y-stage and where the Pallas
+// kernel rounds its hat weights and its y-pass dot before the x-pass dot;
+// each product is then exact in float32, so every two-tap sum rounds once,
+// as in the plain version.
 //
 // What bounds it on the H100: bytes.  At the serving size (B=128, D=8,
 // S=64, C=3) it writes 50 MB of float32 and reads at most 4 taps per

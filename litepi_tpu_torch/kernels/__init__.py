@@ -14,6 +14,7 @@ LAUNCHES: Dict[str, int] = {
     "nms_suppress": 0,
     "roi_crop_dense": 0,
     "roi_crop_pyramid": 0,
+    "roi_crop_pyramid_bf16": 0,
     "stem": 0,
 }
 

@@ -56,9 +56,12 @@ def roi_crop_cuda(
     """(B, D, out, out, C) float32 crops of ``levels`` (level 0 the
     (B, H, W, C) uint8 frames; ``mode="dense"`` passes only it) at boxes
     (B, D, 4) float32 with valid (B, D) bool, all contiguous on one CUDA
-    device.  ``mode`` ("dense" or "pyramid") also names the launch count;
-    ``round_bf16`` rounds the tap weights and y-lerps to bf16 values, as
-    ``crop_and_resize_plain(..., round_bf16=True)`` does."""
+    device.  ``round_bf16`` (either mode: a bf16 pipeline's crop) rounds
+    the tap weights and y-lerps to bf16 values, as
+    ``crop_and_resize_plain(..., round_bf16=True)`` does.  The launch is
+    counted under ``roi_crop_<mode>``, the pyramid's bf16 mode under
+    ``roi_crop_pyramid_bf16`` (a bf16 pipeline's ``roi_impl="pallas"``
+    crop); the dense mode counts both roundings under one key."""
     if mode not in ("dense", "pyramid"):
         raise ValueError(f"unknown ROI crop mode {mode!r}")
     if mode == "dense" and len(levels) != 1:
@@ -108,5 +111,6 @@ def roi_crop_cuda(
             b, d, c, int(out_size), float(exact_extent), stream, int(bool(round_bf16)),
         )
     check(status, f"roi_crop ({mode}) launch")
-    LAUNCHES[f"roi_crop_{mode}"] += 1
+    bf16 = "_bf16" if round_bf16 and mode == "pyramid" else ""
+    LAUNCHES[f"roi_crop_{mode}{bf16}"] += 1
     return out

@@ -33,12 +33,31 @@ _ACTS = {
 }
 
 
+def conv_bias_apart(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)``, but in bf16 with the bias added as an op of its own
+    after the conv's output is rounded, as a biased bf16 flax ``nn.Conv``
+    rounds (its conv output, then the bias add).  The JAX ResNet18's deploy
+    form rounds so; a single rounding put the port's bf16 probabilities at
+    1.76x JAX's own bf16 drift, two at 0.35x
+    (tests/torch_bf16_layers.py, tests/test_torch_bf16_zoo_parity.py)."""
+    if conv.bias is None or x.dtype != torch.bfloat16:
+        return conv(x)
+    y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return y + conv.bias[:, None, None]
+
+
 class ConvBN(nn.Module):
     """Conv2d + BatchNorm (eps ``bn_eps``) + ``act`` (``"silu"``,
     ``"relu"``, ``"relu6"`` or None).  ``fused=True`` is the deploy form: a
-    biased conv with BN folded in (``weights/fold_bn.py``).  ``padding`` -1
-    pads by ``kernel // 2``; 0 or more pads by that much (YOLOv5's 6x6/2
-    stem pads by 2)."""
+    biased conv with BN folded in (``weights/fold_bn.py``); with
+    ``bias_apart`` its bf16 bias add rounds apart (:func:`conv_bias_apart`),
+    which only ResNet18 sets: against JAX's bf16 drift it takes ResNet18's
+    probabilities from 1.76x to 0.35x, leaves the default pair's outputs
+    as they are, and takes MobileNetV2's and EfficientNet-B0's cls scores
+    from 1.12x / 1.02x to 2.16x / 1.94x (``python -m
+    tests.torch_bf16_layers --pairs``; ROADMAP section 3).
+    ``padding`` -1 pads by ``kernel // 2``; 0 or more pads by that much
+    (YOLOv5's 6x6/2 stem pads by 2)."""
 
     def __init__(
         self,
@@ -51,8 +70,10 @@ class ConvBN(nn.Module):
         fused: bool = False,
         bn_eps: float = 1e-3,
         padding: int = -1,
+        bias_apart: bool = False,
     ) -> None:
         super().__init__()
+        self.bias_apart = bias_apart
         pad = kernel // 2 if padding < 0 else padding
         self.conv = nn.Conv2d(
             c_in, c_out, kernel, stride, pad, groups=groups, bias=fused
@@ -61,7 +82,7 @@ class ConvBN(nn.Module):
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        x = conv_bias_apart(self.conv, x) if self.bias_apart else self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)

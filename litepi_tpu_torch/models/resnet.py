@@ -3,7 +3,9 @@
 Mirrors the JAX package's ``models/resnet.py``: a 7x7/2 ``conv1`` with its
 ``bn1`` (eps 1e-5; folded as a ``conv1``/``bn1`` pair), a 3x3/2 max-pool,
 four stages of two BasicBlocks (``layer1_0.cb1``, ..., ``layer2_0.down``),
-a global mean and a float32 ``fc``.
+a global mean and a float32 ``fc``.  In bf16 the deploy form adds each
+conv's bias after the conv's own rounding, as the JAX model's biased bf16
+convs round (``layers.py::conv_bias_apart``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN, conv_bias_apart
 
 
 class BasicBlock(nn.Module):
@@ -23,12 +25,11 @@ class BasicBlock(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, stride: int = 1, fused: bool = False) -> None:
         super().__init__()
-        self.cb1 = ConvBN(
-            c_in, c_out, 3, stride, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS
-        )
-        self.cb2 = ConvBN(c_out, c_out, 3, 1, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        kw = dict(fused=fused, bn_eps=CLASSIFIER_BN_EPS, bias_apart=True)
+        self.cb1 = ConvBN(c_in, c_out, 3, stride, act="relu", **kw)
+        self.cb2 = ConvBN(c_out, c_out, 3, 1, act=None, **kw)
         self.down = (
-            ConvBN(c_in, c_out, 1, stride, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+            ConvBN(c_in, c_out, 1, stride, act=None, **kw)
             if stride != 1 or c_in != c_out else None
         )
 
@@ -59,7 +60,7 @@ class ResNet18(nn.Module):
         self.fc = nn.Linear(c_in, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x.to(self.conv1.weight.dtype))
+        x = conv_bias_apart(self.conv1, x.to(self.conv1.weight.dtype))
         if self.bn1 is not None:
             x = self.bn1(x)
         x = F.max_pool2d(F.relu(x), 3, 2, 1)

@@ -16,12 +16,15 @@ tensor and by :func:`crop_and_resize_plain` on a CPU tensor:
   uint8 pyramid on which its extent is at most :data:`EXACT_EXTENT`.
 
 The JAX package's ``roi_chunk`` loop knob has no meaning here (the kernel
-covers every ROI in one launch).  The dense crop computes in float32, or,
-with ``compute_dtype=torch.bfloat16``, rounds where the JAX package's bf16
-dense crop rounds: the tap weights and the y-stage values go to bf16 (its
-hat matrices and its y-stage einsum output are bf16; every product of a
-bf16 weight and a uint8 or bf16 value is exact in float32, so each two-tap
-sum rounds once on both sides).  The pyramid crop computes in float32.
+covers every ROI in one launch).  Both crops compute in float32, or, with
+``compute_dtype=torch.bfloat16``, round where the JAX package's bf16 crops
+round: the tap weights and the y-stage values go to bf16.  The JAX dense
+crop's hat matrices and its y-stage einsum output are bf16; the Pallas
+kernel casts its y and x hat weights to bf16 and rounds its y-pass dot
+(float32 accumulation) to bf16 before the x-pass dot, whose float32 result
+is the crop.  Every product of a bf16 weight and a uint8 or bf16 value is
+exact in float32 and each output sums two non-zero taps, so each two-tap
+sum rounds once on both sides, and both modes take the same rounding.
 """
 
 from __future__ import annotations
@@ -201,11 +204,15 @@ def crop_and_resize(
     accepted and ignored.
     """
     del chunk
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    _check_dtype(compute_dtype)
     _check_frames(images)
     return _crop([images], boxes, valid, out_size, EXACT_EXTENT, "dense",
                  compute_dtype == torch.bfloat16)
+
+
+def _check_dtype(compute_dtype: torch.dtype) -> None:
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
 
 
 def crop_and_resize_pyramid(
@@ -213,12 +220,17 @@ def crop_and_resize_pyramid(
     boxes: torch.Tensor,
     valid: torch.Tensor,
     out_size: int = 64,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Pyramid crop (the JAX ``pallas_crop_and_resize`` contract): a box
     whose extent exceeds :data:`EXACT_EXTENT` samples the 4^k average-pooled
     level that brings it under the bound (anti-aliased); smaller boxes
-    match the dense crop.  Same shapes as :func:`crop_and_resize`."""
+    match the dense crop.  Same shapes as :func:`crop_and_resize`; computed
+    in float32 or rounded as the Pallas kernel rounds in bf16
+    (``compute_dtype``, the JAX pipeline's dtype)."""
+    _check_dtype(compute_dtype)
     _check_frames(images)
     h, w = int(images.shape[1]), int(images.shape[2])
     levels = build_pyramid(images, len(pyramid_scales(h, w)))
-    return _crop(levels, boxes, valid, out_size, EXACT_EXTENT, "pyramid")
+    return _crop(levels, boxes, valid, out_size, EXACT_EXTENT, "pyramid",
+                 compute_dtype == torch.bfloat16)

@@ -29,7 +29,6 @@ versions run.
 from __future__ import annotations
 
 import copy
-import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -54,26 +53,13 @@ from litepi_tpu_torch.weights.fold_bn import (
     stem_kernel_hwio,
 )
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
+from litepi_tpu_torch.weights.seeded import seeded_state
 
 StateDict = Dict[str, torch.Tensor]
 # (head output, k) -> (boxes (B, k, 4), scores (B, k), class_ids (B, k))
 CandidateDecoder = Callable[
     [Dict[str, torch.Tensor], int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 ]
-
-
-def _lecun_normal_(model: nn.Module, gen: torch.Generator) -> None:
-    """Seeded init: conv/linear weights N(0, 1/fan_in), biases 0; BatchNorm
-    keeps its identity init (scale 1, bias 0, mean 0, var 1)."""
-    for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            with torch.no_grad():
-                m.weight.copy_(
-                    torch.randn(m.weight.shape, generator=gen) / math.sqrt(fan_in)
-                )
-                if m.bias is not None:
-                    m.bias.zero_()
 
 
 class TwoStagePipeline:
@@ -211,16 +197,14 @@ class TwoStagePipeline:
         candidate_decoder: Optional[CandidateDecoder] = None,
         candidate_capacity: Optional[int] = None,
     ) -> "TwoStagePipeline":
-        """A pipeline with freshly initialised (untrained) weights drawn from
-        ``torch.Generator`` seeds ``seed`` (detector: YoloLitePi, or
-        ``det_model``) and ``seed + 1`` (classifier)."""
+        """A pipeline with freshly initialised (untrained) weights,
+        ``weights/seeded.py::seeded_state`` of seeds ``seed`` (detector:
+        YoloLitePi, or ``det_model``) and ``seed + 1`` (classifier)."""
         resolve_device(device)
         det = YoloLitePi(cfg.detector) if det_model is None else copy.deepcopy(det_model)
         clf = build_classifier(cfg.classifier_arch, cfg.num_classifier_classes)
-        _lecun_normal_(det, torch.Generator().manual_seed(seed))
-        _lecun_normal_(clf, torch.Generator().manual_seed(seed + 1))
         return cls(
-            cfg, det.state_dict(), clf.state_dict(), dtype, device,
+            cfg, seeded_state(det, seed), seeded_state(clf, seed + 1), dtype, device,
             det_model, candidate_decoder, candidate_capacity,
         )
 
@@ -363,12 +347,10 @@ class TwoStagePipeline:
 
     def _crop(self, frames, boxes, valid) -> torch.Tensor:
         """ROI crop (kernel on the card) -> (B, D, c, c, 3) float32 in [0, 1];
-        the dense crop rounds as the JAX crop in the pipeline's dtype."""
+        both crops round as the JAX crops in the pipeline's dtype."""
         size = self.cfg.cls_input_size
-        if self.cfg.roi_impl == "pallas":
-            crops = crop_and_resize_pyramid(frames, boxes, valid, size)
-        else:
-            crops = crop_and_resize(frames, boxes, valid, size, compute_dtype=self.dtype)
+        crop = crop_and_resize_pyramid if self.cfg.roi_impl == "pallas" else crop_and_resize
+        crops = crop(frames, boxes, valid, size, compute_dtype=self.dtype)
         return crops * (1.0 / 255.0)
 
     def _classify(self, crops01: torch.Tensor) -> torch.Tensor:

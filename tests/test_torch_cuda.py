@@ -350,6 +350,38 @@ def test_roi_kernel_round_bf16_mode(cuda, d, out_size):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 17])
+@pytest.mark.parametrize("out_size", [64, 7])
+def test_roi_kernel_pyramid_round_bf16_mode(cuda, d, out_size):
+    """The pyramid crop's bf16 rounding mode (a bf16 pipeline's with
+    roi_impl="pallas") on the edge and level-threshold boxes, against the
+    plain version in the same mode over the same levels; tolerance 1e-3 of
+    255, 0 expected; the float32 mode differs."""
+    h, w = 1080, 1920
+    pool = _edge_boxes(h, w)
+    b = -(-len(pool) // d)
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + out_size)
+    frames = torch.randint(0, 256, (b, h, w, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    flat = [pool[i % len(pool)] for i in range(b * d)]
+    boxes = torch.tensor(flat, dtype=torch.float32, device=cuda).reshape(b, d, 4)
+    valid = (torch.arange(b * d, device=cuda) % 5 != 4).reshape(b, d)
+    levels = build_pyramid(frames, len(pyramid_scales(h, w)))
+    before = launch_counts()
+    got = roi_crop_cuda(levels, boxes, valid, out_size, EXACT_EXTENT, "pyramid", True)
+    after = launch_counts()
+    # the bf16 mode counts under its own key, the float32 mode's untouched
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "roi_crop_pyramid_bf16") for n in after}
+    want = crop_and_resize_plain(levels, boxes, valid, out_size, round_bf16=True)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    assert (got[~valid] == 0).all()
+    f32 = roi_crop_cuda(levels, boxes, valid, out_size, EXACT_EXTENT, "pyramid")
+    assert (f32 != got).any()
+    via_op = crop_and_resize_pyramid(frames, boxes, valid, out_size, compute_dtype=torch.bfloat16)
+    assert torch.equal(via_op, got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("out_size", [64, 7])
 def test_roi_kernel_all_invalid_batch(cuda, out_size):
     gen = torch.Generator(device=cuda).manual_seed(out_size)
@@ -395,7 +427,7 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
     counts = launch_counts()
     # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only
     assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1,
-                      "stem": 0}
+                      "roi_crop_pyramid_bf16": 0, "stem": 0}
 
 
 def _small_cfg(**kw):
@@ -425,7 +457,8 @@ def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
     torch.cuda.synchronize()
     assert out["valid"].shape == (3, 8)
     assert launch_counts() == {"nms_suppress": 1, "roi_crop_dense": 1,
-                               "roi_crop_pyramid": 0, "stem": 1}
+                               "roi_crop_pyramid": 0, "roi_crop_pyramid_bf16": 0,
+                               "stem": 1}
 
 
 @pytest.mark.gpu

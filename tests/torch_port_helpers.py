@@ -134,3 +134,51 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def random_jax_vars(model, seed=0, spatial=64):
+    """Seeded numpy variables of a flax ``model``, shaped by
+    ``jax.eval_shape`` of its init (a trace, no compile: much cheaper than
+    ``fast_init`` for the full-width detectors).  Kernels N(0, 1/fan_in),
+    biases and BatchNorm biases and means N(0, 0.1), BatchNorm scales
+    around 1, variances in [0.5, 1.5]: weights for importer round trips,
+    where any values do."""
+    import jax
+
+    x = np.zeros((1, spatial, spatial, 3), np.float32)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.key(0), x, train=False))
+    rng = np.random.default_rng(seed)
+
+    def fill(node, stats):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = fill(v, stats)
+                continue
+            shape = tuple(v.shape)
+            if k == "kernel":
+                fan_in = int(np.prod(shape[:-1])) or 1
+                a = rng.normal(0, 1 / np.sqrt(fan_in), shape)
+            elif k == "var":
+                a = rng.uniform(0.5, 1.5, shape)
+            elif k == "scale":
+                a = rng.uniform(0.8, 1.2, shape)
+            else:
+                a = rng.normal(0, 0.1, shape)
+            out[k] = a.astype(np.float32)
+        return out
+
+    return {c: fill(t, c == "batch_stats") for c, t in shapes.items()}
+
+
+def assert_tree_equal(got, want, path=""):
+    """The same nested keys, and every leaf equal bit for bit
+    (``np.array_equal``) with the same dtype."""
+    assert isinstance(got, dict) and isinstance(want, dict), path
+    assert sorted(got) == sorted(want), f"{path}: keys {sorted(got)} != {sorted(want)}"
+    for k in want:
+        if isinstance(want[k], dict):
+            assert_tree_equal(got[k], want[k], f"{path}/{k}")
+        else:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            assert g.dtype == w.dtype and np.array_equal(g, w), f"{path}/{k}"
