@@ -168,6 +168,7 @@ from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
+from litepi_tpu_torch.ops import act as act_ops
 from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops import nms as nms_ops
 from litepi_tpu_torch.ops.nms import suppress_sorted
@@ -227,6 +228,12 @@ STEM_EDGE_H, STEM_EDGE_W = (2, 6, 80), (2, 10, 642)
 STEM_EDGE_C = (16, 32, 3, 20, 256)
 STEM_EDGE_FILLS = ("random", 0, 255)
 STEM_TOL = 1e-4
+# the bf16 SiLU / sigmoid kernel: the default detector's down1 output at the
+# serving B=128 (SiLU) and EfficientNet-B0's first squeeze-excite gate over
+# the zoo run's 4*B=128 crops (sigmoid), timed; and the vector path, the
+# scalar tail and an odd shape checked
+ACT_SILU_SHAPE, ACT_SIGMOID_SHAPE = (128, 32, 160, 160), (128, 96, 1, 1)
+ACT_CASES = ((2, 32, 40, 40), (1001,), (3, 20, 7, 9))
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
 # more than 20x the card-vs-CPU noise apart under SMALL's seed-3 weights
@@ -685,6 +692,54 @@ def check_stem(dev):
 
 
 # --------------------------------------------------------------------- #
+# bf16 SiLU / sigmoid kernel                                            #
+# --------------------------------------------------------------------- #
+
+def check_act(dev) -> dict:
+    """The bf16 SiLU / sigmoid kernel vs its plain version (five / four
+    torch passes, each step rounded to bf16): on every element of
+    ACT_CASES and of the timed shapes (ACT_SILU_SHAPE, ACT_SIGMOID_SHAPE);
+    within one bf16 ulp (bit-equal expected: each step rounds as the plain
+    version's), the share of elements that differ printed.  Timed beside
+    the plain version and torch's one-pass op (``F.silu`` /
+    ``torch.sigmoid``, which round once: not the same function, the
+    yardstick of one elementwise pass)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for silu, shape in ((True, ACT_SILU_SHAPE), (False, ACT_SIGMOID_SHAPE)):
+        name = "silu_bf16" if silu else "sigmoid_bf16"
+        fn = act_ops.silu if silu else act_ops.sigmoid
+        plain = act_ops.silu_bf16_plain if silu else act_ops.sigmoid_bf16_plain
+        ulps, err, differ, n = 0.0, 0.0, 0, 0
+        for case in (*ACT_CASES, shape):
+            x = (torch.randn(case, generator=gen, device=dev) * 4).bfloat16()
+            got, want = fn(x), plain(x)
+            torch.cuda.synchronize()
+            ulps = max(ulps, bf16_ulp_error(got, want))
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            differ += int((got != want).sum())
+            n += got.numel()
+            if not ulps <= 1.0:
+                fail(f"{name} kernel {case}: {ulps} bf16 ulps from the plain version")
+        ms, windows = median_ms(lambda: fn(x), 50)
+        once = F.silu if silu else torch.sigmoid
+        r = dict(shape=list(shape), ms=ms, windows=windows, host_ms=host_ms(lambda: fn(x), 50),
+                 device_ms=device_ms(lambda: fn(x), 50, "act_vec_kernel"),
+                 plain_ms=cuda_ms(lambda: plain(x), 20), library_ms=cuda_ms(lambda: once(x), 50),
+                 max_ulps=ulps, max_abs_err=err, mismatch_share=differ / n,
+                 # each value read once and written once, 2 bytes each; the
+                 # five (four) operations per value are noise beside that
+                 bound=bound(4 * x.numel(), (5 if silu else 4) * x.numel()))
+        print(f"{name} kernel {tuple(shape)}: {ms:.4f} ms (windows {windows}), device "
+              f"{r['device_ms']:.4f} ms, host issue {r['host_ms']:.4f} ms; the plain version's "
+              f"{5 if silu else 4} passes {r['plain_ms']:.4f} ms, torch's one-rounding op "
+              f"{r['library_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+              f"{differ} of {n} elements differ from the plain version ({ulps:.3g} ulp)")
+        out[name] = r
+    return out
+
+
+# --------------------------------------------------------------------- #
 # small pipeline: card vs CPU                                           #
 # --------------------------------------------------------------------- #
 
@@ -839,7 +894,8 @@ def main_path(dev):
         check_outputs(out, b, pipe.cfg.crop_det_budget, h, w,
                       pipe.cfg.num_classifier_classes, f"run_fused b={b} {h}x{w} {roi_impl}")
     for name, n in counts.items():
-        if n < 1:
+        # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates)
+        if n < 1 and name != "sigmoid_bf16":
             fail(f"kernel {name} was not launched on the main path")
     print(f"main path launch counts: {counts}, per run {run_counts}")
 
@@ -1050,6 +1106,11 @@ def zoo_path(dev):
     s = ZOO_SERVING.det_input_size
     want_counts = {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0,
                    "roi_crop_pyramid_bf16": 0, "stem": 0}
+    # the bf16 activation kernel: SiLU in every detector but the anchor-free
+    # YOLOv5n (torch's F.silu, models/yolov5.py) and in EfficientNet-B0,
+    # sigmoid in EfficientNet-B0's gates only
+    act_runs = {"yolov11n": ("silu_bf16",), "yolov5n": (),
+                "yolov5n_legacy": ("silu_bf16", "sigmoid_bf16")}
     runs = []
     for i, (variant, arch, b) in enumerate(ZOO_RUNS):
         cfg = dataclasses.replace(ZOO_SERVING, cls_crop_budget=4 * b)
@@ -1059,8 +1120,11 @@ def zoo_path(dev):
         area = torch.ones(b, device=dev)
         pipe.run_fused(frames, area_scale=area)  # warm-up (cuDNN algorithm selection)
         out, counts = issue_sync_free(lambda: pipe.run_fused(frames, area_scale=area), what)
-        if counts != want_counts:
+        if {k: counts[k] for k in want_counts} != want_counts:
             fail(f"{what}: launch counts {counts}, expected {want_counts}")
+        for k in ("silu_bf16", "sigmoid_bf16"):
+            if (counts[k] > 0) != (k in act_runs[variant]):
+                fail(f"{what}: {k} launched {counts[k]} times")
         check_outputs(out, b, cfg.crop_det_budget, s, s, cfg.num_classifier_classes, what)
         if not bool(out["valid"].any()):
             fail(f"{what}: no valid detection")
@@ -1596,6 +1660,7 @@ def run(dev) -> None:
     nms = check_nms(dev)
     roi = check_roi(dev)
     stem = check_stem(dev)
+    acts = check_act(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
     t0 = time.perf_counter()
@@ -1620,7 +1685,8 @@ def run(dev) -> None:
     print_resources(paths, smi_after, "after the timed windows")
 
     zoo_launches = {name: {f"{z['detector']}+{z['classifier']}": z["launches"][name] for z in zoo}
-                    for name in ("nms_suppress", "roi_crop_dense", "stem")}
+                    for name in ("nms_suppress", "roi_crop_dense", "stem", "silu_bf16",
+                                 "sigmoid_bf16")}
 
     def entry(name, source, replaces, launches, r, err, shape, **extra):
         return dict(name=name, route="cuda", source=f"litepi_tpu_torch/csrc/{source}",
@@ -1636,7 +1702,8 @@ def run(dev) -> None:
                      "roi_crop_dense": 0, "roi_crop_dense_b8": eval_counts["roi_crop_dense"],
                      "roi_crop_pyramid": eval_counts["roi_crop_pyramid"],
                      "roi_crop_pyramid_bf16": eval_counts["roi_crop_pyramid_bf16"],
-                     "stem": eval_counts["stem"]}
+                     "stem": eval_counts["stem"], "silu_bf16": eval_counts["silu_bf16"],
+                     "sigmoid_bf16": eval_counts["sigmoid_bf16"]}
     # the e2e CLI phase's full-width launches (both runs, zeroed before each):
     # K1 at K=512, K2 dense at B=8 on 2048x2048 frames (the float32 run), K2
     # pyramid in its bf16 mode (the bf16 run)
@@ -1649,7 +1716,8 @@ def run(dev) -> None:
                     "roi_crop_dense": 0, "roi_crop_dense_b8": cli_sum("roi_crop_dense"),
                     "roi_crop_pyramid": cli_sum("roi_crop_pyramid"),
                     "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
-                    "stem": cli_sum("stem")}
+                    "stem": cli_sum("stem"), "silu_bf16": cli_sum("silu_bf16"),
+                    "sigmoid_bf16": cli_sum("sigmoid_bf16")}
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
 
@@ -1702,6 +1770,22 @@ def run(dev) -> None:
               library="F.conv2d(bf16 NCHW canvas, bias) + F.silu (cuDNN)",
               library_cast_ms=stem["cast_ms"], bf16_max_abs_err=stem["bf16_err"],
               bf16_max_ulps=stem["bf16_ulps"], zoo_launches=zoo_launches["stem"]),
+        # port-only: JAX's bf16 SiLU / sigmoid steps, rounded as its StableHLO
+        entry("silu_bf16", "act.cu", "none: port-only (flax nn.silu in bf16, "
+              "litepi_tpu/models/layers.py:71)", counts["silu_bf16"], acts["silu_bf16"],
+              acts["silu_bf16"]["max_abs_err"], "x".join(map(str, ACT_SILU_SHAPE)),
+              library="F.silu (one rounding)",
+              max_ulps=acts["silu_bf16"]["max_ulps"],
+              mismatch_share=acts["silu_bf16"]["mismatch_share"],
+              zoo_launches=zoo_launches["silu_bf16"]),
+        # its path is the zoo's EfficientNet-B0 run (the main path has no gate)
+        entry("sigmoid_bf16", "act.cu", "none: port-only (flax nn.sigmoid in bf16, "
+              "litepi_tpu/models/efficientnet.py:55)",
+              zoo_launches["sigmoid_bf16"]["yolov5n_legacy+efficientnet"], acts["sigmoid_bf16"],
+              acts["sigmoid_bf16"]["max_abs_err"], "x".join(map(str, ACT_SIGMOID_SHAPE)),
+              library="torch.sigmoid (one rounding)", max_ulps=acts["sigmoid_bf16"]["max_ulps"],
+              mismatch_share=acts["sigmoid_bf16"]["mismatch_share"],
+              zoo_launches=zoo_launches["sigmoid_bf16"]),
     ]
     for k in kernels:
         k["eval_launches"] = eval_launches[k["name"]]

@@ -13,9 +13,16 @@
 // bfloat16 (rounded to nearest even once, from float32).  Output pixel
 // (oy, ox) reads input pixels (2 * oy - 1 + dy, 2 * ox - 1 + dx), zero
 // outside the frame.  y = the 27 taps in t order as float32 fused
-// multiply-adds (onto the bias for C = 16 and 32, onto 0 with the bias
-// added last otherwise), then y * sigmoid(y) from the hardware exp2 and
-// reciprocal (ex2.approx, rcp.approx: a few float32 ulps).
+// multiply-adds.  float32 out: onto the bias for C = 16 and 32, onto 0
+// with the bias added last otherwise, then y * sigmoid(y) from the
+// hardware exp2 and reciprocal (ex2.approx, rcp.approx: a few float32
+// ulps), rounded once.  bfloat16 out, as the JAX bf16 program rounds its
+// stem (a biased bf16 conv, then flax's SiLU, whose five steps JAX writes
+// into its StableHLO as bf16 ops): the 27 multiply-adds onto 0, rounded
+// to bf16; plus the bias, rounded; then negate, expf, add 1, IEEE divide
+// and multiply, each rounded to bf16 (silu_bf16_steps).  Every step then
+// rounds as the plain version's (its float32 taps sum in the same order
+// with each product exact), so the two are bit-equal.
 //
 // What bounds it on the H100: bytes and operations about equally.  At the
 // serving size (B=128, 640x640, C=16, bf16 out) it reads 157 MB of uint8
@@ -45,9 +52,10 @@
 //   two weights): no per-thread load is issued for a weight.  The values
 //   are on the host at launch; the caller packs them once
 //   (kernels/stem.py::pack_stem_params).
-// - SiLU is 5 instructions (multiply, exp2, add, reciprocal, multiply);
-//   __expf and __fdividef without fast math add subnormal range fixes
-//   that take several times that.
+// - In float32 out SiLU is 5 instructions (multiply, exp2, add,
+//   reciprocal, multiply); __expf and __fdividef without fast math add
+//   subnormal range fixes that take several times that.  In bf16 out
+//   the steps round as the JAX program's, with expf and the IEEE divide.
 // - For each channel a warp stores 64 contiguous outputs as bf16x2 (128
 //   bytes) or float2 pairs, into the NCHW plane; odd output widths store
 //   one value at a time.
@@ -76,6 +84,22 @@ __device__ __forceinline__ float silu(float y) {
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
   return y * r;
 }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// bf16 out: conv sum rounded, the bias added and rounded, then SiLU's five
+// steps each rounded (the last by the store), as ops/act.py's plain SiLU
+__device__ __forceinline__ float silu_bf16_steps(float conv, float bias) {
+  const float y = round_bf16(round_bf16(conv) + bias);
+  const float e = round_bf16(expf(-y));
+  const float a = round_bf16(1.0f + e);
+  return y * round_bf16(1.0f / a);
+}
+
+template <typename T>
+constexpr bool kBf16Out = sizeof(T) == 2;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -161,7 +185,7 @@ __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
 #pragma unroll
   for (int k = 0; k < kPixels; ++k)
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[k][c] = p.b[c];
+    for (int c = 0; c < C; ++c) acc[k][c] = kBf16Out<T> ? 0.f : p.b[c];
 #pragma unroll
   for (int dy = 0; dy < 3; ++dy) {
     // the lane's input columns 2 * ox - 1 .. 2 * ox + 3 are bytes 1 .. 15
@@ -196,7 +220,8 @@ __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
   const bool pair = OW % 2 == 0, second = ox + 1 < OW;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float a = silu(acc[0][c]), b = silu(acc[1][c]);
+    const float a = kBf16Out<T> ? silu_bf16_steps(acc[0][c], p.b[c]) : silu(acc[0][c]);
+    const float b = kBf16Out<T> ? silu_bf16_steps(acc[1][c], p.b[c]) : silu(acc[1][c]);
     T* oc = o + (size_t)c * plane;
     if (pair) {
       store_pair(oc, a, b);
@@ -210,6 +235,11 @@ __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
 // ------------------------------------------------------------------------
 // other channel counts: one thread per output pixel
 // ------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ float finish(float conv, float bias) {
+  return kBf16Out<T> ? silu_bf16_steps(conv, bias) : silu(conv + bias);
+}
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 256;  // 28 * 256 floats = 28 KB of shared memory
@@ -274,13 +304,13 @@ __global__ void __launch_bounds__(kThreads) stem_generic_kernel(
       }
 #pragma unroll
       for (int j = 0; j < kChunk; ++j)
-        store(o + (size_t)(c0 + j) * plane, silu(acc[j] + b_s[c0 + j]));
+        store(o + (size_t)(c0 + j) * plane, finish<T>(acc[j], b_s[c0 + j]));
     }
     for (int co = c_chunked; co < C; ++co) {
       float acc = 0.f;
 #pragma unroll
       for (int t = 0; t < kTaps; ++t) acc = __fmaf_rn(x[t], w_s[t * C + co], acc);
-      store(o + (size_t)co * plane, silu(acc + b_s[co]));
+      store(o + (size_t)co * plane, finish<T>(acc, b_s[co]));
     }
   }
 }

@@ -2,8 +2,8 @@
 
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
-went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``
-and ``kernels/stem.py``; the sources in ``csrc/``.
+went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
+``kernels/stem.py`` and ``kernels/act.py``; the sources in ``csrc/``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ LAUNCHES: Dict[str, int] = {
     "roi_crop_pyramid": 0,
     "roi_crop_pyramid_bf16": 0,
     "stem": 0,
+    "silu_bf16": 0,
+    "sigmoid_bf16": 0,
 }
 
 

@@ -6,6 +6,13 @@ Mirrors the JAX package's ``models/efficientnet.py``: conv-BN-SiLU units
 squeeze-excite ``se.fc1``/``se.fc2``, ``pw_linear``), a 1x1 ``head_conv``
 to 1280, a global mean, dropout (the identity at inference) and a float32
 ``fc``.
+
+In bf16 it rounds as the JAX program: SiLU and the squeeze-excite sigmoid
+at each step (``ops/act.py``), and a deploy-form conv's bias added after
+its output is rounded (``ConvBN(bias_apart=True)``, as flax's biased bf16
+conv): against JAX's own bf16 drift its cls scores went from 1.02x to
+0.79x, its probabilities from 0.81x to 0.54x (``python -m
+tests.torch_bf16_layers --pairs``; ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -13,10 +20,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+from litepi_tpu_torch.ops.act import sigmoid, silu
 
 
 class SqueezeExcite(nn.Module):
@@ -29,8 +36,8 @@ class SqueezeExcite(nn.Module):
         self.fc2 = nn.Conv2d(squeeze, c, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.fc2(F.silu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
-        return x * torch.sigmoid(s)
+        s = self.fc2(silu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
+        return x * sigmoid(s)
 
 
 class MBConv(nn.Module):
@@ -46,15 +53,17 @@ class MBConv(nn.Module):
         super().__init__()
         hidden = c_in * expand
         self.pw = (
-            ConvBN(c_in, hidden, 1, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+            ConvBN(c_in, hidden, 1, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+                   bias_apart=True)
             if expand != 1 else None
         )
         self.dw = ConvBN(
             hidden, hidden, kernel, stride, hidden, act="silu", fused=fused,
-            bn_eps=CLASSIFIER_BN_EPS,
+            bn_eps=CLASSIFIER_BN_EPS, bias_apart=True,
         )
         self.se = SqueezeExcite(hidden, max(1, c_in // 4))
-        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+                                bias_apart=True)
         self.residual = stride == 1 and c_in == c_out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,7 +90,8 @@ class EfficientNetB0(nn.Module):
 
     def __init__(self, num_classes: int, fused: bool = False) -> None:
         super().__init__()
-        self.stem = ConvBN(3, 32, 3, 2, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.stem = ConvBN(3, 32, 3, 2, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+                           bias_apart=True)
         c_in, self.n_blocks = 32, 0
         for t, c, n, s, k in _B0_SETTINGS:
             for i in range(n):
@@ -89,7 +99,8 @@ class EfficientNetB0(nn.Module):
                 setattr(self, f"block{self.n_blocks}", block)
                 self.n_blocks += 1
                 c_in = c
-        self.head_conv = ConvBN(c_in, 1280, 1, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.head_conv = ConvBN(c_in, 1280, 1, act="silu", fused=fused,
+                                bn_eps=CLASSIFIER_BN_EPS, bias_apart=True)
         self.fc = nn.Linear(1280, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

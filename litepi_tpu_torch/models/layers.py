@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from litepi_tpu_torch.ops.act import silu
+
 
 # all four reference classifiers use torchvision's BatchNorm2d epsilon
 CLASSIFIER_BN_EPS = 1e-5
@@ -29,7 +31,7 @@ _ACTS = {
     None: _identity,
     "relu": F.relu,
     "relu6": F.relu6,
-    "silu": F.silu,
+    "silu": silu,  # in bf16 rounded at each step, as the JAX program
 }
 
 
@@ -51,11 +53,13 @@ class ConvBN(nn.Module):
     ``"relu"``, ``"relu6"`` or None).  ``fused=True`` is the deploy form: a
     biased conv with BN folded in (``weights/fold_bn.py``); with
     ``bias_apart`` its bf16 bias add rounds apart (:func:`conv_bias_apart`),
-    which only ResNet18 sets: against JAX's bf16 drift it takes ResNet18's
-    probabilities from 1.76x to 0.35x, leaves the default pair's outputs
-    as they are, and takes MobileNetV2's and EfficientNet-B0's cls scores
-    from 1.12x / 1.02x to 2.16x / 1.94x (``python -m
+    which ResNet18 and EfficientNet-B0 set: against JAX's bf16 drift it
+    takes ResNet18's probabilities from 1.76x to 0.35x and, with SiLU
+    rounded at each step, EfficientNet-B0's cls scores from 1.94x to 0.79x;
+    it leaves the default pair's outputs as they are and takes
+    MobileNetV2's cls scores from 1.12x to 2.16x (``python -m
     tests.torch_bf16_layers --pairs``; ROADMAP section 3).
+    ``act="silu"`` rounds at each step in bf16 (``ops/act.py``).
     ``padding`` -1 pads by ``kernel // 2``; 0 or more pads by that much
     (YOLOv5's 6x6/2 stem pads by 2)."""
 

@@ -17,11 +17,13 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import make_divisible, scale_depth
 from litepi_tpu_torch.models.layers import SPPF, ConvBN, flatten_anchors, upsample2x_nearest
+from litepi_tpu_torch.ops.act import sigmoid, silu
 from litepi_tpu_torch.ops.dfl import topk_stable
 
 # COCO-default v5 anchor priors, per level P3/P4/P5, in input pixels
@@ -115,6 +117,16 @@ class YoloV5(nn.Module):
         else:
             for i, f in enumerate(feats):
                 setattr(self, f"head{i}", nn.Conv2d(f, 3 * (5 + num_classes), 1))
+        if anchor_free:
+            # The u-variant keeps torch's one-rounding bf16 SiLU.  Rounded at
+            # each step as the JAX program (every other detector), its one
+            # valid detection in tests/test_torch_bf16_zoo_parity.py lands
+            # one bf16 ulp of logit from JAX's, 59.9x that test's bound (JAX's
+            # drift at that one slot, 1/64 ulp); the differences are conv-
+            # order noise carried through the net (ROADMAP section 3).
+            for m in self.modules():
+                if isinstance(m, ConvBN) and m.act is silu:
+                    m.act = F.silu
 
     def _features(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.c3_1(self.down1(self.stem(x)))
@@ -179,7 +191,7 @@ def _v5_boxes(p, grid_xy, strides, anchor_wh) -> torch.Tensor:
 def decode_v5(pred, grid_xy, strides, anchor_wh):
     """Every prediction (B, A, 5 + nc) -> (boxes (B, A, 4) xyxy pixels,
     scores = objectness x class probability maxima, class ids int32)."""
-    p = torch.sigmoid(pred)
+    p = sigmoid(pred)  # in bf16 rounded at each step, as jax.nn.sigmoid
     cls_prob = p[..., 5:] * p[..., 4:5]
     boxes = _v5_boxes(p, grid_xy, strides, anchor_wh)
     return boxes, cls_prob.amax(-1), cls_prob.argmax(-1).to(torch.int32)

@@ -23,7 +23,27 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from litepi_tpu_torch.ops.act import silu_bf16_plain
+
 ROW_MULTIPLE = 80  # pallas_stem: two 40-row output chunks
+
+
+def _taps_in_order(frames: torch.Tensor, kernel_hwio: torch.Tensor) -> torch.Tensor:
+    """The 3x3/2 convolution (B, C, H/2, W/2) float32 as the stem kernel
+    sums it: the 27 taps t = (dy * 3 + dx) * 3 + ci in order onto 0, each
+    a fused multiply-add (the product and sum exact in float64, rounded to
+    float32 once per tap)."""
+    b, h, w, _ = frames.shape
+    xp = F.pad(frames.permute(0, 3, 1, 2).double(), (1, 1, 1, 1))
+    k = kernel_hwio.double()
+    acc = torch.zeros((b, k.shape[-1], h // 2, w // 2), dtype=torch.float32,
+                      device=frames.device)
+    for dy in range(3):
+        for dx in range(3):
+            for ci in range(3):
+                x = xp[:, ci, dy : dy + h : 2, dx : dx + w : 2]
+                acc = (acc.double() + x[:, None] * k[dy, dx, ci][None, :, None, None]).float()
+    return acc
 
 
 def stem_plain(
@@ -32,9 +52,19 @@ def stem_plain(
     bias: torch.Tensor,
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Plain version of the stem kernel, on any device: ``F.conv2d`` on the
-    float32 frames, then the bias and ``F.silu``, then one cast.  Same
-    arguments and result as :func:`fused_stem`."""
+    """Plain version of the stem kernel, on any device.  Same arguments and
+    result as :func:`fused_stem`.
+
+    float32 out: ``F.conv2d`` on the float32 frames, then the bias and
+    ``F.silu``.  bf16 out, as the JAX bf16 program rounds its stem (a
+    biased bf16 conv, then flax's SiLU in five bf16 steps): the conv summed
+    as the kernel sums it, rounded to bf16; plus the bias, rounded; then
+    :func:`~litepi_tpu_torch.ops.act.silu_bf16_plain`.  Bit-equal to the
+    kernel in bf16."""
+    if out_dtype == torch.bfloat16:
+        y = _taps_in_order(frames, kernel_hwio).bfloat16()
+        y = (y.float() + bias.float()[:, None, None]).bfloat16()
+        return silu_bf16_plain(y).contiguous().permute(0, 2, 3, 1)
     x = frames.permute(0, 3, 1, 2).float()
     y = F.conv2d(x, kernel_hwio.float().permute(3, 2, 0, 1), stride=2, padding=1)
     y = F.silu(y + bias.float()[:, None, None])

@@ -14,9 +14,11 @@ import torch
 
 from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
+from litepi_tpu_torch.kernels.act import act_bf16_cuda
 from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
+from litepi_tpu_torch.ops import act
 from litepi_tpu_torch.ops.nms import suppress, suppress_sorted
 from litepi_tpu_torch.ops.roi import (
     EXACT_EXTENT,
@@ -519,8 +521,8 @@ def test_stem_kernel_matches_plain(cuda, monkeypatch, b, c, dtype):
     assert got.permute(0, 3, 1, 2).is_contiguous()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-    else:
-        assert _within_bf16_ulp(got, want)
+    else:  # each step rounds as the plain version's: bit-equal
+        assert torch.equal(got, want)
     # the plain version on the card agrees with the plain version on the CPU
     # as closely (their float32 sums round differently, too)
     cpu = stem_plain(frames.cpu(), kernel.cpu(), bias.cpu(), dtype)
@@ -596,3 +598,46 @@ def test_stem_kernel_rejects_wrong_inputs_on_the_card(cuda):
                   torch.float32)
     with pytest.raises(ValueError, match="not supported"):
         fused_stem(frames[:, :40], weight.reshape(3, 3, 3, 16), bias)
+
+
+# ---- the bf16 SiLU / sigmoid kernel ------------------------------------
+
+
+def test_act_wrapper_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        act_bf16_cuda(torch.zeros(8, dtype=torch.bfloat16), True)
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        act_bf16_cuda(torch.zeros(8), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("case", ["contiguous", "channels_last", "odd", "unaligned", "strided"])
+def test_act_kernel_bit_equal_to_plain(cuda, silu, case):
+    """Each of the five (four) steps rounds as the plain version's: the
+    kernel equals it on every element, on the vector path, the scalar tail
+    (1001 values), an unaligned view and a strided one; the result keeps
+    the input's shape and dense layout."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn((4, 32, 40, 40), generator=gen, device=cuda) * 4).bfloat16()
+    if case == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif case == "odd":
+        x = x.reshape(-1)[:1001]
+    elif case == "unaligned":
+        x = x.reshape(-1)[1:4097]
+    elif case == "strided":
+        x = x[:, ::2]
+    before = LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"]
+    got = (act.silu if silu else act.sigmoid)(x)
+    assert LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] == before + 1
+    want = (act.silu_bf16_plain if silu else act.sigmoid_bf16_plain)(x)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    if case == "channels_last":
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    # float32 takes torch's own op and launches nothing
+    assert torch.equal((act.silu if silu else act.sigmoid)(x.float()),
+                       torch.nn.functional.silu(x.float()) if silu else torch.sigmoid(x.float()))
+    assert LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] == before + 1

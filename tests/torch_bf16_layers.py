@@ -1,6 +1,6 @@
 """Layer-by-layer bf16 comparison of the zoo's nets, port against JAX.
 
-For a net of the zoo (YOLOv11n, the anchor-based YOLOv5n, ResNet18), the
+For a net of the zoo (YOLOv11n, YOLOv5n in both heads, ResNet18), the
 same variables and the same bf16-exact input go through the JAX model in
 float32 and in bfloat16 (flax ``capture_intermediates``) and through the
 port's model in bfloat16 as its pipeline places it (forward hooks).  For
@@ -14,16 +14,18 @@ every module output both sides have, in the port's execution order:
 drift.  :func:`op_checks` feeds single ops one identical bf16 input on
 both sides, to name the op that rounds otherwise.  Run::
 
-    JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers [yolov11n yolov5n_legacy resnet18]
+    JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers [yolov11n yolov5n yolov5n_legacy resnet18]
     JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers --pairs
 
 The first prints the first rows of each table, the first module outside
 and the op checks; the second the ratios of the port's difference to its
 bound for each zoo pair and for the default pair (yolo_plus + ShuffleNetV2,
-tests/test_torch_bf16_parity.py), as the port rounds and in two trials: a
-SiLU rounded each step (:func:`silu_each_step`), and every fused bf16
-``ConvBN`` adding its bias apart (``layers.py::conv_bias_apart``; the port
-does so in ResNet18 only).
+tests/test_torch_bf16_parity.py), as the port rounds and in two trials:
+every bf16 SiLU and sigmoid rounded once, as torch's ``F.silu`` and
+``torch.sigmoid`` round (the port rounds each step, ``ops/act.py``), and
+every fused bf16 ``ConvBN`` adding its bias apart
+(``layers.py::conv_bias_apart``; the port does so in ResNet18 and
+EfficientNet-B0 only).
 The weights and inputs are tests/test_torch_bf16_zoo_parity.py's.
 """
 
@@ -44,14 +46,14 @@ from litepi_tpu.models.yolov11 import YoloV11 as JaxYoloV11
 from litepi_tpu.weights.fold_bn import fold_pipeline_vars
 from tests.torch_port_helpers import peaked_frames, perturb_batchnorm
 
-NETS = ("yolov11n", "yolov5n_legacy", "resnet18")
+NETS = ("yolov11n", "yolov5n", "yolov5n_legacy", "resnet18")
 
 
 def _jax_model(net, dtype, fused=False):
     if net == "yolov11n":
         return JaxYoloV11(num_classes=1, dtype=dtype)
-    if net == "yolov5n_legacy":
-        return JaxYoloV5(dtype=dtype)
+    if net in ("yolov5n", "yolov5n_legacy"):
+        return JaxYoloV5(anchor_free=net == "yolov5n", dtype=dtype)
     return jax_build_classifier(net, 10, dtype=dtype, fused=fused)
 
 
@@ -80,7 +82,7 @@ def setup(net):
                                          float32=("fc",))
         x = np.random.default_rng(4).uniform(0, 1, (8, 64, 64, 3)).astype(np.float32)
         return fold_pipeline_vars(clf, eps=CLASSIFIER_BN_EPS), module, (x - 0.18) / 0.34
-    seed = {"yolov11n": 1, "yolov5n_legacy": 4}[net]
+    seed = {"yolov11n": 1, "yolov5n": 3, "yolov5n_legacy": 4}[net]
     det = perturb_batchnorm(fast_init(_jax_model(net, jnp.float32), seed=seed), seed=seed + 1)
     cfg = PipelineConfig(detector=YOLOV8N, det_input_size=160)
     model = detector_kwargs(net, cfg, "cpu")["det_model"]
@@ -152,23 +154,27 @@ def layer_table(net):
 
 
 def op_checks(n=1 << 16):
-    """Share of elements where one op differs from its flax bf16 result on
-    the same bf16 input: SiLU (torch's ``F.silu`` rounds once; XLA on the
-    CPU rounds its negate, exp, add, divide and multiply each to bf16) and a
-    biased conv (cuDNN / oneDNN round once; flax rounds the conv's output,
-    then the bias add)."""
+    """Share of elements where one op differs from its jitted flax / JAX
+    bf16 result on the same bf16 input: SiLU and sigmoid (torch's
+    ``F.silu`` and ``torch.sigmoid`` round once; JAX's StableHLO rounds the
+    negate, exp, add, divide and, for SiLU, multiply each to bf16, as the
+    port's ``ops/act.py`` does) and a biased conv (cuDNN / oneDNN round
+    once; flax rounds the conv's output, then the bias add)."""
     import flax.linen as fnn
     import torch.nn.functional as F
 
     from litepi_tpu_torch.models.layers import conv_bias_apart
+    from litepi_tpu_torch.ops.act import sigmoid, silu
 
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.normal(0, 3, n).astype(np.float32)).astype(jnp.bfloat16)
-    want = np.asarray(fnn.silu(x).astype(jnp.float32))
     t = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
-    out = {"silu: F.silu": F.silu(t),
-           "silu: each step rounded": t * (1 / (1 + torch.exp(-t)))}
-    shares = {k: float((v.float().numpy() != want).mean()) for k, v in out.items()}
+    shares = {}
+    for name, jax_fn, once, port in (("silu", fnn.silu, F.silu, silu),
+                                     ("sigmoid", jax.nn.sigmoid, torch.sigmoid, sigmoid)):
+        want = np.asarray(jax.jit(jax_fn)(x).astype(jnp.float32))
+        for how, fn in (("one rounding", once), ("each step rounded", port)):
+            shares[f"{name}: {how}"] = float((fn(t).float().numpy() != want).mean())
     conv = fnn.Conv(32, (3, 3), padding=((1, 1), (1, 1)), use_bias=True, dtype=jnp.bfloat16)
     xi = rng.normal(0, 1, (2, 16, 16, 16)).astype(np.float32)
     v = conv.init(jax.random.key(0), xi)
@@ -190,15 +196,6 @@ def first_outside(rows):
     return next((r for r in rows if r[1] > r[2]), None)
 
 
-def silu_each_step(x: torch.Tensor) -> torch.Tensor:
-    """SiLU with each step rounded to bf16 as XLA lowers flax's bf16 SiLU
-    on the CPU (negate, exp, add, divide, multiply); torch's ``F.silu``
-    rounds once."""
-    if x.dtype != torch.bfloat16:
-        return torch.nn.functional.silu(x)
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _bias_apart_forward(self, x):
     """``ConvBN.forward`` with a fused conv's bf16 bias added apart."""
     from litepi_tpu_torch.models.layers import conv_bias_apart
@@ -209,7 +206,16 @@ def _bias_apart_forward(self, x):
     return self.act(x)
 
 
-TRIALS = (None, "silu each step", "bias apart everywhere")
+TRIALS = (None, "silu and sigmoid rounded once", "bias apart everywhere")
+
+
+def _round_once(act):
+    """``act`` (``ops/act.py``'s ``silu`` or ``sigmoid``) rounding once in
+    bf16, as torch's own op: the port before it rounded each step."""
+    from litepi_tpu_torch.ops import act as ops_act
+
+    once = {ops_act.silu: torch.nn.functional.silu, ops_act.sigmoid: torch.sigmoid}[act]
+    return lambda x: once(x) if x.dtype == torch.bfloat16 else act(x)
 
 
 def _default_pair_outputs():
@@ -243,19 +249,24 @@ def pair_ratios(pair, trial=None):
     default pair (``pair="default"``: ``{scene/output: ratio}``), with the
     port rounding as ``trial`` (one of TRIALS) says: a trial of that
     rounding, not the port's."""
+    import litepi_tpu_torch.models.efficientnet as efficientnet
     import litepi_tpu_torch.models.layers as layers
+    import litepi_tpu_torch.models.yolov5 as yolov5
     from tests.test_torch_bf16_parity import FLOOR, compare
     from tests.test_torch_bf16_zoo_parity import run_pair
 
-    saved = layers._ACTS["silu"], layers.ConvBN.forward
-    if trial == "silu each step":
-        layers._ACTS["silu"] = silu_each_step
+    saved = (layers._ACTS["silu"], layers.ConvBN.forward, efficientnet.silu,
+             efficientnet.sigmoid, yolov5.sigmoid)
+    if trial == "silu and sigmoid rounded once":
+        layers._ACTS["silu"] = efficientnet.silu = _round_once(efficientnet.silu)
+        efficientnet.sigmoid = yolov5.sigmoid = _round_once(efficientnet.sigmoid)
     elif trial == "bias apart everywhere":
         layers.ConvBN.forward = _bias_apart_forward
     try:
         runs = _default_pair_outputs() if pair == "default" else {"": run_pair(pair)}
     finally:
-        layers._ACTS["silu"], layers.ConvBN.forward = saved
+        (layers._ACTS["silu"], layers.ConvBN.forward, efficientnet.silu,
+         efficientnet.sigmoid, yolov5.sigmoid) = saved
     ratios = {}
     for name, (got, want, ref32) in runs.items():
         if name == "classify":
