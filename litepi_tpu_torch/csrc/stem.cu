@@ -19,10 +19,15 @@
 // ulps), rounded once.  bfloat16 out, as the JAX bf16 program rounds its
 // stem (a biased bf16 conv, then flax's SiLU, whose five steps JAX writes
 // into its StableHLO as bf16 ops): the 27 multiply-adds onto 0, rounded
-// to bf16; plus the bias, rounded; then negate, expf, add 1, IEEE divide
-// and multiply, each rounded to bf16 (silu_bf16_steps).  Every step then
-// rounds as the plain version's (its float32 taps sum in the same order
-// with each product exact), so the two are bit-equal.
+// to bf16; plus the bias, rounded; then SiLU's negate, exp, add 1, divide
+// and multiply, each rounded to bf16.  That SiLU is a function of one bf16
+// value, so it is read from silu_table: its 65,536 values, indexed by the
+// bf16 bit pattern, made once per device by csrc/act.cu's kernel
+// (kernels/stem.py::silu_table), which equals the plain version's five
+// torch passes bit for bit.  The conv sum rounds as the plain version's
+// (its float32 taps sum in the same order, each product exact), so the two
+// are bit-equal.  Computing the five steps here (expf, the IEEE divide and
+// four roundings) took the serving stem from 0.338 to 0.638 ms.
 //
 // What bounds it on the H100: bytes and operations about equally.  At the
 // serving size (B=128, 640x640, C=16, bf16 out) it reads 157 MB of uint8
@@ -54,8 +59,8 @@
 //   (kernels/stem.py::pack_stem_params).
 // - In float32 out SiLU is 5 instructions (multiply, exp2, add,
 //   reciprocal, multiply); __expf and __fdividef without fast math add
-//   subnormal range fixes that take several times that.  In bf16 out
-//   the steps round as the JAX program's, with expf and the IEEE divide.
+//   subnormal range fixes that take several times that.  In bf16 out it is
+//   one read of the 128 KB table, which stays in L1 / L2.
 // - For each channel a warp stores 64 contiguous outputs as bf16x2 (128
 //   bytes) or float2 pairs, into the NCHW plane; odd output widths store
 //   one value at a time.
@@ -89,17 +94,26 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// bf16 out: conv sum rounded, the bias added and rounded, then SiLU's five
-// steps each rounded (the last by the store), as ops/act.py's plain SiLU
-__device__ __forceinline__ float silu_bf16_steps(float conv, float bias) {
-  const float y = round_bf16(round_bf16(conv) + bias);
-  const float e = round_bf16(expf(-y));
-  const float a = round_bf16(1.0f + e);
-  return y * round_bf16(1.0f / a);
+// bf16 out: the conv sum rounded, the bias added and rounded, then SiLU's
+// five bf16 steps, read from the table by the bit pattern
+__device__ __forceinline__ unsigned short silu_bf16_bits(
+    float conv, float bias, const unsigned short* __restrict__ silu_table) {
+  const __nv_bfloat16 y = __float2bfloat16_rn(round_bf16(conv) + bias);
+  return __ldg(silu_table + __bfloat16_as_ushort(y));
 }
 
 template <typename T>
 constexpr bool kBf16Out = sizeof(T) == 2;
+
+// one output value from its conv sum (the bias not in it)
+__device__ __forceinline__ void finish(float* p, float conv, float bias,
+                                       const unsigned short*) {
+  *p = silu(conv + bias);
+}
+__device__ __forceinline__ void finish(__nv_bfloat16* p, float conv, float bias,
+                                       const unsigned short* __restrict__ silu_table) {
+  *reinterpret_cast<unsigned short*>(p) = silu_bf16_bits(conv, bias, silu_table);
+}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
@@ -144,7 +158,7 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 template <int C, typename T>
 __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
     const uint8_t* __restrict__ frames, T* __restrict__ out, int H, int W, int vec_in,
-    const __grid_constant__ StemParams<C> p) {
+    const unsigned short* __restrict__ silu_table, const __grid_constant__ StemParams<C> p) {
   // Staged row r holds input row 2 * oy0 - 1 + r; its byte k is byte
   // 6 * ox0 - 16 + k of that image row, so input column ix sits at byte
   // (ix - 2 * ox0) * 3 + 16, and the 16 bytes before column 2 * ox0 begin
@@ -220,14 +234,25 @@ __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
   const bool pair = OW % 2 == 0, second = ox + 1 < OW;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float a = kBf16Out<T> ? silu_bf16_steps(acc[0][c], p.b[c]) : silu(acc[0][c]);
-    const float b = kBf16Out<T> ? silu_bf16_steps(acc[1][c], p.b[c]) : silu(acc[1][c]);
     T* oc = o + (size_t)c * plane;
-    if (pair) {
-      store_pair(oc, a, b);
+    if constexpr (kBf16Out<T>) {
+      const unsigned a = silu_bf16_bits(acc[0][c], p.b[c], silu_table);
+      const unsigned b = silu_bf16_bits(acc[1][c], p.b[c], silu_table);
+      unsigned short* ob = reinterpret_cast<unsigned short*>(oc);
+      if (pair) {
+        *reinterpret_cast<unsigned*>(ob) = a | (b << 16);
+      } else {
+        ob[0] = (unsigned short)a;
+        if (second) ob[1] = (unsigned short)b;
+      }
     } else {
-      store(oc, a);
-      if (second) store(oc + 1, b);
+      const float a = silu(acc[0][c]), b = silu(acc[1][c]);
+      if (pair) {
+        store_pair(oc, a, b);
+      } else {
+        store(oc, a);
+        if (second) store(oc + 1, b);
+      }
     }
   }
 }
@@ -236,10 +261,6 @@ __global__ void __launch_bounds__(kTiledThreads) stem_tiled_kernel(
 // other channel counts: one thread per output pixel
 // ------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ float finish(float conv, float bias) {
-  return kBf16Out<T> ? silu_bf16_steps(conv, bias) : silu(conv + bias);
-}
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 256;  // 28 * 256 floats = 28 KB of shared memory
@@ -249,8 +270,8 @@ constexpr int kChunk = 16;  // channels per pass of register accumulators
 template <typename T>
 __global__ void __launch_bounds__(kThreads) stem_generic_kernel(
     const uint8_t* __restrict__ frames, const float* __restrict__ weight,
-    const float* __restrict__ bias, T* __restrict__ out, int H, int W, int C,
-    size_t total) {
+    const float* __restrict__ bias, const unsigned short* __restrict__ silu_table,
+    T* __restrict__ out, int H, int W, int C, size_t total) {
   extern __shared__ float4 smem4[];  // weight (27, C), then bias (C)
   float* smem = reinterpret_cast<float*>(smem4);
   for (int i = threadIdx.x; i < (kTaps + 1) * C; i += blockDim.x)
@@ -304,34 +325,37 @@ __global__ void __launch_bounds__(kThreads) stem_generic_kernel(
       }
 #pragma unroll
       for (int j = 0; j < kChunk; ++j)
-        store(o + (size_t)(c0 + j) * plane, finish<T>(acc[j], b_s[c0 + j]));
+        finish(o + (size_t)(c0 + j) * plane, acc[j], b_s[c0 + j], silu_table);
     }
     for (int co = c_chunked; co < C; ++co) {
       float acc = 0.f;
 #pragma unroll
       for (int t = 0; t < kTaps; ++t) acc = __fmaf_rn(x[t], w_s[t * C + co], acc);
-      store(o + (size_t)co * plane, finish<T>(acc, b_s[co]));
+      finish(o + (size_t)co * plane, acc, b_s[co], silu_table);
     }
   }
 }
 
 template <int C, typename T>
-cudaError_t launch_tiled(const uint8_t* frames, const float* params, T* out, int B, int H,
-                         int W, cudaStream_t s) {
+cudaError_t launch_tiled(const uint8_t* frames, const float* params,
+                         const unsigned short* silu_table, T* out, int B, int H, int W,
+                         cudaStream_t s) {
   StemParams<C> p;
   memcpy(&p, params, sizeof p);
   const int OH = H / 2, OW = W / 2;
   const dim3 grid((OW + kTileW - 1) / kTileW, (OH + kTileH - 1) / kTileH, B);
   const int vec_in = W % 16 == 0 && reinterpret_cast<uintptr_t>(frames) % 16 == 0;
-  stem_tiled_kernel<C, T><<<grid, kTiledThreads, 0, s>>>(frames, out, H, W, vec_in, p);
+  stem_tiled_kernel<C, T><<<grid, kTiledThreads, 0, s>>>(frames, out, H, W, vec_in,
+                                                         silu_table, p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const uint8_t* frames, const float* weight, const float* bias,
-                   const float* params, T* out, int B, int H, int W, int C, cudaStream_t s) {
-  if (C == 16) return launch_tiled<16, T>(frames, params, out, B, H, W, s);
-  if (C == 32) return launch_tiled<32, T>(frames, params, out, B, H, W, s);
+                   const float* params, const unsigned short* silu_table, T* out, int B,
+                   int H, int W, int C, cudaStream_t s) {
+  if (C == 16) return launch_tiled<16, T>(frames, params, silu_table, out, B, H, W, s);
+  if (C == 32) return launch_tiled<32, T>(frames, params, silu_table, out, B, H, W, s);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -342,8 +366,8 @@ cudaError_t launch(const uint8_t* frames, const float* weight, const float* bias
   const unsigned blocks =
       (unsigned)(want < (size_t)sms * kBlocksPerSM ? want : (size_t)sms * kBlocksPerSM);
   const size_t shmem = (size_t)(kTaps + 1) * C * sizeof(float);
-  stem_generic_kernel<T><<<blocks, kThreads, shmem, s>>>(frames, weight, bias, out, H, W, C,
-                                                         total);
+  stem_generic_kernel<T><<<blocks, kThreads, shmem, s>>>(frames, weight, bias, silu_table,
+                                                         out, H, W, C, total);
   return cudaGetLastError();
 }
 
@@ -351,19 +375,23 @@ cudaError_t launch(const uint8_t* frames, const float* weight, const float* bias
 
 // params: host float32 (28, C), the weight rows then the bias row; read
 // for C = 16 and 32 (copied into the launch), may be null otherwise.
+// silu_table: device, 65,536 bf16 values (bf16 SiLU of each bit pattern);
+// read for bf16 out, may be null for float32 out.
 extern "C" int litepi_stem(const void* frames, const void* weight, const void* bias,
-                           const void* params, void* out, int B, int H, int W, int C,
-                           int out_bf16, void* stream) {
+                           const void* params, const void* silu_table, void* out, int B,
+                           int H, int W, int C, int out_bf16, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 2 || W % 2 || C <= 0 ||
       C > kMaxChannels)
     return cudaErrorInvalidValue;
   if ((C == 16 || C == 32) && params == nullptr) return cudaErrorInvalidValue;
+  if (out_bf16 && silu_table == nullptr) return cudaErrorInvalidValue;
+  const unsigned short* table = static_cast<const unsigned short*>(silu_table);
   const uint8_t* f = static_cast<const uint8_t*>(frames);
   const float* w = static_cast<const float*>(weight);
   const float* bi = static_cast<const float*>(bias);
   const float* pr = static_cast<const float*>(params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return launch(f, w, bi, pr, static_cast<__nv_bfloat16*>(out), B, H, W, C, s);
-  return launch(f, w, bi, pr, static_cast<float*>(out), B, H, W, C, s);
+    return launch(f, w, bi, pr, table, static_cast<__nv_bfloat16*>(out), B, H, W, C, s);
+  return launch(f, w, bi, pr, table, static_cast<float*>(out), B, H, W, C, s);
 }

@@ -7,28 +7,35 @@ For C = 16 and 32 the kernel takes its weights and bias by value, as a
 kernel parameter, so they must be on the host at launch:
 :func:`pack_stem_params` packs them once (``TwoStagePipeline`` does it when
 it folds its stem), and :func:`stem_cuda` takes the packed tensor.
+
+In bf16 out the kernel reads SiLU (its five bf16 steps, as the JAX program
+rounds them) from :func:`silu_table`, made once per device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from litepi_tpu_torch.kernels import LAUNCHES
+from litepi_tpu_torch.kernels.act import act_bf16_cuda
 from litepi_tpu_torch.kernels.build import check, load
 
 MAX_CHANNELS = 256  # csrc/stem.cu kMaxChannels (generic path: weights in shared memory)
 PARAM_CHANNELS = (16, 32)  # csrc/stem.cu stem_tiled_kernel: weights as kernel parameters
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
+# device -> the bf16 SiLU table; a constant, made at first use
+_SILU_TABLES: Dict[torch.device, torch.Tensor] = {}
+
 
 def _lib() -> ctypes.CDLL:
     lib = load("stem")
     fn = lib.litepi_stem
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -46,6 +53,19 @@ def pack_stem_params(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     w = weight.detach().to("cpu", torch.float32)
     b = bias.detach().to("cpu", torch.float32)
     return torch.cat([w, b[None]]).contiguous()
+
+
+def silu_table(device: torch.device) -> torch.Tensor:
+    """The bf16 SiLU of every bf16 value, each of its five steps rounded
+    (``ops/act.py``), indexed by the value's 16-bit pattern: 65,536 values
+    made on ``device`` by the activation kernel (one launch, counted), once.
+    The bf16 stem's epilogue reads it."""
+    table = _SILU_TABLES.get(device)
+    if table is None:
+        bits = torch.arange(1 << 16, dtype=torch.int32, device=device).to(torch.int16)
+        table = act_bf16_cuda(bits.view(torch.bfloat16), silu=True)
+        _SILU_TABLES[device] = table
+    return table
 
 
 def stem_cuda(
@@ -108,11 +128,13 @@ def stem_cuda(
     out = torch.empty((b, c, h // 2, w // 2), dtype=out_dtype, device=dev)
     if b == 0 or h == 0 or w == 0:
         return out
+    table = silu_table(dev) if out_dtype == torch.bfloat16 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = _lib().litepi_stem(
             frames.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            0 if params is None else params.data_ptr(), out.data_ptr(),
+            0 if params is None else params.data_ptr(),
+            0 if table is None else table.data_ptr(), out.data_ptr(),
             b, h, w, c, int(out_dtype == torch.bfloat16), stream,
         )
     check(status, "stem launch")

@@ -90,3 +90,15 @@ def test_silu_rounding_by_detector():
     assert acts(YoloV11()) == {act.silu}
     assert acts(YoloV5()) == {act.silu}
     assert acts(YoloV5(anchor_free=True)) == {F.silu}
+
+
+def test_bf16_reciprocal_rounds_alike_within_one_float32_ulp():
+    """csrc/act.cu takes 1 / a from the hardware reciprocal (at most one
+    float32 ulp off): for every bf16 value a >= 1, each float32 within one
+    ulp of the IEEE quotient rounds to the same bf16 value."""
+    a = torch.arange(0x3F80, 0x7F80, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    q = (1.0 / a.double()).float()
+    want = q.bfloat16()
+    for toward in (float("inf"), float("-inf")):
+        near = torch.nextafter(q, torch.full_like(q, toward))
+        assert torch.equal(near.bfloat16(), want)
