@@ -152,6 +152,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from litepi_tpu_torch.apps import convert as convert_cli
 from litepi_tpu_torch.apps import e2e as e2e_cli
 from litepi_tpu_torch.core.types import (
     YOLO_PLUS_V2,
@@ -191,6 +192,10 @@ from litepi_tpu_torch.tools.stage_split import (
     kernel_device_ms,
     kernel_device_times,
 )
+from litepi_tpu_torch.weights import ncnn_import, onnx_import, openvino_import
+from litepi_tpu_torch.weights.export import export_classifier, export_detector, load_program
+from litepi_tpu_torch.weights.graph_ops import float32_exact
+from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 from litepi_tpu_torch.weights.onnx_import import defuse_state_dict
 from litepi_tpu_torch.weights.seeded import seeded_state
 from litepi_tpu_torch.weights.torch_import import (
@@ -290,6 +295,13 @@ EVAL_FULL_FRAMES, EVAL_FULL_SIZE = 32, 2048
 E2E_CLI_SMALL_FRAMES = ((200, 320), (240, 320), (320, 200))
 E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE = 32, 2048
 ARTIFACT_TOL = 1e-4
+CLI_METRICS = ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95")
+# the convert phase: emitted graphs through their interpreters on the card
+# vs the CPU and vs the port's model plus decode (float32, TF32 off),
+# relative to each part's largest magnitude (boxes, scores, logits); the
+# e2e run over the emitted NCNN pairs against the .pt/.pth run's metric
+# row; the exported programs against eager, relative
+GRAPH_TOL, ROW_TOL, PROGRAM_TOL = 1e-4, 1e-6, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -1163,7 +1175,8 @@ def check_zoo_candidates(pipe, gen, b: int, s: int) -> dict:
         fail(f"zoo detect_candidates at eval_max_candidates={k}: scores {tuple(scores.shape)}")
     if not (bool(torch.isfinite(boxes).all()) and bool((scores[:, :-1] >= scores[:, 1:]).all())):
         fail("zoo detect_candidates: boxes not finite or scores not descending")
-    if any(counts.values()):
+    # the detector's own bf16 SiLUs run the activation kernel; nothing else
+    if any(c for key, c in counts.items() if key not in ("silu_bf16", "sigmoid_bf16")):
         fail(f"zoo detect_candidates launched kernels: {counts}")
     print(f"zoo detect_candidates b={b}: {scores.shape[1]} candidates per image, sync-free")
     return dict(batch=b, candidates_per_image=int(scores.shape[1]), launches=counts,
@@ -1559,7 +1572,7 @@ def check_cli_small(dev, art: dict, root: str) -> dict:
                 classes=len(want["per_class"]))
 
 
-def check_cli_full(dev, art: dict, img_dir: str, lbl_dir: str, root: str, extra, what: str,
+def check_cli_full(dev, weights, img_dir: str, lbl_dir: str, root: str, extra, what: str,
                    want_counts) -> dict:
     """``apps/e2e.py::main`` at its defaults (``--dataset tt100k``: yolo_plus_v2
     + ShuffleNetV2-91, 640, B=8, 512 candidates, 64 detections, every anchor
@@ -1571,8 +1584,7 @@ def check_cli_full(dev, art: dict, img_dir: str, lbl_dir: str, root: str, extra,
     (``e2e.build_pipeline`` on the same arguments;
     :func:`check_path_kernels`)."""
     out = os.path.join(root, what.replace(" ", "_"))
-    argv = ["--input", img_dir, "--labels", lbl_dir, "--detector", art["pt"],
-            "--classifier", art["pth"], "--output", out, *extra]
+    argv = ["--input", img_dir, "--labels", lbl_dir, *weights, "--output", out, *extra]
     reset_launch_counts()
     t0 = time.perf_counter()
     rc = e2e_cli.main(argv)
@@ -1584,7 +1596,7 @@ def check_cli_full(dev, art: dict, img_dir: str, lbl_dir: str, root: str, extra,
         fail(f"e2e CLI {what}: launch counts {counts}, expected at least {want_counts}")
     res = cli_outputs(out, "yolo_plus_v2+shufflenetv2", E2E_CLI_FULL_FRAMES, f"e2e CLI {what}")
     s = res["summary"]
-    for k in ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95"):
+    for k in CLI_METRICS:
         if not 0 <= float(s[k]) <= 1:
             fail(f"e2e CLI {what}: {k} = {s[k]}")
     args = e2e_cli.build_arg_parser().parse_args(argv)
@@ -1598,53 +1610,226 @@ def check_cli_full(dev, art: dict, img_dir: str, lbl_dir: str, root: str, extra,
     del ev, pipe, frames
     result = dict(args=list(extra), seconds=seconds, fused_pass_fps=float(s["fps"]),
                   launches=counts, kernel_checks=kernel_checks,
-                  row={k: float(s[k]) for k in ("mean_precision", "mean_recall", "mAP50")})
+                  row={k: float(s[k]) for k in CLI_METRICS})
     print(f"e2e CLI {what}: rc 0 in {seconds:.1f} s, fused pass "
           f"{result['fused_pass_fps']:.1f} FPS, launches {counts}")
     return result
 
 
-def e2e_cli_phase(dev) -> dict:
+def e2e_cli_phase(dev, root: str):
     """The deployed-artifact path: artifacts written on the card, the CLI
     card vs CPU, then the CLI at full width at its defaults and in bf16
     with the pyramid crop, on E2E_CLI_FULL_FRAMES frames of
-    E2E_CLI_FULL_SIZE^2 from disk."""
+    E2E_CLI_FULL_SIZE^2 from disk.  Returns (result, the files the convert
+    phase starts from: the artifacts and the full-width frames, in
+    ``root``)."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        art = write_artifacts(dev, root)
-        small = check_cli_small(dev, art, os.path.join(root, "small"))
-        img_dir, lbl_dir = os.path.join(root, "full"), os.path.join(root, "full_labels")
-        n, s = E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE
-        paths = write_jpegs(img_dir, [(s, s)] * n, torch.Generator().manual_seed(37))
-        # the host's decode of every frame once (a CLI run decodes 89 frames:
-        # warm-up 2 x 8, the fused pass 32 + 1 probe, a staged batch 8, the
-        # mAP pass 32)
-        import cv2
+    art = write_artifacts(dev, root)
+    small = check_cli_small(dev, art, os.path.join(root, "small"))
+    img_dir, lbl_dir = os.path.join(root, "full"), os.path.join(root, "full_labels")
+    n, s = E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE
+    paths = write_jpegs(img_dir, [(s, s)] * n, torch.Generator().manual_seed(37))
+    # the host's decode of every frame once (a CLI run decodes 89 frames:
+    # warm-up 2 x 8, the fused pass 32 + 1 probe, a staged batch 8, the
+    # mAP pass 32)
+    import cv2
 
-        t1 = time.perf_counter()
-        for p in paths:
-            cv2.imread(p)
-        decode_s = time.perf_counter() - t1
-        os.makedirs(lbl_dir)
-        rng = np.random.default_rng(38)
-        for p in paths:
-            xy, wh = rng.uniform(0.05, 0.8, (4, 2)), rng.uniform(0.01, 0.15, (4, 2))
-            stem = os.path.splitext(os.path.basename(p))[0]
-            with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
-                f.writelines(f"{rng.integers(0, 91)} {x + w / 2:.6f} {y + h / 2:.6f} {w:.6f} "
-                             f"{h:.6f}\n" for (x, y), (w, h) in zip(xy, wh))
-        dense = check_cli_full(dev, art, img_dir, lbl_dir, root, [], "defaults",
-                               {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
-                                "roi_crop_pyramid_bf16": 0, "stem": 0})
-        pallas = check_cli_full(dev, art, img_dir, lbl_dir, root,
-                                ["--dtype", "bfloat16", "--roi_impl", "pallas"], "bf16 pallas",
-                                {"nms_suppress": 1, "roi_crop_dense": 0, "roi_crop_pyramid": 0,
-                                 "roi_crop_pyramid_bf16": 1, "stem": 0})
+    t1 = time.perf_counter()
+    for p in paths:
+        cv2.imread(p)
+    decode_s = time.perf_counter() - t1
+    os.makedirs(lbl_dir)
+    rng = np.random.default_rng(38)
+    for p in paths:
+        xy, wh = rng.uniform(0.05, 0.8, (4, 2)), rng.uniform(0.01, 0.15, (4, 2))
+        stem = os.path.splitext(os.path.basename(p))[0]
+        with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
+            f.writelines(f"{rng.integers(0, 91)} {x + w / 2:.6f} {y + h / 2:.6f} {w:.6f} "
+                         f"{h:.6f}\n" for (x, y), (w, h) in zip(xy, wh))
+    weights = ["--detector", art["pt"], "--classifier", art["pth"]]
+    dense = check_cli_full(dev, weights, img_dir, lbl_dir, root, [], "defaults",
+                           {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
+                            "roi_crop_pyramid_bf16": 0, "stem": 0})
+    pallas = check_cli_full(dev, weights, img_dir, lbl_dir, root,
+                            ["--dtype", "bfloat16", "--roi_impl", "pallas"], "bf16 pallas",
+                            {"nms_suppress": 1, "roi_crop_dense": 0, "roi_crop_pyramid": 0,
+                             "roi_crop_pyramid_bf16": 1, "stem": 0})
     result = dict(detector_rel_err=art["detector_rel_err"], small=small, full_dense=dense,
                   full_bf16_pallas=pallas, decode_once_s=decode_s,
                   seconds=time.perf_counter() - t0)
     print(f"e2e CLI phase (artifacts, card vs CPU, two full-width runs): "
           f"{result['seconds']:.1f} s; cv2 decodes the {n} frames once in {decode_s:.2f} s")
+    return result, dict(art=art, img_dir=img_dir, lbl_dir=lbl_dir)
+
+# --------------------------------------------------------------------- #
+# the convert phase: emitted graphs, their interpreters, program export  #
+# --------------------------------------------------------------------- #
+
+CONVERT_CALLS = (  # (name, the convert CLI's argv beyond --input/--output/--device)
+    ("det_ncnn", ["--arch", "yolo_plus_v2", "--num_classes", "1", "--emit", "ncnn"]),
+    ("det_ncnn_fp16", ["--arch", "yolo_plus_v2", "--num_classes", "1", "--emit", "ncnn",
+                       "--emit_dtype", "fp16"]),
+    ("det_onnx", ["--arch", "yolo_plus_v2", "--num_classes", "1", "--emit", "onnx"]),
+    ("det_openvino", ["--arch", "yolo_plus_v2", "--num_classes", "1", "--emit", "openvino"]),
+    ("det_checkpoint", ["--arch", "yolo_plus_v2", "--num_classes", "1"]),
+    ("cls_ncnn", ["--arch", "shufflenetv2", "--num_classes", "91", "--emit", "ncnn"]),
+    ("cls_onnx", ["--arch", "shufflenetv2", "--num_classes", "91", "--emit", "onnx"]),
+    ("cls_openvino", ["--arch", "shufflenetv2", "--num_classes", "91", "--emit", "openvino"]),
+)
+
+
+def graph_rel_err(got: np.ndarray, want: np.ndarray, detector: bool) -> float:
+    """The largest difference relative to the largest magnitude of its part
+    of ``want``: a detector's box rows and its score rows apart, a
+    classifier's logits."""
+    parts = ((slice(0, 4), slice(4, None)) if detector else (slice(None),))
+    return max(float(np.abs(got[p] - want[p]).max() / max(float(np.abs(want[p]).max()), 1e-30))
+               for p in parts)
+
+
+def run_graph(kind: str, paths: dict, img: np.ndarray, device) -> np.ndarray:
+    """An emitted graph through the port's interpreter of its format on one
+    (3, S, S) image: (5, A) detector rows or (num_classes,) logits."""
+    if kind == "ncnn":
+        layers = ncnn_import.parse_ncnn_param(paths["param"])
+        ncnn_import.read_ncnn_bin(layers, paths["bin"])
+        return ncnn_import.run_ncnn_graph(layers, img, device=device)
+    if kind == "onnx":
+        nodes, inits, inputs, outputs = onnx_import.read_onnx_graph(paths["onnx"])
+        blobs = onnx_import.run_onnx_graph(nodes, inits, {inputs[0]: img[None]}, device=device)
+        return blobs[outputs[0]][0]
+    return openvino_import.run_ir_graph(paths["xml"], paths["bin"], img[None], device=device)[0]
+
+
+def graph_model(kind: str, paths: dict, detector: bool, dev):
+    """The port's model with the weights the graph holds (read back by the
+    port's importer of its format), float32 on ``dev``."""
+    if detector:
+        if kind == "ncnn":
+            variables, _ = ncnn_import.convert_detector_ncnn(paths["param"], paths["bin"])
+        elif kind == "onnx":
+            variables = onnx_import.convert_detector_onnx(paths["onnx"], YOLO_PLUS_V2.depths)
+        else:
+            variables, _ = openvino_import.convert_detector_openvino(paths["xml"], paths["bin"])
+        model = YoloLitePi(YOLO_PLUS_V2)
+    else:
+        if kind == "ncnn":
+            variables, _ = ncnn_import.convert_classifier_ncnn(paths["param"], paths["bin"])
+        elif kind == "onnx":
+            variables, _ = onnx_import.convert_classifier_onnx_fused(paths["onnx"])
+        else:
+            variables, _ = openvino_import.convert_classifier_openvino_fused(paths["xml"],
+                                                                            paths["bin"])
+        model = build_classifier("shufflenetv2", 91, fused=True)
+    model.load_state_dict(jax_to_state_dict(variables))
+    return model.eval().to(dev)
+
+
+def emitted_paths(out: str, name: str) -> dict:
+    kind = name.split("_")[1]
+    if kind == "ncnn":
+        return {"param": os.path.join(out, "model.ncnn.param"),
+                "bin": os.path.join(out, "model.ncnn.bin")}
+    if kind == "onnx":
+        return {"onnx": os.path.join(out, "model.onnx")}
+    return {"xml": os.path.join(out, "model.xml"), "bin": os.path.join(out, "model.bin")}
+
+
+def convert_phase(dev, cli: dict, files: dict, root: str) -> dict:
+    """The reverse path: the convert CLI (``apps/convert.py::main``, in this
+    process, ``--device cuda``) from the e2e CLI phase's ``.pt`` container
+    and ``.pth`` emits the detector at 640 in NCNN fp32 and fp16, ONNX and
+    OpenVINO, the ShuffleNetV2-91 classifier in all three, and writes the
+    default checkpoint, each with rc 0.  Every emitted graph runs through
+    its interpreter on the card (float32, TF32 off) and on the CPU, and the
+    two agree within GRAPH_TOL; on the card it agrees within GRAPH_TOL with
+    the port's model holding the weights the graph holds (read back by the
+    port's importer), plus the DFL decode for a detector.  Then the e2e CLI
+    at its defaults on the emitted fp32 NCNN pairs (the same weights as the
+    .pt/.pth run, folded): its metric row within ROW_TOL of the e2e phase's
+    row, K1 and K2 against their plain versions on its first batch, its
+    launches counted.  Last, ``export_classifier`` at 64 and
+    ``export_detector`` at 640 on the card: the loaded programs equal eager
+    within PROGRAM_TOL."""
+    t0 = time.perf_counter()
+    art, out = files["art"], os.path.join(root, "convert")
+    calls = {}
+    for name, argv in CONVERT_CALLS:
+        src = art["pt"] if name.startswith("det") else art["pth"]
+        dst = os.path.join(out, name)
+        t1 = time.perf_counter()
+        rc = convert_cli.main([*argv, "--input", src, "--output", dst, "--device", dev.type])
+        if rc != 0:
+            fail(f"convert {name}: rc {rc}")
+        calls[name] = dict(rc=rc, seconds=time.perf_counter() - t1)
+    if not os.path.isfile(os.path.join(out, "det_checkpoint", "variables.pt")):
+        fail("convert det_checkpoint: no checkpoint written")
+
+    graphs, helpers = {}, load_test_module("torch_graph_helpers")
+    for name, _ in CONVERT_CALLS:
+        if name == "det_checkpoint":
+            continue
+        kind, detector = name.split("_")[1], name.startswith("det")
+        paths = emitted_paths(os.path.join(out, name), name)
+        size = 640 if detector else 64
+        img = np.random.default_rng(41).uniform(0, 1, (3, size, size)).astype(np.float32)
+        card = run_graph(kind, paths, img, dev)
+        cpu = run_graph(kind, paths, img, "cpu")
+        want = helpers.port_graph_output(graph_model(kind, paths, detector, dev), img, detector)
+        errs = dict(card_vs_cpu=graph_rel_err(card, cpu, detector),
+                    card_vs_model=graph_rel_err(card, want, detector))
+        if card.shape != want.shape or not max(errs.values()) <= GRAPH_TOL:
+            fail(f"convert {name}: interpreter {card.shape} vs model {want.shape}, relative "
+                 f"errors {errs} (tolerance {GRAPH_TOL})")
+        graphs[name] = dict(shape=list(card.shape), **errs)
+        print(f"convert {name}: the emitted graph on the card == CPU and == the port's model "
+              f"(relative {errs})")
+
+    weights = ["--detector_param", os.path.join(out, "det_ncnn", "model.ncnn.param"),
+               "--detector_bin", os.path.join(out, "det_ncnn", "model.ncnn.bin"),
+               "--classifier", os.path.join(out, "cls_ncnn", "model.ncnn.param")]
+    run = check_cli_full(dev, weights, files["img_dir"], files["lbl_dir"], root, [],
+                         "emitted ncnn", {"nms_suppress": 1, "roi_crop_dense": 4,
+                                          "roi_crop_pyramid": 0, "roi_crop_pyramid_bf16": 0,
+                                          "stem": 0})
+    diff = {k: abs(run["row"][k] - cli["full_dense"]["row"][k]) for k in CLI_METRICS}
+    print(f"convert: e2e CLI on the emitted NCNN pairs vs on the .pt/.pth pair, metric row "
+          f"differences {diff} (largest {max(diff.values())})")
+    if not max(diff.values()) <= ROW_TOL:
+        fail(f"convert: the emitted pairs' metric row differs by {max(diff.values())} > "
+             f"{ROW_TOL}")
+
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator(device=dev).manual_seed(42),
+                   device=dev)
+    clf = build_classifier("shufflenetv2", 91)
+    clf.load_state_dict(jax_to_state_dict(art["cls_vars"]))
+    clf = clf.eval().to(dev)
+    prog = load_program(export_classifier("shufflenetv2", art["cls_vars"], 91, 64, 2, dev))
+    with float32_exact():
+        want = clf(x.permute(0, 3, 1, 2))
+    got = prog(x)
+    cls_err = float((got - want).abs().max() / want.abs().max())
+    det = YoloLitePi(YOLO_PLUS_V2)
+    det.load_state_dict(jax_to_state_dict(art["det_vars"]))
+    det = det.eval().to(dev)
+    prog = load_program(export_detector(YoloLitePi(YOLO_PLUS_V2), art["det_vars"], 640, 1, dev))
+    x = torch.rand((1, 640, 640, 3), generator=torch.Generator(device=dev).manual_seed(43),
+                   device=dev)
+    with float32_exact():
+        want = det(x.permute(0, 3, 1, 2))
+    got = prog(x)
+    det_err = max(float((got[k] - want[k]).abs().max() / want[k].abs().max())
+                  for k in ("reg", "cls"))
+    if not max(cls_err, det_err) <= PROGRAM_TOL:
+        fail(f"convert: exported programs vs eager, relative {cls_err} (classifier), "
+             f"{det_err} (detector) > {PROGRAM_TOL}")
+    print(f"convert: exported programs == eager (classifier {cls_err:.3g}, detector "
+          f"{det_err:.3g} relative)")
+    result = dict(calls=calls, graphs=graphs, e2e=run, row_diff=diff,
+                  program_rel_err=dict(classifier=cls_err, detector=det_err),
+                  seconds=time.perf_counter() - t0)
+    print(f"convert phase (8 conversions, 7 graphs card vs CPU vs model, a full-width e2e "
+          f"run, two program exports): {result['seconds']:.1f} s; launches {run['launches']}")
     return result
 
 
@@ -1678,7 +1863,9 @@ def run(dev) -> None:
     zoo_seconds += time.perf_counter() - t0
     print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
     evaluation = eval_phase(dev)
-    cli = e2e_cli_phase(dev)
+    with tempfile.TemporaryDirectory() as root:
+        cli, files = e2e_cli_phase(dev, root)
+        convert = convert_phase(dev, cli, files, root)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
@@ -1718,6 +1905,12 @@ def run(dev) -> None:
                     "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
                     "stem": cli_sum("stem"), "silu_bf16": cli_sum("silu_bf16"),
                     "sigmoid_bf16": cli_sum("sigmoid_bf16")}
+    # the convert phase's full-width e2e run over the emitted NCNN pairs
+    conv_counts = convert["e2e"]["launches"]
+    convert_launches = {"nms_suppress": 0, "nms_suppress_k512": conv_counts["nms_suppress"],
+                        "roi_crop_dense": 0, "roi_crop_dense_b8": conv_counts["roi_crop_dense"],
+                        **{k: conv_counts[k] for k in ("roi_crop_pyramid", "roi_crop_pyramid_bf16",
+                                                       "stem", "silu_bf16", "sigmoid_bf16")}}
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
 
@@ -1736,7 +1929,8 @@ def run(dev) -> None:
               nms[k1], 0, f"B={NMS_BATCH} K={k1}, 1 class",
               detect_device_ms=detect["nms_device_ms"],
               eval_nms_mismatches=eval_checks["nms_mismatches"],
-              e2e_cli_nms_mismatches=sum(c["nms_mismatches"] for c in cli_checks.values())),
+              e2e_cli_nms_mismatches=sum(c["nms_mismatches"] for c in cli_checks.values()),
+              convert_nms_mismatches=convert["e2e"]["kernel_checks"]["nms_mismatches"]),
         # dense launches per run: B=128 640x640, then B=8 1080x1920
         entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
@@ -1749,7 +1943,8 @@ def run(dev) -> None:
               dense_b8, dense["err"], "B={} D={} {}x{} out=64".format(*ROI_PYRAMID),
               library=grid_sample, library_max_abs_diff=dense_b8["library_err"],
               eval_max_abs_err=eval_checks["roi_max_abs_err"],
-              e2e_cli_max_abs_err=cli_checks["dense"]["roi_max_abs_err"]),
+              e2e_cli_max_abs_err=cli_checks["dense"]["roi_max_abs_err"],
+              convert_max_abs_err=convert["e2e"]["kernel_checks"]["roi_max_abs_err"]),
         # the pyramid mode in float32 (the main path's float32 pallas run)
         entry("roi_crop_pyramid", "roi.cu", roi_at, counts["roi_crop_pyramid"], pyr, pyr["err"],
               "B={} D={} {}x{} out=64".format(*ROI_PYRAMID)
@@ -1790,9 +1985,11 @@ def run(dev) -> None:
     for k in kernels:
         k["eval_launches"] = eval_launches[k["name"]]
         k["e2e_cli_launches"] = cli_launches[k["name"]]
+        k["convert_launches"] = convert_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
-                      "eval": evaluation, "e2e_cli": cli, "power": smi_after}))
+                      "eval": evaluation, "e2e_cli": cli, "convert": convert,
+                      "power": smi_after}))
     print(smi_after)
 
 

@@ -10,11 +10,17 @@ in float32 numpy, as the JAX package folds, so the folded weights equal
 its bit for bit (numpy's sqrt is correctly rounded; torch's vectorised CPU
 sqrt is not always).  Detector ConvBNs use eps 1e-3, the classifiers 1e-5
 (``models/layers.py::CLASSIFIER_BN_EPS``).
+
+The same fold on Flax-named variable trees (nested dicts of numpy arrays,
+as the importers return them), :func:`fold_pipeline_vars` and
+:func:`fold_detector_pipeline_vars`, copies the JAX package's tree form
+line for line, for the graph emitters (``weights/*_export.py``), so their
+folded weights and emitted bytes equal the JAX emitters'.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -93,3 +99,89 @@ def stem_kernel_hwio(weight: torch.Tensor, flip_channels: bool) -> torch.Tensor:
     the kernel ``pallas_stem`` takes, for raw 0-255 frames."""
     folded = fold_stem_input(weight.float(), 1.0 / 255.0, flip_channels)
     return folded.permute(2, 3, 1, 0).contiguous()
+
+
+# ---------------------------------------------------------------------- #
+# the fold on Flax-named variable trees                                   #
+# ---------------------------------------------------------------------- #
+
+
+def has_batchnorm_vars(variables: Dict[str, Any]) -> bool:
+    """True when the variable tree still carries BatchNorm statistics."""
+    return bool(variables.get("batch_stats"))
+
+
+def fold_batchnorm_vars(variables: Dict[str, Any], eps: float = BN_EPS) -> Dict[str, Any]:
+    """Deploy-form variables: every ``{convX, bnX}`` sibling pair in
+    ``params`` (with matching running stats in ``batch_stats``) becomes a
+    biased ``convX``; the ``batch_stats`` collection disappears.  Nodes
+    without a bn sibling pass through; a tree without statistics is
+    returned as it is.  Raises on a BatchNorm with no conv sibling."""
+    if not has_batchnorm_vars(variables):
+        return {"params": variables["params"]} if "params" in variables else variables
+
+    def contains_stats(node: Dict[str, Any]) -> bool:
+        return "mean" in node or any(
+            isinstance(v, dict) and contains_stats(v) for v in node.values()
+        )
+
+    def fold(params: Dict[str, Any], stats: Dict[str, Any]) -> Dict[str, Any]:
+        out: Dict[str, Any] = dict(params)
+        keys = set(params) | set(stats)
+        folded_bns = set()
+        for k in list(params):
+            if not k.startswith("bn"):
+                continue
+            conv_key = "conv" + k[2:]
+            bn_p, bn_s = params.get(k), stats.get(k)
+            if (
+                conv_key in params
+                and isinstance(bn_p, dict)
+                and isinstance(bn_s, dict)
+                and "scale" in bn_p
+                and "var" in bn_s
+            ):
+                s = np.asarray(bn_p["scale"]) / np.sqrt(np.asarray(bn_s["var"]) + eps)
+                conv = dict(params[conv_key])
+                # Flax conv kernels are (kh, kw, cin/groups, cout): scale cout
+                conv["kernel"] = np.asarray(conv["kernel"]) * s
+                # BN(conv(x)+b) = s*(conv(x)+b-mean)+beta: a conv bias scales by s
+                base = np.asarray(conv["bias"]) if "bias" in conv else 0.0
+                conv["bias"] = base * s + np.asarray(bn_p["bias"]) - np.asarray(bn_s["mean"]) * s
+                out[conv_key] = conv
+                del out[k]
+                folded_bns.add(k)
+        for k in keys:
+            if k in folded_bns:
+                continue
+            p, st = out.get(k), stats.get(k)
+            if isinstance(p, dict) and isinstance(st, dict):
+                out[k] = fold(p, st)
+            elif p is None and isinstance(st, dict) and contains_stats(st):
+                raise ValueError(f"unfoldable BatchNorm at '{k}': no conv sibling")
+        return out
+
+    return {"params": fold(variables["params"], variables["batch_stats"])}
+
+
+def fold_pipeline_vars(
+    variables: Dict[str, Any], eps: float = BN_EPS
+) -> Tuple[Dict[str, Any], bool]:
+    """``(variables, fused)``: the folded tree when it carries statistics;
+    else the tree as it is, ``fused`` False when its params still hold a
+    ``bn`` node (BN parameters without statistics), True otherwise."""
+    if has_batchnorm_vars(variables):
+        return fold_batchnorm_vars(variables, eps=eps), True
+    params = variables.get("params", {})
+
+    def any_bn(node) -> bool:
+        if not isinstance(node, dict):
+            return False
+        return "bn" in node or any(any_bn(v) for v in node.values())
+
+    return variables, not any_bn(params)
+
+
+def fold_detector_pipeline_vars(variables: Dict[str, Any]) -> Tuple[Dict[str, Any], bool]:
+    """:func:`fold_pipeline_vars` at the detector ConvBN's eps 1e-3."""
+    return fold_pipeline_vars(variables, eps=BN_EPS)

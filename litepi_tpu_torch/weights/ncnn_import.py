@@ -1,11 +1,10 @@
-"""NCNN ``.param``/``.bin`` graph ingestion (numpy only).
+"""NCNN ``.param``/``.bin`` graph ingestion (numpy only), and the graph
+interpreter in torch.
 
-The port's copy of the JAX package's ``weights/ncnn_import.py``, without
-its graph interpreter ``run_ncnn_graph`` (an oracle of the emitters, not
-on the import path).  It returns what the JAX importer returns: numpy
-variable trees with the Flax names, which
-``TwoStagePipeline.from_jax_vars`` carries into the port's modules
-through ``weights/jax_bridge.py``.
+The port's copy of the JAX package's ``weights/ncnn_import.py``.  It
+returns what the JAX importer returns: numpy variable trees with the Flax
+names, which ``TwoStagePipeline.from_jax_vars`` carries into the port's
+modules through ``weights/jax_bridge.py``.
 
 The reference deploys NCNN graphs (its ``model.ncnn.param`` +
 ``model.ncnn.bin``).  Both files are read off their text and wire formats:
@@ -25,7 +24,9 @@ The reference deploys NCNN graphs (its ``model.ncnn.param`` +
   through the shared state-dict converter; the yolov5nu / yolov11n
   baselines through :func:`convert_detector_ncnn_variant`;
 * :func:`convert_classifier_ncnn` — a ShuffleNetV2 pair -> deploy-form
-  classifier variables.
+  classifier variables;
+* :func:`run_ncnn_graph` — the graph executed with torch ops on a device
+  (the JAX package's numpy + XLA interpreter, the emitters' oracle).
 """
 
 from __future__ import annotations
@@ -34,8 +35,11 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import DetectorConfig
+from litepi_tpu_torch.weights import graph_ops as gops
 
 # NCNN ModelBin dtype tags (u32 little-endian before each conv weight blob)
 _TAG_FP32 = 0
@@ -787,3 +791,159 @@ def shufflenet_deploy_variables(sd: Dict[str, np.ndarray]):
         if bias is not None:
             _set(fpath, "bias", bias)
     return {"params": params}, num_classes
+
+
+def run_ncnn_graph(
+    layers: Sequence[NcnnLayer],
+    image_chw: np.ndarray,
+    return_blobs: bool = False,
+    device="cuda",
+):
+    """Execute the graph on one (3, H, W) float input, returning ``out0``
+    as numpy (with ``return_blobs``, every blob as numpy, by name).
+
+    The op set of the detector exports (yolo_plus, yolov5nu, yolov11n) and
+    the ShuffleNetV2 classifier emission: conv/dwconv, swish, relu, slice,
+    concat, binaryop, pooling including global, interp, reshape, permute,
+    softmax, sigmoid, matmul, shufflechannel and innerproduct, with NCNN's
+    blob conventions (3D = (c, h, w), 2D = (h, w), 1D = (w,), no batch
+    dim).  Every op runs as torch ops on ``device`` (default the card; it
+    raises without one), float32 with TF32 off; the convolutions through
+    ``F.conv2d``.  The JAX package's ``run_ncnn_graph`` computes the same
+    with XLA convolutions and numpy.
+    """
+    dev = resolve_device(device)
+    blobs: Dict[str, torch.Tensor] = {}
+    out_name = layers[-1].tops[0] if layers else "out0"
+    with gops.float32_exact():
+        for layer in layers:
+            t = layer.type
+            ins = [blobs[b] for b in layer.bottoms]
+            top = layer.tops[0] if layer.tops else None
+            if t == "Input":
+                blobs[top] = gops.tensor(np.asarray(image_chw, np.float32), dev)
+            elif t == "MemoryData":
+                blobs[top] = gops.tensor(layer.weights["data"], dev)
+            elif t in ("Convolution", "ConvolutionDepthWise"):
+                (x,) = ins
+                sw, sh = int(layer.attr(3, 1)), int(layer.attr(13, layer.attr(3, 1)))
+                dw, dh = int(layer.attr(2, 1)), int(layer.attr(12, layer.attr(2, 1)))
+                pl = int(layer.attr(4, 0))
+                pr = int(layer.attr(15, pl))
+                pt = int(layer.attr(14, pl))
+                pb = int(layer.attr(16, pt))
+                g = int(layer.attr(7, 1)) if t == "ConvolutionDepthWise" else 1
+                w = gops.tensor(layer.weights["weight"], dev)
+                y = gops.conv2d(x[None], w, (sh, sw), ((pt, pb), (pl, pr)), (dh, dw), g)[0]
+                if "bias" in layer.weights:
+                    y = y + gops.tensor(layer.weights["bias"], dev)[:, None, None]
+                blobs[top] = y
+            elif t == "Swish":
+                blobs[top] = gops.swish(ins[0])
+            elif t == "Sigmoid":
+                blobs[top] = gops.sigmoid(ins[0])
+            elif t == "Split":
+                for name in layer.tops:
+                    blobs[name] = ins[0]
+            elif t == "Slice":
+                (x,) = ins
+                sizes = [int(v) for v in layer.attr(0)]
+                axis = int(layer.attr(1, 0))
+                fill = [s for s in sizes if s != -233]
+                auto = len(sizes) - len(fill)
+                if auto:
+                    rem = x.shape[axis] - sum(fill)
+                    sizes = [rem // auto if s == -233 else s for s in sizes]
+                for name, piece in zip(layer.tops, gops.split(x, axis, sizes)):
+                    blobs[name] = piece
+            elif t == "Concat":
+                blobs[top] = torch.cat(ins, dim=int(layer.attr(0, 0)))
+            elif t == "BinaryOp":
+                op = int(layer.attr(0, 0))
+                if int(layer.attr(1, 0)):  # with scalar
+                    a, b = ins[0], float(layer.attr(2, 0.0))
+                else:
+                    a, b = ins
+                fn = {0: torch.add, 1: torch.sub, 2: torch.mul, 3: torch.div}.get(op)
+                if fn is None:
+                    raise ValueError(f"{layer.name}: BinaryOp {op} unsupported")
+                blobs[top] = fn(a, b)
+            elif t == "Pooling":
+                (x,) = ins
+                ptype = int(layer.attr(0, 0))
+                if ptype not in (0, 1):
+                    raise ValueError(f"{layer.name}: Pooling type {ptype} unsupported")
+                if int(layer.attr(4, 0)):  # global: reduce the full map
+                    blobs[top] = x.amax(dim=(1, 2)) if ptype == 0 else x.mean(dim=(1, 2))
+                    out_name = top
+                    continue
+                if ptype != 0:
+                    raise ValueError(f"{layer.name}: windowed avg pooling unsupported")
+                kw, kh = int(layer.attr(1, 1)), int(layer.attr(11, layer.attr(1, 1)))
+                sw, sh = int(layer.attr(2, 1)), int(layer.attr(12, layer.attr(2, 1)))
+                pl = int(layer.attr(3, 0))
+                pt = int(layer.attr(13, pl))
+                pr = int(layer.attr(14, pl))
+                pb = int(layer.attr(15, pt))
+                # pad-mode 1 = valid/floor, the only mode the SPPF poolings use
+                mode = int(layer.attr(5, 0))
+                if mode != 1:
+                    raise ValueError(
+                        f"{layer.name}: Pooling pad-mode {mode} unsupported "
+                        "(only 1 = valid/floor)"
+                    )
+                blobs[top] = gops.max_pool(x, (kh, kw), (sh, sw), ((pt, pb), (pl, pr)))
+            elif t == "ReLU":
+                blobs[top] = torch.clamp_min(ins[0], 0.0)
+            elif t == "ShuffleChannel":
+                (x,) = ins
+                g = int(layer.attr(0, 1))
+                c = x.shape[0]
+                blobs[top] = (x.reshape(g, c // g, *x.shape[1:]).transpose(0, 1)
+                              .reshape(x.shape).contiguous())
+            elif t == "InnerProduct":
+                (x,) = ins
+                y = gops.tensor(layer.weights["weight"], dev) @ x.reshape(-1)
+                if "bias" in layer.weights:
+                    y = y + gops.tensor(layer.weights["bias"], dev)
+                blobs[top] = y
+            elif t == "Interp":
+                (x,) = ins
+                if int(layer.attr(0, 0)) != 1:
+                    raise ValueError(f"{layer.name}: only nearest Interp")
+                fh, fw = float(layer.attr(1, 1.0)), float(layer.attr(2, 1.0))
+                blobs[top] = gops.repeat_nearest(x, ((1, int(fh)), (2, int(fw))))
+            elif t == "Reshape":
+                (x,) = ins
+                w = int(layer.attr(0, -233))
+                h = int(layer.attr(1, -233))
+                c = int(layer.attr(2, -233))
+                # rank = highest dim attr present; ncnn shape (c, h, w)
+                shape = [c, h, w] if c != -233 else [h, w] if h != -233 else [w]
+                blobs[top] = x.reshape([(-1 if d == -233 else d) for d in shape])
+            elif t == "Permute":
+                (x,) = ins
+                order = int(layer.attr(0, 0))
+                if x.dim() == 3:
+                    # ncnn order_type in (w, h, c) notation; for (c, h, w)
+                    # tensors: 1 swaps h/w, 2 swaps c/h, 5 reverses
+                    axes = {0: (0, 1, 2), 1: (0, 2, 1), 2: (1, 0, 2),
+                            3: (1, 2, 0), 4: (2, 0, 1), 5: (2, 1, 0)}[order]
+                    blobs[top] = x.permute(axes)
+                elif x.dim() == 2:
+                    blobs[top] = x.T if order == 1 else x
+                else:
+                    blobs[top] = x
+            elif t == "Softmax":
+                blobs[top] = gops.softmax(ins[0], int(layer.attr(0, 0)))
+            elif t == "MatMul":
+                a, b2 = ins
+                if int(layer.attr(0, 0)):  # transB
+                    b2 = b2.transpose(-1, -2)
+                blobs[top] = torch.matmul(a, b2)
+            else:
+                raise ValueError(f"unsupported NCNN layer type {t!r}")
+            out_name = top
+    if return_blobs:
+        return {k: gops.to_numpy(v) for k, v in blobs.items()}
+    return gops.to_numpy(blobs.get("out0", blobs[out_name]))

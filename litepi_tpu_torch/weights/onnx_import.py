@@ -1,9 +1,9 @@
 """ONNX graph-initializer importer (numpy and ``struct`` only).
 
-The port's copy of the JAX package's ``weights/onnx_import.py``, without
-its graph interpreter ``run_onnx_graph`` (an oracle of the emitters, not
-on the import path).  It returns numpy variable trees with the Flax
-names, as the JAX importer does.
+The port's copy of the JAX package's ``weights/onnx_import.py``.  It
+returns numpy variable trees with the Flax names, as the JAX importer
+does; its graph interpreter :func:`run_onnx_graph` (the emitters' oracle)
+runs torch ops on a device.
 
 No ``onnx`` package is needed: the initializers are read straight off the
 protobuf wire format.  Only the pieces needed to recover weights are
@@ -27,6 +27,10 @@ import struct
 from typing import Any, Dict, Iterator, List, Tuple, Union
 
 import numpy as np
+import torch
+
+from litepi_tpu_torch.core.device import resolve_device
+from litepi_tpu_torch.weights import graph_ops as gops
 
 # flax ConvBN BatchNorm epsilon (models/layers.py) — the defused var must
 # compensate it exactly: scale*(x-0)/sqrt((1-eps)+eps) + bias == x + bias
@@ -451,3 +455,174 @@ def convert_classifier_onnx_fused(src: Union[str, bytes, Dict[str, np.ndarray]])
             "training-form graph; use convert_classifier_onnx instead."
         )
     return shufflenet_deploy_variables(inits)
+
+
+def run_onnx_graph(
+    nodes: List[OnnxNode],
+    inits: Dict[str, np.ndarray],
+    feeds: Dict[str, np.ndarray],
+    device="cuda",
+):
+    """Execute a graph on numpy feeds (NCHW, batch dim included),
+    returning ``{name: numpy array}`` for the feeds and every produced blob.
+
+    The op set of the detector exports, the ShuffleNetV2 classifier
+    emission and real ``torch.onnx.export`` classifier graphs (Constant,
+    Shape, Gather, Unsqueeze, Identity, Clip, BatchNormalization, Flatten
+    beside the detectors' ops).  Every op runs as torch ops on ``device``
+    (default the card; it raises without one), float32 with TF32 off; the
+    convolutions through ``F.conv2d``, shape arithmetic on small integer
+    tensors.  The JAX package's ``run_onnx_graph`` computes the same with
+    XLA convolutions and numpy.
+    """
+    dev = resolve_device(device)
+    blobs: Dict[str, torch.Tensor] = {k: gops.tensor(v, dev) for k, v in feeds.items()}
+    consts: Dict[str, torch.Tensor] = {}
+
+    def get(name: str) -> torch.Tensor:
+        if name in blobs:
+            return blobs[name]
+        if name not in consts:
+            consts[name] = gops.tensor(inits[name], dev)
+        return consts[name]
+
+    def ints(name: str) -> List[int]:
+        return [int(v) for v in get(name).reshape(-1).tolist()]
+
+    with gops.float32_exact():
+        for node in nodes:
+            op = node.op
+            out = node.outputs[0] if node.outputs else None
+            if op == "Conv":
+                x, w = get(node.inputs[0]), get(node.inputs[1])
+                pads = node.attrs.get("pads", [0, 0, 0, 0])
+                y = gops.conv2d(
+                    x, w, node.attrs.get("strides", [1, 1]),
+                    ((pads[0], pads[2]), (pads[1], pads[3])),
+                    node.attrs.get("dilations", [1, 1]), int(node.attrs.get("group", 1)),
+                )
+                if len(node.inputs) > 2:
+                    y = y + get(node.inputs[2]).reshape(1, -1, 1, 1)
+                blobs[out] = y
+            elif op == "Sigmoid":
+                blobs[out] = gops.sigmoid(get(node.inputs[0]))
+            elif op == "Relu":
+                blobs[out] = torch.clamp_min(get(node.inputs[0]), 0.0)
+            elif op == "ReduceMean":
+                axes = node.attrs.get("axes")
+                if axes is None and len(node.inputs) > 1:  # opset>=18 form
+                    axes = ints(node.inputs[1])
+                blobs[out] = get(node.inputs[0]).mean(
+                    dim=tuple(int(a) for a in axes),
+                    keepdim=bool(int(node.attrs.get("keepdims", 1))),
+                )
+            elif op == "Gemm":
+                a, b = get(node.inputs[0]), get(node.inputs[1])
+                if int(node.attrs.get("transA", 0)):
+                    a = a.T
+                if int(node.attrs.get("transB", 0)):
+                    b = b.T
+                y = float(node.attrs.get("alpha", 1.0)) * (a @ b)
+                if len(node.inputs) > 2:
+                    y = y + float(node.attrs.get("beta", 1.0)) * get(node.inputs[2])
+                blobs[out] = y
+            elif op in ("Mul", "Add", "Sub", "Div"):
+                fn = {"Mul": torch.mul, "Add": torch.add, "Sub": torch.sub, "Div": torch.div}[op]
+                blobs[out] = fn(get(node.inputs[0]), get(node.inputs[1]))
+            elif op == "Concat":
+                blobs[out] = torch.cat([get(i) for i in node.inputs],
+                                       dim=int(node.attrs["axis"]))
+            elif op == "Split":
+                x = get(node.inputs[0])
+                sizes = node.attrs.get("split")
+                if sizes is None and len(node.inputs) > 1:  # opset>=13 form
+                    sizes = ints(node.inputs[1])
+                pieces = gops.split(x, int(node.attrs["axis"]), sizes)
+                for name, piece in zip(node.outputs, pieces):
+                    blobs[name] = piece
+            elif op == "Reshape":
+                x = get(node.inputs[0])
+                shape = [x.shape[i] if d == 0 else d for i, d in enumerate(ints(node.inputs[1]))]
+                blobs[out] = x.reshape(shape)
+            elif op == "Transpose":
+                blobs[out] = get(node.inputs[0]).permute(list(node.attrs["perm"]))
+            elif op == "Softmax":
+                blobs[out] = gops.softmax(get(node.inputs[0]), int(node.attrs.get("axis", -1)))
+            elif op == "MaxPool":
+                kh, kw = node.attrs["kernel_shape"]
+                pads = node.attrs.get("pads", [0, 0, 0, 0])
+                if int(node.attrs.get("ceil_mode", 0)):
+                    raise ValueError(f"{node.name}: ceil_mode unsupported")
+                blobs[out] = gops.max_pool(
+                    get(node.inputs[0]), (kh, kw), node.attrs.get("strides", [1, 1]),
+                    ((pads[0], pads[2]), (pads[1], pads[3])),
+                )
+            elif op == "Resize":
+                if node.attrs.get("mode", "nearest") != "nearest":
+                    raise ValueError(f"{node.name}: only nearest Resize")
+                scales = get(node.inputs[2]).tolist()
+                blobs[out] = gops.repeat_nearest(
+                    get(node.inputs[0]), ((2, int(scales[2])), (3, int(scales[3]))))
+            elif op == "Constant":
+                val = node.attrs.get("value")
+                if val is None:  # value_float / value_int single-scalar forms
+                    for k in ("value_float", "value_int"):
+                        if k in node.attrs:
+                            val = np.asarray(node.attrs[k])
+                            break
+                if val is None:
+                    raise ValueError(f"{node.name}: Constant without value")
+                blobs[out] = gops.tensor(np.asarray(val), dev)
+            elif op == "Identity":
+                blobs[out] = get(node.inputs[0])
+            elif op == "Shape":
+                blobs[out] = torch.tensor(list(get(node.inputs[0]).shape),
+                                          dtype=torch.int64, device=dev)
+            elif op == "Gather":
+                blobs[out] = gops.take(get(node.inputs[0]), get(node.inputs[1]),
+                                       int(node.attrs.get("axis", 0)))
+            elif op == "Unsqueeze":
+                axes = node.attrs.get("axes")
+                if axes is None:  # opset>=13: axes as second input
+                    axes = ints(node.inputs[1])
+                y = get(node.inputs[0])
+                for a in sorted(int(a) for a in axes):
+                    y = y.unsqueeze(a if a >= 0 else a + y.dim() + 1)
+                blobs[out] = y
+            elif op == "Flatten":
+                x = get(node.inputs[0])
+                axis = int(node.attrs.get("axis", 1))
+                lead = int(np.prod(x.shape[:axis])) if axis else 1
+                blobs[out] = x.reshape(lead, -1)
+            elif op == "Clip":
+                x = get(node.inputs[0])
+                lo = (get(node.inputs[1]) if len(node.inputs) > 1 and node.inputs[1]
+                      else node.attrs.get("min"))
+                hi = (get(node.inputs[2]) if len(node.inputs) > 2 and node.inputs[2]
+                      else node.attrs.get("max"))
+                if lo is not None:
+                    x = torch.maximum(x, torch.as_tensor(lo, dtype=x.dtype, device=dev))
+                if hi is not None:
+                    x = torch.minimum(x, torch.as_tensor(hi, dtype=x.dtype, device=dev))
+                blobs[out] = x
+            elif op == "BatchNormalization":
+                x = get(node.inputs[0])
+                scale, bias, mean, var = (get(i) for i in node.inputs[1:5])
+                eps = float(node.attrs.get("epsilon", 1e-5))
+                shp = (1, -1) + (1,) * (x.dim() - 2)
+                blobs[out] = ((x - mean.reshape(shp)) / torch.sqrt(var.reshape(shp) + eps)
+                              * scale.reshape(shp) + bias.reshape(shp))
+            elif op == "Slice":
+                x = get(node.inputs[0])
+                starts, ends = ints(node.inputs[1]), ints(node.inputs[2])
+                axes = (ints(node.inputs[3]) if len(node.inputs) > 3 and node.inputs[3]
+                        else list(range(len(starts))))
+                steps = (ints(node.inputs[4]) if len(node.inputs) > 4 and node.inputs[4]
+                         else [1] * len(starts))
+                sl = [slice(None)] * x.dim()
+                for st, en, a, step in zip(starts, ends, axes, steps):
+                    sl[a if a >= 0 else a + x.dim()] = slice(st, en, step)
+                blobs[out] = x[tuple(sl)]
+            else:
+                raise ValueError(f"unsupported ONNX op {op!r} ({node.name})")
+    return {k: gops.to_numpy(v) for k, v in blobs.items()}

@@ -1,9 +1,9 @@
 """OpenVINO IR (``.xml`` + ``.bin``) ingestion (numpy and ``xml`` only).
 
-The port's copy of the JAX package's ``weights/openvino_import.py``,
-without its graph interpreter ``run_ir_graph`` and its ``_topo_order``
-(oracles of the emitters, not on the import path).  It returns numpy
-variable trees with the Flax names, as the JAX importer does.
+The port's copy of the JAX package's ``weights/openvino_import.py``.  It
+returns numpy variable trees with the Flax names, as the JAX importer
+does; its graph interpreter :func:`run_ir_graph` (the emitters' oracle)
+runs torch ops on a device.
 
 The IR is plain XML over a flat weight blob: ``Const`` layers carry
 ``offset``/``size``/``shape``/``element_type`` into the ``.bin`` (fp16
@@ -19,11 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import xml.etree.ElementTree as ET
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import DetectorConfig
+from litepi_tpu_torch.weights import graph_ops as gops
 
 _ELEMENT_DTYPES = {
     "f32": np.float32,
@@ -455,3 +458,187 @@ def convert_classifier_openvino_fused(
             f"weights {missing[:4]}"
         )
     return shufflenet_deploy_variables(sd)
+
+
+# IR element types of the interpreter's integer and bool dataflow
+_TORCH_DTYPES = {
+    "f32": torch.float32, "f16": torch.float16, "f64": torch.float64,
+    "i64": torch.int64, "i32": torch.int32, "i8": torch.int8, "u8": torch.uint8,
+    "boolean": torch.bool,
+}
+
+
+def _topo_order(g: IrGraph) -> List[int]:
+    """Layer ids in dependency order (Kahn over the port-exact edges)."""
+    indeg = {lid: 0 for lid in g.layers}
+    outs: Dict[int, List[int]] = {lid: [] for lid in g.layers}
+    for (t, _tp), (f, _fp) in g.sources.items():
+        indeg[t] += 1
+        outs[f].append(t)
+    ready = sorted(lid for lid, d in indeg.items() if d == 0)
+    order: List[int] = []
+    while ready:
+        lid = ready.pop()
+        order.append(lid)
+        for t in outs[lid]:
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                ready.append(t)
+    if len(order) != len(g.layers):
+        raise ValueError("IR graph contains a cycle")
+    return order
+
+
+def run_ir_graph(
+    graph: Union[str, IrGraph],
+    blob: Union[str, bytes],
+    x: np.ndarray,
+    return_values: bool = False,
+    device="cuda",
+):
+    """Execute an OpenVINO IR on one (1, 3, H, W) float input, returning
+    the (first) ``Result`` layer's input as numpy (with ``return_values``,
+    also every ``(layer, port)`` value as numpy).
+
+    The op vocabulary of the detector IRs (Convolution, Add, Swish, Concat,
+    VariadicSplit, MaxPool, Interpolate, Reshape, Transpose, SoftMax,
+    Sigmoid and the ``chunk(2)`` ShapeOf/Gather/Divide/Mod/Greater/Convert
+    subgraph), GroupConvolution and MatMul for the baseline IRs, and the
+    classifier emission's ReLU and ReduceMean.  Every op runs as torch ops
+    on ``device`` (default the card; it raises without one), float32 with
+    TF32 off; the convolutions through ``F.conv2d``, shape arithmetic on
+    small integer tensors.  The JAX package's ``run_ir_graph`` computes the
+    same with XLA convolutions and numpy.
+    """
+    dev = resolve_device(device)
+    g = graph if isinstance(graph, IrGraph) else parse_openvino_xml(graph)
+    if isinstance(blob, bytes):
+        data = blob
+    else:
+        with open(blob, "rb") as f:
+            data = f.read()
+
+    def _ints(layer: IrLayer, key: str, default="") -> Tuple[int, ...]:
+        txt = layer.data.get(key, default)
+        return tuple(int(s) for s in txt.replace(" ", "").split(",") if s)
+
+    def ints(t: torch.Tensor) -> List[int]:
+        return [int(v) for v in t.reshape(-1).tolist()]
+
+    # per-layer sorted input ports (port-id order == operand order)
+    in_ports: Dict[int, List[int]] = {}
+    for (t, tp) in g.sources:
+        in_ports.setdefault(t, []).append(tp)
+    for ports in in_ports.values():
+        ports.sort()
+
+    values: Dict[Tuple[int, int], torch.Tensor] = {}
+    results: List[torch.Tensor] = []
+    binary = {"Add": torch.add, "Subtract": torch.sub, "Multiply": torch.mul,
+              "Mod": torch.remainder, "Greater": torch.gt}
+
+    with gops.float32_exact():
+        for lid in _topo_order(g):
+            layer = g.layers[lid]
+            t = layer.type
+            ports = in_ports.get(lid, [])
+            ins = [values[g.sources[(lid, p)]] for p in ports]
+            key = (lid, (ports[-1] + 1) if ports else 0)
+
+            if t == "Parameter":
+                shape = _ints(layer, "shape")
+                arr = np.asarray(x, np.float32)
+                if shape and tuple(arr.shape) != shape:
+                    raise ValueError(f"input shape {arr.shape} != Parameter shape {shape}")
+                values[(lid, 0)] = gops.tensor(arr, dev)
+            elif t == "Const":
+                values[(lid, 0)] = gops.tensor(_const_array(layer, data), dev)
+            elif t in ("Convolution", "GroupConvolution"):
+                w = ins[1]
+                groups = 1
+                if t == "GroupConvolution":  # (g, out/g, in/g, k, k)
+                    groups = w.shape[0]
+                    w = w.reshape(w.shape[0] * w.shape[1], *w.shape[2:])
+                pb, pe = _ints(layer, "pads_begin"), _ints(layer, "pads_end")
+                values[key] = gops.conv2d(
+                    ins[0], w, _ints(layer, "strides", "1,1"),
+                    ((pb[0], pe[0]), (pb[1], pe[1])), _ints(layer, "dilations", "1,1"), groups,
+                )
+            elif t == "Divide":
+                a, b = ins
+                if not a.dtype.is_floating_point:
+                    # m_pythondiv: traced from python // on ints
+                    values[key] = torch.div(a, b, rounding_mode="floor")
+                else:
+                    values[key] = torch.div(a, b)
+            elif t in binary:
+                values[key] = binary[t](*ins)
+            elif t == "Swish":
+                values[key] = gops.swish(ins[0])
+            elif t == "ReLU":
+                values[key] = torch.clamp_min(ins[0], 0.0)
+            elif t == "ReduceMean":
+                keep = layer.data.get("keep_dims", "true") == "true"
+                values[key] = ins[0].mean(dim=tuple(ints(ins[1])), keepdim=keep)
+            elif t == "Sigmoid":
+                values[key] = gops.sigmoid(ins[0])
+            elif t == "SoftMax":
+                values[key] = gops.softmax(ins[0], int(layer.data["axis"]))
+            elif t == "Concat":
+                values[key] = torch.cat(ins, dim=int(layer.data["axis"]))
+            elif t == "VariadicSplit":
+                x_ = ins[0]
+                axis = ints(ins[1])[0]
+                sizes = ints(ins[2])
+                if -1 in sizes:
+                    rest = x_.shape[axis] - sum(s for s in sizes if s >= 0)
+                    sizes[sizes.index(-1)] = rest
+                for i, piece in enumerate(gops.split(x_, axis, sizes)):
+                    values[(lid, key[1] + i)] = piece
+            elif t == "MatMul":
+                a, b = ins
+                if layer.data.get("transpose_a") == "true":
+                    a = a.transpose(-1, -2)
+                if layer.data.get("transpose_b") == "true":
+                    b = b.transpose(-1, -2)
+                values[key] = torch.matmul(a, b)
+            elif t == "Reshape":
+                values[key] = ins[0].reshape(ints(ins[1]))
+            elif t == "Transpose":
+                values[key] = ins[0].permute(ints(ins[1]))
+            elif t == "MaxPool":
+                if layer.data.get("rounding_type", "floor") != "floor":
+                    raise ValueError(f"{layer.name}: only floor rounding")
+                pb, pe = _ints(layer, "pads_begin"), _ints(layer, "pads_end")
+                values[key] = gops.max_pool(
+                    ins[0], _ints(layer, "kernel"), _ints(layer, "strides", "1,1"),
+                    ((pb[0], pe[0]), (pb[1], pe[1])),
+                )
+                # port key+1 (argmax indices) exists in opset14 MaxPool but
+                # nothing in the detector graphs consumes it: left unproduced
+            elif t == "Interpolate":
+                if layer.data.get("mode") != "nearest":
+                    raise ValueError(f"{layer.name}: only nearest Interpolate")
+                scales = [float(v) for v in ins[1].reshape(-1).tolist()]
+                for s in scales:
+                    if s != int(s):
+                        raise ValueError(f"{layer.name}: non-integer scale {s}")
+                values[key] = gops.repeat_nearest(
+                    ins[0], [(a, int(s)) for s, a in zip(scales, ints(ins[2]))])
+            elif t == "ShapeOf":
+                dt = _TORCH_DTYPES[layer.data.get("output_type", "i64")]
+                values[key] = torch.tensor(list(ins[0].shape), dtype=dt, device=dev)
+            elif t == "Gather":
+                values[key] = gops.take(ins[0], ins[1], ints(ins[2])[0])
+            elif t == "Convert":
+                values[key] = ins[0].to(_TORCH_DTYPES[layer.data["destination_type"]])
+            elif t == "Result":
+                results.append(ins[0])
+            else:
+                raise ValueError(f"unsupported IR layer type {t!r} ({layer.name})")
+
+    if not results:
+        raise ValueError("IR graph has no Result layer")
+    if return_values:
+        return gops.to_numpy(results[0]), {k: gops.to_numpy(v) for k, v in values.items()}
+    return gops.to_numpy(results[0])
