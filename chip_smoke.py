@@ -30,8 +30,13 @@ source, in parallel), then:
    all-0 and all-255 frames: float32 out within 1e-4 (the tolerance
    tests/test_pallas_stem.py holds the Pallas kernel to), bfloat16 out
    within one bf16 ulp (1e-5 below 2^-10, where float32 sum noise is
-   larger than an ulp); the serving shape timed, beside the cuDNN stem
-   it replaces (conv + bias + SiLU on the bf16 canvas);
+   larger than an ulp; bit-equal expected: in bf16 both round the conv,
+   the bias and SiLU's five steps alike); the serving shape timed, beside
+   the cuDNN stem it replaces (conv + bias + SiLU on the bf16 canvas); the
+   bf16 SiLU / sigmoid kernel (``csrc/act.cu``, port-only) against its
+   plain version (five / four torch passes) within one bf16 ulp at
+   ACT_CASES and the timed shapes, beside the plain passes and torch's
+   one-pass op;
 4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
    plain versions run, at 200x300 frames (letterboxed) and at 160x160
@@ -115,7 +120,24 @@ source, in parallel), then:
    then, in a pipeline built as the CLI builds its own, the NMS kernel
    and the crop in the run's mode and rounding against their plain
    versions on the inputs of the fused pass's first batch (in the bf16
-   run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames).
+   run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames).  The
+   full-width frames' labels come from the artifacts' own detections at
+   ``benchmark_conf``, jittered, so that the metric rows are neither 0
+   nor 1;
+11. the convert phase, the reverse path, from phase 10's artifacts and
+   frames: the convert CLI (``apps/convert.py::main``, ``--device cuda``)
+   emits the detector at 640 as NCNN (fp32 and fp16), ONNX and OpenVINO,
+   the classifier in all three, and writes the default checkpoint, each
+   with rc 0; each emitted graph runs through the port's interpreter of
+   its format on the card and on the CPU (float32, TF32 off), the two
+   within GRAPH_TOL of each other and the card's within GRAPH_TOL of the
+   port's model holding the graph's weights (plus the DFL decode); the e2e
+   CLI at its defaults over the emitted fp32 NCNN pairs, its metric row
+   within ROW_TOL of phase 10's float32 run, its launches counted, K1 and
+   K2 against their plain versions on its first batch; last, the exported
+   programs (``export_classifier`` at 64, ``export_detector`` at 640)
+   against eager within PROGRAM_TOL.  The bf16 SiLU / sigmoid kernel is
+   held against its plain version with the kernel checks (step 3).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -130,8 +152,9 @@ the host's time to issue one call, so that where ``host_ms`` is near
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
 and 67 TFLOP/s float32; ``eval_launches`` the eval phase's full-width
 launches on the entry of their shape, ``e2e_cli_launches`` the e2e CLI
-phase's), an ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ...}``
-JSON line, and last
+phase's, ``convert_launches`` the convert phase's), an ``{"e2e": ...,
+"zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...}`` JSON line, and
+last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -1638,15 +1661,22 @@ def e2e_cli_phase(dev, root: str):
     for p in paths:
         cv2.imread(p)
     decode_s = time.perf_counter() - t1
-    os.makedirs(lbl_dir)
-    rng = np.random.default_rng(38)
-    for p in paths:
-        xy, wh = rng.uniform(0.05, 0.8, (4, 2)), rng.uniform(0.01, 0.15, (4, 2))
-        stem = os.path.splitext(os.path.basename(p))[0]
-        with open(os.path.join(lbl_dir, stem + ".txt"), "w") as f:
-            f.writelines(f"{rng.integers(0, 91)} {x + w / 2:.6f} {y + h / 2:.6f} {w:.6f} "
-                         f"{h:.6f}\n" for (x, y), (w, h) in zip(xy, wh))
+    # labels from the artifacts' own detections at the CLI's benchmark_conf,
+    # jittered, some dropped or relabelled (write_labels), in a pipeline
+    # built as the CLI builds its own: the metric rows are then neither 0
+    # nor 1, and the convert phase's comparison of rows holds something
     weights = ["--detector", art["pt"], "--classifier", art["pth"]]
+    args = e2e_cli.build_arg_parser().parse_args(
+        ["--input", img_dir, "--labels", lbl_dir, *weights, "--output", root])
+    ev = PipelineEvaluator(e2e_cli.build_pipeline(args))
+    frames = {p: ev._read_image(p) for p in paths}
+    results = ev.run_images([frames[p] for p in paths], args.benchmark_conf)
+    os.makedirs(lbl_dir)
+    write_labels(lbl_dir, paths, frames, results, np.random.default_rng(38), 91)
+    n_labels = sum(len(r["boxes"]) for r in results[:-1])
+    if n_labels == 0:
+        fail("e2e CLI: the artifacts detect nothing at benchmark_conf to label")
+    del ev, frames
     dense = check_cli_full(dev, weights, img_dir, lbl_dir, root, [], "defaults",
                            {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
                             "roi_crop_pyramid_bf16": 0, "stem": 0})
@@ -1655,7 +1685,7 @@ def e2e_cli_phase(dev, root: str):
                             {"nms_suppress": 1, "roi_crop_dense": 0, "roi_crop_pyramid": 0,
                              "roi_crop_pyramid_bf16": 1, "stem": 0})
     result = dict(detector_rel_err=art["detector_rel_err"], small=small, full_dense=dense,
-                  full_bf16_pallas=pallas, decode_once_s=decode_s,
+                  full_bf16_pallas=pallas, decode_once_s=decode_s, label_detections=n_labels,
                   seconds=time.perf_counter() - t0)
     print(f"e2e CLI phase (artifacts, card vs CPU, two full-width runs): "
           f"{result['seconds']:.1f} s; cv2 decodes the {n} frames once in {decode_s:.2f} s")
@@ -1761,7 +1791,7 @@ def convert_phase(dev, cli: dict, files: dict, root: str) -> dict:
         rc = convert_cli.main([*argv, "--input", src, "--output", dst, "--device", dev.type])
         if rc != 0:
             fail(f"convert {name}: rc {rc}")
-        calls[name] = dict(rc=rc, seconds=time.perf_counter() - t1)
+        calls[name] = time.perf_counter() - t1
     if not os.path.isfile(os.path.join(out, "det_checkpoint", "variables.pt")):
         fail("convert det_checkpoint: no checkpoint written")
 
@@ -1825,7 +1855,7 @@ def convert_phase(dev, cli: dict, files: dict, root: str) -> dict:
              f"{det_err} (detector) > {PROGRAM_TOL}")
     print(f"convert: exported programs == eager (classifier {cls_err:.3g}, detector "
           f"{det_err:.3g} relative)")
-    result = dict(calls=calls, graphs=graphs, e2e=run, row_diff=diff,
+    result = dict(call_seconds=calls, graphs=graphs, e2e=run, row_diff=diff,
                   program_rel_err=dict(classifier=cls_err, detector=det_err),
                   seconds=time.perf_counter() - t0)
     print(f"convert phase (8 conversions, 7 graphs card vs CPU vs model, a full-width e2e "

@@ -139,7 +139,10 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from litepi_tpu_torch.core.device import resolve_device
     from litepi_tpu_torch.weights.checkpoint import save_checkpoint
+
+    dev = resolve_device(args.device)  # raises without a card, as apps/e2e.py
 
     variant = VARIANT_ARCHS.get(args.arch)
     is_detector = args.arch in DETECTOR_ARCHS or variant is not None
@@ -322,7 +325,7 @@ def main(argv=None) -> int:
 
     # ---- export smoke test --------------------------------------------- #
     try:
-        ok, sample = _smoke(args, variables, cfg, variant, is_detector)
+        ok, sample = _smoke(args, variables, cfg, variant, is_detector, dev)
     # a checkpoint from a different architecture surfaces here (missing /
     # mis-shaped parameters in load_state_dict) — keep the pointed-error
     # contract
@@ -533,19 +536,17 @@ def main(argv=None) -> int:
     return 0
 
 
-def _smoke(args, variables, cfg, variant, is_detector):
-    """(ok, sample): a seeded input through the port's model on
-    ``args.device`` (float32, TF32 off): a detector's head output, or a
-    classifier's logits, finite and of the right shape; ``sample`` holds the
-    first three class logits (the JAX CLI's ``smoke sample``)."""
+def _smoke(args, variables, cfg, variant, is_detector, dev):
+    """(ok, sample): a seeded input through the port's model on ``dev``
+    (float32, TF32 off): a detector's head output, or a classifier's
+    logits, finite and of the right shape; ``sample`` holds the first three
+    class logits (the JAX CLI's ``smoke sample``)."""
     import numpy as np
     import torch
 
-    from litepi_tpu_torch.core.device import resolve_device
     from litepi_tpu_torch.weights.graph_ops import float32_exact
     from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
-    dev = resolve_device(args.device)
     rng = np.random.default_rng(0)
     if is_detector:
         size = max(args.input_size, 64)  # detector stride 32 floor

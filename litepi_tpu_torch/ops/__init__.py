@@ -1,2 +1,3 @@
-"""Tensor ops of the port.  ``nms``, ``roi`` and ``stem`` dispatch to the
-CUDA kernels for CUDA tensors and to their plain versions for CPU tensors."""
+"""Tensor ops of the port.  ``nms``, ``roi``, ``stem`` and ``act`` (bf16
+SiLU / sigmoid) dispatch to the CUDA kernels for CUDA tensors and to their
+plain versions for CPU tensors."""

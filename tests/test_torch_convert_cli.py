@@ -1,20 +1,16 @@
 """The port's convert CLI (``litepi_tpu_torch.apps.convert``) against the
 JAX package's (``litepi_tpu.apps.convert``) on the same argv (the port's
-plus ``--device cpu``).
+plus ``--device cpu``): detector inputs; the classifier, the default
+output and the error paths are in tests/test_torch_convert_cli_classifier.py.
 
 Inputs are artifacts both read: a yolo_plus_v2 NCNN pair and a yolov11n
-OpenVINO IR written by the JAX emitters from seeded variables, and a
-torchvision-keyed ShuffleNetV2 ``.pth``.  Each emission (``--emit ncnn``
-in fp32 and fp16, ``onnx``, ``openvino``) gives the same rc, the same files
-byte for byte (``metadata.yaml`` without its ``date:`` line) and smoke
-samples within 1e-3; the yolov11n IR's emissions (the CLI's variant paths)
-equal what the JAX CLI writes, made from the JAX importer and emitter.  The
-default output is the port's checkpoint where the JAX CLI writes orbax,
-with the same tree; that orbax directory as the port's ``--input`` exits
-with rc 2 and ``load_checkpoint``'s message.  The
-wrong-arch, unfoldable and unsupported-emission paths give rc 2 and the
-same key words on stderr on both sides (the checkpoint inputs hold one tree
-in each package's format).
+OpenVINO IR written by the JAX emitters from seeded variables.  Each
+emission (``--emit ncnn`` in fp32 and fp16, ``onnx``, ``openvino``) gives
+the same rc, the same files byte for byte (``metadata.yaml`` without its
+``date:`` line) and smoke samples within 1e-3; the yolov11n IR's emissions
+(the CLI's variant paths) equal what the JAX CLI writes, made from the JAX
+importer and emitter.  Unsupported emissions give rc 2 and the same
+stderr on both sides.
 """
 
 import os
@@ -25,20 +21,11 @@ import pytest
 import torch
 
 from litepi_tpu.apps.convert import main as jax_main
-from litepi_tpu.weights import checkpoint as jax_ckpt
 from litepi_tpu_torch.apps.convert import main as port_main
-from litepi_tpu_torch.weights import checkpoint as port_ckpt
 from tests import torch_graph_helpers as G
-from tests.torch_port_helpers import (
-    assert_tree_equal,
-    one_torch_thread,  # noqa: F401 (a fixture, used by pytestmark)
-)
-from tests.torch_refs import ShuffleNetV2T
+from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
-
-NC = 10
-
 
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
@@ -46,15 +33,7 @@ def inputs(tmp_path_factory):
     jax_pkg = G.jax_package()
     det = G.emit(jax_pkg, "ncnn", "yolo_plus_v2", G.family_vars("yolo_plus_v2", 3), root)
     v11 = G.emit(jax_pkg, "openvino", "yolov11n", G.family_vars("yolov11n", 4), root)
-    torch.manual_seed(0)
-    net = ShuffleNetV2T(num_classes=NC)
-    for m in net.modules():
-        if isinstance(m, torch.nn.BatchNorm2d):
-            m.running_mean.uniform_(-0.1, 0.1)
-            m.running_var.uniform_(0.5, 1.5)
-    pth = os.path.join(root, "shufflenetv2.pth")
-    torch.save(net.state_dict(), pth)
-    return {"det": det["param"], "v11": v11["xml"], "cls": pth, "root": root}
+    return {"det": det["param"], "v11": v11["xml"], "root": root}
 
 
 def _run(main, argv, out, capsys, extra=()):
@@ -99,16 +78,12 @@ EMISSIONS = [
     ("det", "yolo_plus_v2", ["--emit", "ncnn", "--emit_dtype", "fp16"]),
     ("det", "yolo_plus_v2", ["--emit", "onnx"]),
     ("det", "yolo_plus_v2", ["--emit", "openvino", "--emit_input_size", "320"]),
-    ("cls", "shufflenetv2", ["--emit", "ncnn"]),
-    ("cls", "shufflenetv2", ["--emit", "onnx"]),
-    ("cls", "shufflenetv2", ["--emit", "openvino"]),
 ]
 
 
 @pytest.mark.parametrize("src, arch, emit", EMISSIONS)
 def test_emission_matches_jax_cli(inputs, tmp_path, capsys, src, arch, emit):
-    nc = NC if arch == "shufflenetv2" else 1
-    argv = ["--arch", arch, "--num_classes", str(nc), "--input", inputs[src],
+    argv = ["--arch", arch, "--num_classes", "1", "--input", inputs[src],
             "--input_size", "64", *emit]
     (jrc, jout, jerr, jdir), (prc, pout, perr, pdir) = _both(argv, tmp_path, capsys)
     assert jrc == prc == 0, (jerr, perr)
@@ -152,50 +127,6 @@ def test_variant_emission_matches_jax_emitter(inputs, tmp_path, capsys, emit):
             os.path.join(want_dir, "model.bin"))
     jax_convert._write_ncnn_metadata(args, None)
     assert _files(out) == _files(want_dir)
-
-
-def test_default_output_is_the_port_checkpoint(inputs, tmp_path, capsys):
-    """JAX writes orbax, the port its checkpoint, with the same tree;
-    ``--emit orbax`` is the port's alias; JAX's orbax directory as the
-    port's input exits with rc 2 and load_checkpoint's message."""
-    argv = ["--arch", "shufflenetv2", "--num_classes", str(NC), "--input", inputs["cls"]]
-    (jrc, jout, _, jdir), (prc, pout, _, pdir) = _both(argv, tmp_path, capsys)
-    assert jrc == prc == 0
-    assert_tree_equal(port_ckpt.load_checkpoint(pdir), jax_ckpt.load_checkpoint(jdir))
-    np.testing.assert_allclose(_sample(pout), _sample(jout), atol=1e-3, rtol=0)
-    alias = str(tmp_path / "alias")
-    assert _run(port_main, [*argv, "--emit", "orbax"], alias, capsys, ("--device", "cpu"))[0] == 0
-    assert_tree_equal(port_ckpt.load_checkpoint(alias), port_ckpt.load_checkpoint(pdir))
-    rc, _, err = _run(port_main, ["--arch", "shufflenetv2", "--num_classes", str(NC),
-                                  "--input", jdir, "--emit", "ncnn"],
-                      str(tmp_path / "again"), capsys, ("--device", "cpu"))
-    assert rc == 2 and "orbax checkpoint" in err and err.startswith("error:")
-
-
-def _checkpoints(tmp_path, tree):
-    """The same tree as a JAX orbax checkpoint and a port checkpoint."""
-    j, p = str(tmp_path / "orbax_in"), str(tmp_path / "port_in")
-    jax_ckpt.save_checkpoint(j, tree)
-    port_ckpt.save_checkpoint(p, tree)
-    return j, p
-
-
-@pytest.mark.parametrize("case", ["wrong_arch", "unfoldable"])
-def test_error_paths_match_jax_cli(tmp_path, capsys, case):
-    if case == "wrong_arch":  # classifier weights, a detector arch
-        tree = G.family_vars("shufflenetv2", 5)
-        argv = ["--arch", "yolov8n", "--num_classes", "1"]
-        words = "converted variables do not fit"
-    else:  # BatchNorm parameters without their statistics
-        tree = {"params": G.family_vars("yolo_plus_v1", 6)["params"]}
-        argv = ["--arch", "yolo_plus_v1", "--num_classes", "1", "--emit", "ncnn"]
-        words = "error:"
-    j, p = _checkpoints(tmp_path, tree)
-    (jrc, _, jerr, _), (prc, _, perr, _) = _both(argv + ["--input_size", "64"], tmp_path,
-                                                 capsys, jax_input=j, port_input=p)
-    assert jrc == prc == 2
-    assert words in jerr and words in perr
-    assert jerr.startswith("error:") and perr.startswith("error:")
 
 
 @pytest.mark.parametrize("arch, emit", [("resnet18", "ncnn"), ("yolov5n", "onnx"),

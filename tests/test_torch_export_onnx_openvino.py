@@ -8,10 +8,10 @@ against the JAX package's, on the same seeded Flax-named trees.
   JAX emitter's for those and yolov5nu and yolov11n;
 * ``run_onnx_graph`` and ``run_ir_graph`` in torch (``device="cpu"``)
   match the JAX interpreters on emitted graphs at 64 px within 1e-5
-  relative to the output's largest magnitude (a detector and the
-  classifier in each format), and the port's own model plus decode on
-  every family each format covers (yolov11n's IR: its attention MatMul and
-  GroupConvolution).
+  relative to the output's largest magnitude (a detector in each format;
+  the classifier's ops against JAX in tests/test_torch_export_ncnn.py), and
+  the port's own model plus decode on every family each format covers
+  (yolov11n's IR: its attention MatMul and GroupConvolution).
 """
 
 import numpy as np
@@ -69,8 +69,7 @@ def _run(mod, fmt, paths, img, **kw):
     return np.asarray(mod.run_ir_graph(paths["xml"], paths["bin"], img[None], **kw))[0]
 
 
-@pytest.mark.parametrize("fmt, family", [("onnx", "yolo_plus_v1"), ("onnx", G.CLASSIFIER),
-                                         ("openvino", "yolov5nu"), ("openvino", G.CLASSIFIER)])
+@pytest.mark.parametrize("fmt, family", [("onnx", "yolo_plus_v1"), ("openvino", "yolov5nu")])
 def test_interpreter_matches_jax_interpreter(emitted, fmt, family):
     paths, img = emitted[fmt, family]
     jax_mod, port_mod = (jax_onnx, port_onnx) if fmt == "onnx" else (jax_ov, port_ov)

@@ -2,11 +2,11 @@
 (tests/test_torch_export_*.py, tests/test_torch_convert_cli.py) and of
 chip_smoke.py's convert phase.
 
-The families the emitters cover, their seeded Flax-named trees (JAX
-imports only where a tree is made, so chip_smoke.py can load this module
-on a machine without JAX), one emission helper that drives either
-package's emitter modules through their common API, and the port's model
-plus decode in the detector graphs' output form.
+The families the emitters cover, their seeded Flax-named trees (made
+without JAX), one emission helper that drives either package's emitter
+modules through their common API (the JAX package's imported only there,
+so chip_smoke.py can load this module on a machine without JAX), and the
+port's model plus decode in the detector graphs' output form.
 """
 
 from __future__ import annotations
@@ -38,25 +38,53 @@ def plus_config(types_module, family: str, input_size: int = 640):
     return dataclasses.replace(cfg, input_size=input_size)
 
 
-def family_vars(family: str, seed: int = 0) -> Dict:
-    """Seeded numpy variables (BatchNorm unfolded) of a family's JAX model
-    (tests/torch_port_helpers.py::random_jax_vars)."""
-    from litepi_tpu.core import types as JT
-    from litepi_tpu.models import YoloLitePi
-    from litepi_tpu.models import build_classifier
-    from litepi_tpu.models.yolov5 import YoloV5
-    from litepi_tpu.models.yolov11 import YoloV11
-    from tests.torch_port_helpers import random_jax_vars
+def _port_module(family: str):
+    """The port's module of ``family`` (BatchNorm unfused)."""
+    from litepi_tpu_torch.core import types
+    from litepi_tpu_torch.models import YoloLitePi, YoloV5, YoloV11, build_classifier
 
     if family in PLUS:
-        model = YoloLitePi(plus_config(JT, family))
-    elif family == "yolov5nu":
-        model = YoloV5(num_classes=1, anchor_free=True)
-    elif family == "yolov11n":
-        model = YoloV11(num_classes=1)
-    else:
-        model = build_classifier(CLASSIFIER, CLS_CLASSES)
-    return random_jax_vars(model, seed=seed)
+        return YoloLitePi(plus_config(types, family))
+    if family == "yolov5nu":
+        return YoloV5(num_classes=1, anchor_free=True)
+    if family == "yolov11n":
+        return YoloV11(num_classes=1)
+    return build_classifier(CLASSIFIER, CLS_CLASSES)
+
+
+def family_vars(family: str, seed: int = 0) -> Dict:
+    """Seeded numpy variables (BatchNorm unfused) in the Flax layout of the
+    family's JAX model, valued as tests/torch_port_helpers.py's
+    ``random_jax_vars`` values them, without tracing the JAX model: the
+    shapes come from the port's module, whose parameters carry the Flax
+    names (``weights/jax_bridge.py`` maps a Flax tree onto them leaf for
+    leaf, HWIO -> OIHW, Dense transposed, and the model tests load the JAX
+    models' variables into them strictly)."""
+    rng = np.random.default_rng(seed)
+    tree: Dict = {"params": {}, "batch_stats": {}}
+    for key, t in _port_module(family).state_dict().items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        shape = tuple(t.shape)
+        coll = "batch_stats" if leaf.startswith("running_") else "params"
+        if leaf == "running_mean":
+            name, a = "mean", rng.normal(0, 0.1, shape)
+        elif leaf == "running_var":
+            name, a = "var", rng.uniform(0.5, 1.5, shape)
+        elif leaf == "weight" and t.dim() == 1:  # a BatchNorm scale
+            name, a = "scale", rng.uniform(0.8, 1.2, shape)
+        elif leaf == "weight":  # OIHW -> HWIO, Linear (out, in) -> Dense (in, out)
+            shape = (*shape[2:], shape[1], shape[0]) if t.dim() == 4 else shape[::-1]
+            name = "kernel"
+            a = rng.normal(0, 1 / np.sqrt(int(np.prod(shape[:-1])) or 1), shape)
+        else:
+            name, a = "bias", rng.normal(0, 0.1, shape)
+        node = tree[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = a.astype(np.float32)
+    return tree
 
 
 def emit(pkg: Dict, fmt: str, family: str, variables: Dict, out_dir: str,
@@ -118,18 +146,9 @@ def jax_package() -> Dict:
 def port_model(family: str, variables: Dict, device="cpu"):
     """The port's module of ``family`` with ``variables`` loaded, float32,
     in eval mode on ``device``."""
-    from litepi_tpu_torch.core import types
-    from litepi_tpu_torch.models import YoloLitePi, YoloV5, YoloV11, build_classifier
     from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
-    if family in PLUS:
-        model = YoloLitePi(plus_config(types, family))
-    elif family == "yolov5nu":
-        model = YoloV5(num_classes=1, anchor_free=True)
-    elif family == "yolov11n":
-        model = YoloV11(num_classes=1)
-    else:
-        model = build_classifier(CLASSIFIER, CLS_CLASSES)
+    model = _port_module(family)
     model.load_state_dict(jax_to_state_dict(variables))
     return model.eval().to(device)
 
