@@ -137,7 +137,28 @@ source, in parallel), then:
    K2 against their plain versions on its first batch; last, the exported
    programs (``export_classifier`` at 64, ``export_detector`` at 640)
    against eager within PROGRAM_TOL.  The bf16 SiLU / sigmoid kernel is
-   held against its plain version with the kernel checks (step 3).
+   held against its plain version with the kernel checks (step 3);
+12. training: the act kernel's backward mode (the gradient of the bf16
+   SiLU / sigmoid as ``jax.vjp`` rounds it) against its plain version,
+   bit-equal, on ACT_CASES and at ACT_BWD_SHAPE, timed there beside the
+   plain passes and torch's ``silu_backward``, and one EfficientNet-B0
+   train step that must launch its sigmoid mode; one float32 detector
+   train step (TF32 off) on the card vs the same step on the CPU (loss,
+   every gradient leaf, the parameters after it); the bf16 train steps at
+   full width timed on device batches (yolo_plus_v2 640x640 B=16 in ms
+   and images/s, ShuffleNetV2-91 64x64 B=128 in ms); then the training
+   CLIs in this process on data written here: the detector
+   (``apps/train_detector.py``, yolo_plus_v2, 640, B=16, bf16, 2 epochs
+   of 4 steps, validation through ``PipelineEvaluator``) with its launch
+   counts zeroed just before and read just after (the bf16 SiLU and its
+   backward and the NMS kernel at least once, the stem kernel never),
+   finite losses and ``results.json`` with the JAX CLI's keys; the same
+   run stopped after one epoch and resumed, its last epoch's loss equal
+   to the uninterrupted run's within 1e-5 (deterministic algorithms on);
+   the NMS kernel on validation's own inputs (the first validation batch,
+   K=512, the last weights) bit-equal to ``suppress_sorted``; and the
+   classifier (``apps/train_classifier.py``, ShuffleNetV2-91, 64, B=128,
+   3 steps, validation).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -152,8 +173,10 @@ the host's time to issue one call, so that where ``host_ms`` is near
 bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
 and 67 TFLOP/s float32; ``eval_launches`` the eval phase's full-width
 launches on the entry of their shape, ``e2e_cli_launches`` the e2e CLI
-phase's, ``convert_launches`` the convert phase's), an ``{"e2e": ...,
-"zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...}`` JSON line, and
+phase's, ``convert_launches`` the convert phase's, ``train_launches`` the
+training phase's; the act kernel's backward has a row of its own), an
+``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
+"training": ...}`` JSON line, and
 last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
@@ -183,16 +206,19 @@ from litepi_tpu_torch.core.types import (
     DetectorConfig,
     NMSConfig,
     PipelineConfig,
+    ablation_configs,
 )
 from litepi_tpu_torch.data import native_loader
 from litepi_tpu_torch.evals.labels import sample_images
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
+from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
 from litepi_tpu_torch.ops import act as act_ops
+from litepi_tpu_torch.ops.anchors import make_anchors
 from litepi_tpu_torch.ops.letterbox import letterbox_params
 from litepi_tpu_torch.ops import nms as nms_ops
 from litepi_tpu_torch.ops.nms import suppress_sorted
@@ -209,6 +235,13 @@ from litepi_tpu_torch.pipeline import PipelineEvaluator, StreamingRunner, TwoSta
 from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
 from litepi_tpu_torch.tools.nms_ab import nms_inputs
 from litepi_tpu_torch.tools.roi_ab import roi_inputs, touched_bytes
+from litepi_tpu_torch.train import (
+    classifier_train_step,
+    create_classifier_train_state,
+    create_detector_train_state,
+    detector_train_step,
+)
+from litepi_tpu_torch.train.losses import detection_loss
 from litepi_tpu_torch.tools.stage_split import (
     cuda_ms,
     cuda_ms_windows,
@@ -326,6 +359,21 @@ CLI_METRICS = ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95")
 # row; the exported programs against eager, relative
 GRAPH_TOL, ROW_TOL, PROGRAM_TOL = 1e-4, 1e-6, 1e-5
 
+
+# the training phase: the act kernel's backward at a bf16 SiLU input of a
+# B=16 training batch; the float32 step card vs CPU on a narrow ablation
+# detector; the detector CLI at the reference's imgsz=640, batch=16 on
+# synthetic JPEG frames (TRAIN_FRAME) with YOLO labels, 2 epochs of 4 steps
+# plus validation; the classifier CLI on 91 classes of 64x64 crops at
+# batch 128; each train step timed over TRAIN_TIMED_STEPS steps a window
+ACT_BWD_SHAPE = (16, 32, 320, 320)
+TRAIN_SMALL = dataclasses.replace(
+    ablation_configs(width_scales=(0.25,), extra=(), num_classes=3)[0], input_size=128)
+TRAIN_DET_SIZE, TRAIN_DET_BATCH, TRAIN_MAX_GT = 640, 16, 64
+TRAIN_DET_EPOCHS, TRAIN_DET_STEPS = 2, 4
+TRAIN_DET_IMAGES, TRAIN_DET_VAL_IMAGES, TRAIN_FRAME = 64, 32, (480, 640)
+TRAIN_CLS_BATCH, TRAIN_CLS_STEPS, TRAIN_CLS_CROPS = 128, 3, 3
+TRAIN_TIMED_STEPS = 5
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
@@ -929,8 +977,12 @@ def main_path(dev):
         check_outputs(out, b, pipe.cfg.crop_det_budget, h, w,
                       pipe.cfg.num_classifier_classes, f"run_fused b={b} {h}x{w} {roi_impl}")
     for name, n in counts.items():
-        # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates)
-        if n < 1 and name != "sigmoid_bf16":
+        # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates), the
+        # act kernel's backward mode the training phase's: serving runs none
+        if name in ("silu_bf16_bwd", "sigmoid_bf16_bwd"):
+            if n:
+                fail(f"serving launched the act kernel's backward ({name} {n} times)")
+        elif n < 1 and name != "sigmoid_bf16":
             fail(f"kernel {name} was not launched on the main path")
     print(f"main path launch counts: {counts}, per run {run_counts}")
 
@@ -1863,6 +1915,343 @@ def convert_phase(dev, cli: dict, files: dict, root: str) -> dict:
     return result
 
 
+# --------------------------------------------------------------------- #
+# training: the act kernel's backward, the train steps, both CLIs       #
+# --------------------------------------------------------------------- #
+
+def check_act_backward(dev) -> dict:
+    """The act kernel's backward mode (SiLU and sigmoid) against its plain
+    version (``silu_bf16_grad_plain`` / ``sigmoid_bf16_grad_plain``, the
+    ops of ``jax.vjp`` each rounded to bf16) on every element of ACT_CASES
+    and of ACT_BWD_SHAPE: bit-equal, or the run fails.  The SiLU mode timed
+    at ACT_BWD_SHAPE beside the plain passes and torch's one-rounding
+    ``silu_backward``; then one EfficientNet-B0 train step at B=8 on the
+    card (its squeeze-excite gates), which must launch the sigmoid mode."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    differ, n = {}, {}
+    for silu in (True, False):
+        plain = act_ops.silu_bf16_grad_plain if silu else act_ops.sigmoid_bf16_grad_plain
+        for case in (*ACT_CASES, ACT_BWD_SHAPE):
+            x = (torch.randn(case, generator=gen, device=dev) * 4).bfloat16()
+            g = torch.randn(case, generator=gen, device=dev).bfloat16()
+            got = act_bf16_backward_cuda(x, g, silu)
+            want = plain(x, g)
+            torch.cuda.synchronize()
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if bad:
+                fail(f"act backward ({'silu' if silu else 'sigmoid'}) {case}: {bad} elements "
+                     "differ from the plain version")
+            differ[silu], n[silu] = differ.get(silu, 0) + bad, n.get(silu, 0) + got.numel()
+    x = (torch.randn(ACT_BWD_SHAPE, generator=gen, device=dev) * 4).bfloat16()
+    g = torch.randn(ACT_BWD_SHAPE, generator=gen, device=dev).bfloat16()
+    fn = lambda: act_bf16_backward_cuda(x, g, True)  # noqa: E731
+    ms, windows = median_ms(fn, 50)
+    r = dict(shape=list(ACT_BWD_SHAPE), ms=ms, windows=windows, host_ms=host_ms(fn, 50),
+             device_ms=device_ms(fn, 50, "grad_vec_kernel"),
+             plain_ms=cuda_ms(lambda: act_ops.silu_bf16_grad_plain(x, g), 10),
+             library_ms=cuda_ms(lambda: torch.ops.aten.silu_backward(g, x), 50),
+             max_abs_err=0.0, mismatches=differ[True] + differ[False],
+             elements=n[True] + n[False],
+             # x and g read once, dx written once, 2 bytes each; ~14
+             # operations per value (the sigmoid's four steps, its
+             # derivative, the product rule) are noise beside the bytes
+             bound=bound(6 * x.numel(), 14 * x.numel()))
+    del x, g
+    print(f"act backward kernel (SiLU) {ACT_BWD_SHAPE}: {ms:.4f} ms (windows {windows}), device "
+          f"{r['device_ms']:.4f} ms, host issue {r['host_ms']:.4f} ms; the plain version's "
+          f"passes {r['plain_ms']:.4f} ms, torch's silu_backward (one rounding) "
+          f"{r['library_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+          f"0 of {r['elements']} elements differ (SiLU and sigmoid modes)")
+    model = build_classifier("efficientnet", 91)
+    state, tx = create_classifier_train_state(model, seed=0, total_steps=10, device=dev)
+    batch = {"images": torch.randn(8, 3, 64, 64, generator=gen, device=dev),
+             "labels": torch.randint(0, 91, (8,), generator=gen, device=dev)}
+    reset_launch_counts()
+    _, m = classifier_train_step(state.model, tx, state, batch,
+                                 torch.Generator(device=dev).manual_seed(1))
+    counts = launch_counts()
+    if counts["sigmoid_bf16_bwd"] < 1 or counts["silu_bf16_bwd"] < 1 or not bool(
+            torch.isfinite(m["loss"])):
+        fail(f"EfficientNet-B0 train step: loss {float(m['loss'])}, launches {counts}")
+    r["sigmoid_mode_launches"] = counts["sigmoid_bf16_bwd"]
+    print(f"EfficientNet-B0 train step (B=8, bf16): loss {float(m['loss']):.4f}, "
+          f"act backward launches silu {counts['silu_bf16_bwd']}, sigmoid "
+          f"{counts['sigmoid_bf16_bwd']}")
+    return r
+
+
+def detector_batch(dev, b: int, size: int, gen) -> dict:
+    """A device batch of the detector's train step: [0, 1] images and 1 to
+    TRAIN_MAX_GT-sized sets of boxes from ``gen``."""
+    images = torch.rand(b, 3, size, size, generator=gen, device=dev)
+    xy = torch.rand(b, TRAIN_MAX_GT, 2, generator=gen, device=dev) * (size * 0.8)
+    wh = 8 + torch.rand(b, TRAIN_MAX_GT, 2, generator=gen, device=dev) * (size * 0.15)
+    n = torch.randint(1, 6, (b, 1), generator=gen, device=dev)
+    return {"images": images, "gt_boxes": torch.cat([xy, xy + wh], -1),
+            "gt_labels": torch.zeros(b, TRAIN_MAX_GT, dtype=torch.int32, device=dev),
+            "gt_mask": torch.arange(TRAIN_MAX_GT, device=dev)[None] < n}
+
+
+def train_step_card_vs_cpu(dev) -> dict:
+    """One float32 detector train step (TF32 off) of TRAIN_SMALL at B=2 on
+    the card and on the CPU from the same weights and batch: the loss within
+    1e-5 relative, every gradient leaf within 1e-3 of its largest element
+    (float32 gradient noise: 7e-5 between JAX's float32 and float64 on such a
+    net, tests/test_torch_train_detector.py), the parameters after the step
+    within 1e-5 (absolute plus relative)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for where in ("cpu", dev):
+        model, state, tx = create_detector_train_state(TRAIN_SMALL, seed=4, dtype=torch.float32,
+                                                        total_steps=10, warmup_steps=2,
+                                                        device=where)
+        batch = {k: v.to(where) for k, v in
+                 detector_batch(torch.device("cpu"), 2, TRAIN_SMALL.input_size,
+                                torch.Generator().manual_seed(5)).items()}
+        anchors, strides = make_anchors(TRAIN_SMALL.input_size, TRAIN_SMALL.strides)
+        out = model(batch["images"])
+        loss, _ = detection_loss(out, torch.as_tensor(anchors, device=where),
+                                 torch.as_tensor(strides, device=where), batch["gt_boxes"],
+                                 batch["gt_labels"], batch["gt_mask"])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        model.zero_grad()
+        _, m = detector_train_step(model, tx, state, batch, cfg=TRAIN_SMALL)
+        runs[str(where)] = (float(loss.detach()), [g.cpu() for g in grads],
+                            {k: p.detach().cpu() for k, p in model.named_parameters()},
+                            float(m["loss"]))
+    (l_cpu, g_cpu, p_cpu, s_cpu), (l_dev, g_dev, p_dev, s_dev) = runs["cpu"], runs[str(dev)]
+    loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(g_dev, g_cpu))
+    param_err = max(float(((p_dev[k] - p_cpu[k]).abs() / (1 + p_cpu[k].abs())).max())
+                    for k in p_cpu)
+    if not (loss_rel <= 1e-5 and abs(s_dev - s_cpu) <= 1e-5 * abs(s_cpu) and grad_rel <= 1e-3
+            and param_err <= 1e-5):
+        fail(f"float32 train step card vs CPU: loss {loss_rel}, grads {grad_rel}, "
+             f"params {param_err}")
+    r = dict(loss=l_dev, loss_rel_err=loss_rel, grad_worst_leaf_rel_err=grad_rel,
+             param_max_err=param_err, leaves=len(g_cpu))
+    print(f"float32 train step card vs CPU ({TRAIN_SMALL.name} at {TRAIN_SMALL.input_size}, B=2, "
+          f"TF32 off): {json.dumps(r)}")
+    return r
+
+
+def time_train_steps(dev) -> dict:
+    """The bf16 train steps at full width on device batches (no data
+    pipeline): yolo_plus_v2 at 640, B=16, and ShuffleNetV2-91 at 64, B=128;
+    CUDA events, the median of WINDOWS windows of TRAIN_TIMED_STEPS steps."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cfg = dataclasses.replace(YOLO_PLUS_V2, input_size=TRAIN_DET_SIZE)
+    model, state, tx = create_detector_train_state(cfg, seed=0, total_steps=100, warmup_steps=10,
+                                                    device=dev)
+    batch = detector_batch(dev, TRAIN_DET_BATCH, TRAIN_DET_SIZE, gen)
+    det_ms, det_windows = median_ms(lambda: detector_train_step(model, tx, state, batch, cfg=cfg),
+                                    TRAIN_TIMED_STEPS)
+    det_host = host_ms(lambda: detector_train_step(model, tx, state, batch, cfg=cfg), 3)
+    del model, state, batch
+    cls_model = build_classifier("shufflenetv2", 91)
+    cstate, ctx = create_classifier_train_state(cls_model, seed=0, total_steps=100, device=dev)
+    cbatch = {"images": torch.randn(TRAIN_CLS_BATCH, 3, 64, 64, generator=gen, device=dev),
+              "labels": torch.randint(0, 91, (TRAIN_CLS_BATCH,), generator=gen, device=dev)}
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    cls_ms, cls_windows = median_ms(
+        lambda: classifier_train_step(cstate.model, ctx, cstate, cbatch, cgen), TRAIN_TIMED_STEPS)
+    r = dict(detector_ms=det_ms, detector_windows=det_windows,
+             detector_images_per_s=TRAIN_DET_BATCH / det_ms * 1e3, detector_host_ms=det_host,
+             classifier_ms=cls_ms, classifier_windows=cls_windows,
+             classifier_images_per_s=TRAIN_CLS_BATCH / cls_ms * 1e3)
+    print(f"detector train step (yolo_plus_v2, {TRAIN_DET_SIZE}x{TRAIN_DET_SIZE}, "
+          f"B={TRAIN_DET_BATCH}, bf16): {det_ms:.3f} ms (windows {det_windows}), "
+          f"{r['detector_images_per_s']:.1f} images/s, host issue {det_host:.3f} ms")
+    print(f"classifier train step (ShuffleNetV2-91, 64x64, B={TRAIN_CLS_BATCH}, bf16): "
+          f"{cls_ms:.3f} ms (windows {cls_windows}), {r['classifier_images_per_s']:.1f} images/s")
+    return r
+
+
+def write_detection_set(root: str, n: int, rng) -> tuple:
+    """``n`` JPEG frames (TRAIN_FRAME) with 1 to 3 bright boxes each and
+    their YOLO labels (class 0) under ``root``/images and ``root``/labels."""
+    import cv2
+
+    img_dir, lbl_dir = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(img_dir)
+    os.makedirs(lbl_dir)
+    h, w = TRAIN_FRAME
+    for i in range(n):
+        img = rng.integers(0, 120, (h, w, 3), dtype=np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(1, 4))):
+            bw, bh = (int(v) for v in rng.integers(24, 96, 2))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y : y + bh, x : x + bw] = rng.integers(180, 256, 3, dtype=np.uint8)
+            lines.append(f"0 {(x + bw / 2) / w:.6f} {(y + bh / 2) / h:.6f} {bw / w:.6f} "
+                         f"{bh / h:.6f}\n")
+        cv2.imwrite(os.path.join(img_dir, f"f{i:03d}.jpg"), img)
+        with open(os.path.join(lbl_dir, f"f{i:03d}.txt"), "w") as f:
+            f.writelines(lines)
+    return img_dir, lbl_dir
+
+
+def write_crop_set(root: str, rng) -> str:
+    """An ImageFolder of TRAIN_CLS_CROPS 64x64 PNG crops for each of 91
+    classes, each class its own colour."""
+    import cv2
+
+    for c in range(91):
+        d = os.path.join(root, f"c{c:02d}")
+        os.makedirs(d)
+        colour = rng.integers(0, 256, 3)
+        for i in range(TRAIN_CLS_CROPS):
+            img = np.clip(colour + rng.normal(0, 20, (64, 64, 3)), 0, 255).astype(np.uint8)
+            cv2.imwrite(os.path.join(d, f"{i}.png"), img)
+    return root
+
+
+def run_cli(main_fn, argv, what: str) -> str:
+    """``main_fn(argv)`` in this process with its standard output captured
+    (and printed); fails unless it returns 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    text = buf.getvalue()
+    print(f"--- {what} ({time.perf_counter() - t0:.1f} s):\n{text.rstrip()}")
+    if rc != 0:
+        fail(f"{what}: rc {rc}")
+    return text
+
+
+def epoch_losses(text: str, what: str) -> list:
+    import re
+
+    losses = [float(v) for v in re.findall(r"^epoch \d+/\d+\s+loss (\S+)", text, re.M)]
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"{what}: epoch losses {losses}")
+    return losses
+
+
+def check_validation_nms(dev, tree, val_dir: str) -> dict:
+    """The NMS kernel on validation's own inputs: the validation pipeline
+    rebuilt from the run's ``last`` weights (the EMA, as the last epoch
+    validated them), the first validation batch letterboxed as the
+    evaluator letterboxes it, its K=512 candidates at conf 0.001 through
+    the kernel and ``suppress_sorted``: bit-equal."""
+    import cv2
+
+    pcfg = PipelineConfig(detector=dataclasses.replace(YOLO_PLUS_V2, input_size=TRAIN_DET_SIZE),
+                          nms=NMSConfig(max_candidates=512, max_detections=64, min_area=0.0),
+                          input_color="bgr", num_classifier_classes=2,
+                          det_input_size=TRAIN_DET_SIZE, batch_size=TRAIN_DET_BATCH)
+    clf = build_classifier("shufflenetv2", 2)
+    pipe = TwoStagePipeline(pcfg, jax_to_state_dict(tree), seeded_state(clf, 1),
+                            dtype=torch.bfloat16, device=dev)
+    ev = PipelineEvaluator(pipe)
+    paths = sample_images(val_dir)[:TRAIN_DET_BATCH]
+    canvases, _ = ev._letterbox_batch([cv2.imread(p) for p in paths])
+    with torch.inference_mode():
+        boxes, scores, cls = pipe._detect_top(ev._to_unit(canvases), 512)
+        valid = scores > 0.001
+        keep = nms_suppress_cuda(boxes, cls.to(torch.int32), valid, pcfg.nms.iou_threshold)
+        want = suppress_sorted(boxes, valid, cls, pcfg.nms.iou_threshold)
+        torch.cuda.synchronize()
+    mismatches = int((keep != want).sum())
+    if mismatches or not bool(valid.any()):
+        fail(f"training validation: {mismatches} NMS keep bits differ, {int(valid.sum())} valid")
+    r = dict(nms_valid=int(valid.sum()), nms_kept=int(keep.sum()), nms_mismatches=0,
+             shape=list(valid.shape))
+    print(f"training validation: on its own inputs (B, K = {r['shape']}) the NMS kernel equals "
+          f"suppress_sorted ({r['nms_kept']} of {r['nms_valid']} valid candidates kept)")
+    return r
+
+
+def training_phase(dev, root: str) -> dict:
+    """The act kernel's backward, the float32 step card vs CPU, the timed
+    steps, then both training CLIs at full width on data written here: the
+    detector (yolo_plus_v2, 640, B=16, bf16) for TRAIN_DET_EPOCHS epochs of
+    TRAIN_DET_STEPS steps with validation, its launch counts zeroed just
+    before and read just after (the bf16 SiLU forward and backward and the
+    NMS kernel at least once each); the same run stopped after one epoch
+    and resumed, its last epoch's loss equal to the uninterrupted run's
+    (deterministic algorithms on); validation's NMS inputs against the
+    plain keep mask; and the classifier (ShuffleNetV2-91, 64, B=128) for
+    one epoch of TRAIN_CLS_STEPS steps with validation."""
+    from litepi_tpu_torch.apps import train_classifier, train_detector
+    from litepi_tpu_torch.weights.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    result = {"act_backward": check_act_backward(dev), "card_vs_cpu": train_step_card_vs_cpu(dev),
+              "steps": time_train_steps(dev)}
+    rng = np.random.default_rng(23)
+    train_dir = write_detection_set(os.path.join(root, "det_train"), TRAIN_DET_IMAGES, rng)
+    val_dir = write_detection_set(os.path.join(root, "det_val"), TRAIN_DET_VAL_IMAGES, rng)
+    common = ["--images", train_dir[0], "--labels", train_dir[1], "--val_images", val_dir[0],
+              "--val_labels", val_dir[1], "--imgsz", str(TRAIN_DET_SIZE), "--batch",
+              str(TRAIN_DET_BATCH), "--epochs", str(TRAIN_DET_EPOCHS), "--steps_per_epoch",
+              str(TRAIN_DET_STEPS), "--max_gt", str(TRAIN_MAX_GT), "--patience", "99",
+              "--device", dev.type]
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        straight = os.path.join(root, "det_straight")
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        text = run_cli(train_detector.main, common + ["--output", straight],
+                       "detector CLI, uninterrupted")
+        det_seconds = time.perf_counter() - t1
+        det_launches = launch_counts()
+        losses = epoch_losses(text, "detector CLI")
+        if (det_launches["silu_bf16"] < 1 or det_launches["silu_bf16_bwd"] < 1
+                or det_launches["nms_suppress"] < 1 or det_launches["stem"]):
+            fail(f"detector CLI: launch counts {det_launches}")
+        with open(os.path.join(straight, "results.json")) as f:
+            results = json.load(f)
+        if sorted(results) != ["best_epoch", "best_map50", "config", "epochs_run", "variant"] \
+                or results["epochs_run"] != TRAIN_DET_EPOCHS:
+            fail(f"detector CLI: results.json {results}")
+        resumed = os.path.join(root, "det_resumed")
+        run_cli(train_detector.main, common + ["--output", resumed, "--stop_after", "1"],
+                "detector CLI, --stop_after 1")
+        text_r = run_cli(train_detector.main, common + ["--output", resumed, "--resume"],
+                         "detector CLI, --resume")
+        resumed_losses = epoch_losses(text_r, "detector CLI resumed")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    resume_rel = abs(resumed_losses[-1] - losses[-1]) / abs(losses[-1])
+    if resume_rel > 1e-5:
+        fail(f"detector CLI: resumed last loss {resumed_losses[-1]} != {losses[-1]}")
+    validation = check_validation_nms(dev, load_checkpoint(os.path.join(straight, "last")),
+                                      val_dir[0])
+    crops = write_crop_set(os.path.join(root, "crops"), rng)
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    ctext = run_cli(train_classifier.main,
+                    ["--data", crops, "--val_data", crops, "--img_size", "64", "--batch",
+                     str(TRAIN_CLS_BATCH), "--epochs", "1", "--steps_per_epoch",
+                     str(TRAIN_CLS_STEPS), "--output", os.path.join(root, "cls"),
+                     "--device", dev.type], "classifier CLI")
+    cls_seconds = time.perf_counter() - t1
+    cls_launches = launch_counts()
+    cls_losses = epoch_losses(ctext, "classifier CLI")
+    result.update(
+        detector_cli=dict(seconds=det_seconds, epoch_losses=losses, results=results,
+                          launches=det_launches, resumed_losses=resumed_losses,
+                          resume_rel_diff=resume_rel),
+        validation_nms=validation,
+        classifier_cli=dict(seconds=cls_seconds, epoch_losses=cls_losses,
+                            launches=cls_launches),
+        train_launches={k: det_launches[k] + cls_launches[k] for k in det_launches},
+        seconds=time.perf_counter() - t0)
+    print(f"training phase (act backward, card vs CPU step, timed steps, detector CLI x3, "
+          f"classifier CLI): {result['seconds']:.1f} s; resumed last loss "
+          f"{resumed_losses[-1]} vs uninterrupted {losses[-1]} (rel diff {resume_rel:.3g})")
+    return result
+
+
 def run(dev) -> None:
     """Every phase on ``dev``; prints the kernels and e2e JSON lines and the
     card's name and power limit.  Raises on any failure."""
@@ -1896,6 +2285,7 @@ def run(dev) -> None:
     with tempfile.TemporaryDirectory() as root:
         cli, files = e2e_cli_phase(dev, root)
         convert = convert_phase(dev, cli, files, root)
+        training = training_phase(dev, root)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
@@ -1944,6 +2334,7 @@ def run(dev) -> None:
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
 
+    train, bwd = training, training["act_backward"]
     nms_at = "litepi_tpu/ops/pallas_nms.py:98"
     roi_at = "litepi_tpu/ops/pallas_roi.py:207"
     grid_sample = "F.grid_sample(border, align_corners=False)"
@@ -1960,7 +2351,8 @@ def run(dev) -> None:
               detect_device_ms=detect["nms_device_ms"],
               eval_nms_mismatches=eval_checks["nms_mismatches"],
               e2e_cli_nms_mismatches=sum(c["nms_mismatches"] for c in cli_checks.values()),
-              convert_nms_mismatches=convert["e2e"]["kernel_checks"]["nms_mismatches"]),
+              convert_nms_mismatches=convert["e2e"]["kernel_checks"]["nms_mismatches"],
+              train_nms_mismatches=train["validation_nms"]["nms_mismatches"]),
         # dense launches per run: B=128 640x640, then B=8 1080x1920
         entry("roi_crop_dense", "roi.cu", roi_at, run_counts[0]["roi_crop_dense"], dense,
               dense["err"], "B={} D={} {}x{} out=64".format(*ROI_DENSE), library=grid_sample,
@@ -2011,15 +2403,33 @@ def run(dev) -> None:
               library="torch.sigmoid (one rounding)", max_ulps=acts["sigmoid_bf16"]["max_ulps"],
               mismatch_share=acts["sigmoid_bf16"]["mismatch_share"],
               zoo_launches=zoo_launches["sigmoid_bf16"]),
+        # the backward mode (SiLU; sigmoid checked too): its path is the
+        # training phase's bf16 train steps
+        entry("act_bf16_bwd", "act.cu", "none: port-only (jax.vjp of flax nn.silu / nn.sigmoid "
+              "in bf16, litepi_tpu/models/layers.py:71)", train["train_launches"]["silu_bf16_bwd"],
+              bwd, 0.0, "x".join(map(str, ACT_BWD_SHAPE)) + ", SiLU mode",
+              library="torch.ops.aten.silu_backward (one rounding)",
+              mismatches=bwd["mismatches"], elements_checked=bwd["elements"],
+              sigmoid_mode_launches=bwd["sigmoid_mode_launches"]),
     ]
+    # the training phase's launches (both CLIs, zeroed before each): K1 at
+    # K=512 (validation's detect), the bf16 SiLU forward and backward
+    tl = train["train_launches"]
+    train_launches = {"nms_suppress": 0, "nms_suppress_k512": tl["nms_suppress"],
+                      "roi_crop_dense": 0, "roi_crop_dense_b8": tl["roi_crop_dense"],
+                      "roi_crop_pyramid": tl["roi_crop_pyramid"],
+                      "roi_crop_pyramid_bf16": tl["roi_crop_pyramid_bf16"], "stem": tl["stem"],
+                      "silu_bf16": tl["silu_bf16"], "sigmoid_bf16": tl["sigmoid_bf16"],
+                      "act_bf16_bwd": tl["silu_bf16_bwd"]}
     for k in kernels:
-        k["eval_launches"] = eval_launches[k["name"]]
-        k["e2e_cli_launches"] = cli_launches[k["name"]]
-        k["convert_launches"] = convert_launches[k["name"]]
+        k["eval_launches"] = eval_launches.get(k["name"], 0)
+        k["e2e_cli_launches"] = cli_launches.get(k["name"], 0)
+        k["convert_launches"] = convert_launches.get(k["name"], 0)
+        k["train_launches"] = train_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
                       "eval": evaluation, "e2e_cli": cli, "convert": convert,
-                      "power": smi_after}))
+                      "training": training, "power": smi_after}))
     print(smi_after)
 
 

@@ -5,6 +5,7 @@ from litepi_tpu_torch.core.types import (
     YOLO_PLUS_V2,
     YOLOV8N,
     DetectorConfig,
+    ablation_configs,
     NMSConfig,
     PipelineConfig,
     make_divisible,
@@ -19,6 +20,7 @@ __all__ = [
     "DetectorConfig",
     "NMSConfig",
     "PipelineConfig",
+    "ablation_configs",
     "make_divisible",
     "resolve_device",
     "scale_depth",

@@ -120,6 +120,33 @@ DATASET_PRESETS = {
 }
 
 
+
+def ablation_configs(
+    width_scales=(0.5, 0.75, 1.0),
+    depth_scales=(0.33,),
+    extra=((0.75, 0.67),),
+    num_classes: int = 1,
+) -> Tuple[DetectorConfig, ...]:
+    """The width/depth ablation grid (the reference's config generator:
+    w in {0.5, 0.75, 1.0} x d 0.33 plus (0.75, 0.67); w0.75 / d0.33 is
+    YOLO-LitePi): variant w scales the v8 base stage widths (w=0.75 gives
+    yolo_plus_v2's 48/96/192/384/768), then the 0.25 width multiple
+    applies.  The training CLI's ``--width_scale`` / ``--depth_scale``."""
+    combos = [(w, d) for d in depth_scales for w in width_scales]
+    combos += [c for c in extra if c not in combos]
+    return tuple(
+        DetectorConfig(
+            name=f"ablation_w{w:g}_d{d:g}",
+            num_classes=num_classes,
+            base_channels=tuple(
+                int(round(c * w)) for c in (64, 128, 256, 512, 1024)
+            ),
+            width=0.25,
+            depth=d,
+        )
+        for w, d in combos
+    )
+
 @dataclasses.dataclass(frozen=True)
 class NMSConfig:
     """Fixed-shape postprocess contract: keep the top ``max_candidates``

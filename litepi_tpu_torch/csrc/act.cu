@@ -29,7 +29,16 @@
 //
 // Design: each thread takes 8 values as one 16-byte load and store, in a
 // grid-stride loop over whole 8-value groups; a scalar tail takes the rest,
-// and the whole tensor when either pointer is not 16-byte aligned.
+// and the whole tensor when any pointer is not 16-byte aligned.
+//
+// Backward mode (litepi_act_bf16_backward): dx from x and the output's
+// gradient g, as jax.vjp of the same bf16 ops computes it, each op rounded
+// to bf16 (its plain version: ops/act.py::silu_bf16_grad_plain and
+// sigmoid_bf16_grad_plain).  JAX differentiates logistic as s * (1 - s):
+// with s the forward's bf16 sigmoid, d = bf16(s * bf16(1 - s)); SiLU's
+// dx = bf16(bf16(g * s) + bf16(bf16(x * g) * d)), sigmoid's dx = bf16(g *
+// d).  One pass, reading x and g and writing dx: 6 bytes per value, what
+// bounds it on the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +68,51 @@ __device__ __forceinline__ __nv_bfloat16 act(__nv_bfloat16 xv) {
   const float a = round_bf16(1.0f + e);
   const float s = rcp_of_bf16(a);
   return __float2bfloat16_rn(kSilu ? x * round_bf16(s) : s);
+}
+
+// the forward's bf16 sigmoid of x, as a float
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  const float e = round_bf16(expf(-x));
+  const float a = round_bf16(1.0f + e);
+  return round_bf16(rcp_of_bf16(a));
+}
+
+template <bool kSilu>
+__device__ __forceinline__ __nv_bfloat16 act_grad(__nv_bfloat16 xv, __nv_bfloat16 gv) {
+  const float x = __bfloat162float(xv);
+  const float g = __bfloat162float(gv);
+  const float s = sigmoid_bf16(x);
+  const float d = round_bf16(s * round_bf16(1.0f - s));
+  if (kSilu) {
+    return __float2bfloat16_rn(round_bf16(g * s) + round_bf16(round_bf16(x * g) * d));
+  }
+  return __float2bfloat16_rn(g * d);
+}
+
+template <bool kSilu>
+__global__ void grad_vec_kernel(const uint4* __restrict__ x, const uint4* __restrict__ g,
+                                uint4* __restrict__ dx, long long groups) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < groups;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint4 v = x[i];
+    const uint4 w = g[i];
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&v);
+    const __nv_bfloat16* k = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[j] = act_grad<kSilu>(h[j], k[j]);
+    dx[i] = v;
+  }
+}
+
+template <bool kSilu>
+__global__ void grad_scalar_kernel(const __nv_bfloat16* __restrict__ x,
+                                   const __nv_bfloat16* __restrict__ g,
+                                   __nv_bfloat16* __restrict__ dx, long long start,
+                                   long long n) {
+  for (long long i = start + blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    dx[i] = act_grad<kSilu>(x[i], g[i]);
+  }
 }
 
 template <bool kSilu>
@@ -107,7 +161,36 @@ cudaError_t launch(const void* x, void* y, long long n, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <bool kSilu>
+cudaError_t launch_grad(const void* x, const void* g, void* dx, long long n, cudaStream_t s) {
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)g % 16 == 0) &&
+                       ((uintptr_t)dx % 16 == 0);
+  const long long groups = aligned ? n / 8 : 0;
+  if (groups > 0) {
+    grad_vec_kernel<kSilu><<<blocks_for(groups), kThreads, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<const uint4*>(g), static_cast<uint4*>(dx),
+        groups);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const long long start = groups * 8;
+  if (start < n) {
+    grad_scalar_kernel<kSilu><<<blocks_for(n - start), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(dx), start, n);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int litepi_act_bf16_backward(const void* x, const void* g, void* dx, long long n,
+                                        int silu, void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return silu ? launch_grad<true>(x, g, dx, n, s) : launch_grad<false>(x, g, dx, n, s);
+}
 
 extern "C" int litepi_act_bf16(const void* x, void* y, long long n, int silu,
                                void* stream) {

@@ -18,6 +18,8 @@ LAUNCHES: Dict[str, int] = {
     "stem": 0,
     "silu_bf16": 0,
     "sigmoid_bf16": 0,
+    "silu_bf16_bwd": 0,
+    "sigmoid_bf16_bwd": 0,
 }
 
 

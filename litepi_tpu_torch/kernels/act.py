@@ -2,8 +2,9 @@
 
 A port-only kernel: it replaces no TPU kernel, but five torch passes that
 round each step of SiLU (or the four of sigmoid) to bf16 as the JAX
-program does.  The plain versions are ``ops/act.py::silu_bf16_plain`` and
-``sigmoid_bf16_plain``.
+program does, and in its backward mode the passes of their gradient.  The
+plain versions are ``ops/act.py::silu_bf16_plain``, ``sigmoid_bf16_plain``,
+``silu_bf16_grad_plain`` and ``sigmoid_bf16_grad_plain``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,20 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bwd = lib.litepi_act_bf16_backward
+        bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
     return lib
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if it is contiguous or channels-last contiguous, else a
+    contiguous copy."""
+    if x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(
+            memory_format=torch.channels_last)):
+        return x
+    return x.contiguous()
 
 
 def act_bf16_cuda(x: torch.Tensor, silu: bool) -> torch.Tensor:
@@ -33,9 +47,7 @@ def act_bf16_cuda(x: torch.Tensor, silu: bool) -> torch.Tensor:
     made contiguous first)."""
     if not x.is_cuda or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be a bf16 CUDA tensor, got {x.dtype} on {x.device}")
-    if not (x.is_contiguous() or (x.dim() == 4 and x.is_contiguous(
-            memory_format=torch.channels_last))):
-        x = x.contiguous()
+    x = _dense(x)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
@@ -46,3 +58,29 @@ def act_bf16_cuda(x: torch.Tensor, silu: bool) -> torch.Tensor:
     check(status, "act_bf16 launch")
     LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] += 1
     return y
+
+
+def act_bf16_backward_cuda(x: torch.Tensor, g: torch.Tensor, silu: bool) -> torch.Tensor:
+    """The gradient of :func:`act_bf16_cuda` at ``x`` for the output
+    gradient ``g`` (bf16 CUDA tensors of one shape), each step rounded to
+    bf16 as ``jax.vjp`` of the JAX program's ops; the result has ``x``'s
+    layout (``g`` is copied to it where the two differ)."""
+    for t in (x, g):
+        if not t.is_cuda or t.dtype != torch.bfloat16:
+            raise ValueError(f"x and g must be bf16 CUDA tensors, got {t.dtype} on {t.device}")
+    if x.shape != g.shape:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} differ in shape")
+    x = _dense(x)
+    if g.stride() != x.stride():
+        g = torch.empty_like(x).copy_(g)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.litepi_act_bf16_backward(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), x.numel(), int(silu), stream)
+    check(status, "act_bf16_backward launch")
+    LAUNCHES["silu_bf16_bwd" if silu else "sigmoid_bf16_bwd"] += 1
+    return dx

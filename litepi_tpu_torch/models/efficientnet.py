@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN, ConvBN, Dropout, at_least_float32
 from litepi_tpu_torch.ops.act import sigmoid, silu
 
 
@@ -53,16 +53,16 @@ class MBConv(nn.Module):
         super().__init__()
         hidden = c_in * expand
         self.pw = (
-            ConvBN(c_in, hidden, 1, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+            ConvBN(c_in, hidden, 1, act="silu", fused=fused, **CLASSIFIER_BN,
                    bias_apart=True)
             if expand != 1 else None
         )
         self.dw = ConvBN(
             hidden, hidden, kernel, stride, hidden, act="silu", fused=fused,
-            bn_eps=CLASSIFIER_BN_EPS, bias_apart=True,
+            **CLASSIFIER_BN, bias_apart=True,
         )
         self.se = SqueezeExcite(hidden, max(1, c_in // 4))
-        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, **CLASSIFIER_BN,
                                 bias_apart=True)
         self.residual = stride == 1 and c_in == c_out
 
@@ -90,7 +90,7 @@ class EfficientNetB0(nn.Module):
 
     def __init__(self, num_classes: int, fused: bool = False) -> None:
         super().__init__()
-        self.stem = ConvBN(3, 32, 3, 2, act="silu", fused=fused, bn_eps=CLASSIFIER_BN_EPS,
+        self.stem = ConvBN(3, 32, 3, 2, act="silu", fused=fused, **CLASSIFIER_BN,
                            bias_apart=True)
         c_in, self.n_blocks = 32, 0
         for t, c, n, s, k in _B0_SETTINGS:
@@ -100,12 +100,13 @@ class EfficientNetB0(nn.Module):
                 self.n_blocks += 1
                 c_in = c
         self.head_conv = ConvBN(c_in, 1280, 1, act="silu", fused=fused,
-                                bn_eps=CLASSIFIER_BN_EPS, bias_apart=True)
+                                **CLASSIFIER_BN, bias_apart=True)
+        self.dropout = Dropout(0.2)
         self.fc = nn.Linear(1280, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x.to(self.stem.conv.weight.dtype))
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)
-        x = self.head_conv(x).mean(dim=(2, 3))
-        return self.fc(x.to(self.fc.weight.dtype)).float()
+        x = self.dropout(self.head_conv(x).mean(dim=(2, 3)))
+        return at_least_float32(self.fc(x.to(self.fc.weight.dtype)))

@@ -2,8 +2,12 @@
 
 Conventions of the JAX package kept for weight parity: convs pad
 symmetrically by ``k // 2`` unless told otherwise, the detectors' BatchNorm
-uses eps 1e-3 (momentum 0.03) and SiLU, the classifiers' torchvision's eps
-1e-5 (``CLASSIFIER_BN_EPS``).  Submodule names follow the Flax names
+uses eps 1e-3 (momentum 0.03, flax's 0.97) and SiLU, the classifiers'
+torchvision's eps 1e-5 and momentum 0.1 (flax's 0.9; ``CLASSIFIER_BN``).
+In train mode BatchNorm normalises and updates its statistics as flax's
+BatchNorm does (:func:`batch_norm_train`), and :class:`Dropout` draws its
+mask from a generator the trainer hands it; in eval mode BatchNorm is
+torch's own and dropout the identity.  Submodule names follow the Flax names
 (``conv``, ``bn``, ``cv1``, ``m0``, ...) so that ``weights/jax_bridge.py``
 maps a Flax variable tree onto a ``state_dict`` key by key.
 """
@@ -19,8 +23,60 @@ from torch import nn
 from litepi_tpu_torch.ops.act import silu
 
 
-# all four reference classifiers use torchvision's BatchNorm2d epsilon
+# all four reference classifiers use torchvision's BatchNorm2d epsilon and
+# momentum (flax momentum 0.9 in the JAX models)
 CLASSIFIER_BN_EPS = 1e-5
+CLASSIFIER_BN = {"bn_eps": CLASSIFIER_BN_EPS, "bn_momentum": 0.1}
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``bn`` in train mode as flax's ``nn.BatchNorm`` trains.
+
+    Three things differ from torch's train mode: the statistics are taken
+    in float32 (float64 for a float64 input) as E[x] and max(0, E[x^2] -
+    E[x]^2) (flax's fast variance), the running variance takes that
+    *biased* variance (torch's the unbiased one), and the output is ``(x -
+    mean) * (rsqrt(var + eps) * weight) + bias`` in that precision, cast
+    to the input's dtype.  The running statistics move as ``f * running +
+    (1 - f) * batch`` with flax's momentum ``f = 1 - bn.momentum``.  Eval
+    mode calls ``bn`` itself, so serving is torch's BatchNorm."""
+    xf = at_least_float32(x)
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        f = 1.0 - bn.momentum
+        bn.running_mean.copy_(f * bn.running_mean + (1.0 - f) * mean)
+        bn.running_var.copy_(f * bn.running_var + (1.0 - f) * var)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, in the
+    input's dtype; the identity in eval mode.  The mask is drawn from
+    :attr:`generator` (a ``torch.Generator`` on the input's device, which
+    the train step sets), or from torch's default generator when it is
+    None."""
+
+    def __init__(self, rate: float) -> None:
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when its dtype is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +116,9 @@ class ConvBN(nn.Module):
     MobileNetV2's cls scores from 1.12x to 2.16x (``python -m
     tests.torch_bf16_layers --pairs``; ROADMAP section 3).
     ``act="silu"`` rounds at each step in bf16 (``ops/act.py``).
+    ``bn_momentum`` is torch's (0.03 for the detectors, 0.1 for the
+    classifiers: ``CLASSIFIER_BN``); BatchNorm trains as flax's
+    (:func:`batch_norm_train`).
     ``padding`` -1 pads by ``kernel // 2``; 0 or more pads by that much
     (YOLOv5's 6x6/2 stem pads by 2)."""
 
@@ -75,6 +134,7 @@ class ConvBN(nn.Module):
         bn_eps: float = 1e-3,
         padding: int = -1,
         bias_apart: bool = False,
+        bn_momentum: float = 0.03,
     ) -> None:
         super().__init__()
         self.bias_apart = bias_apart
@@ -82,13 +142,13 @@ class ConvBN(nn.Module):
         self.conv = nn.Conv2d(
             c_in, c_out, kernel, stride, pad, groups=groups, bias=fused
         )
-        self.bn = None if fused else nn.BatchNorm2d(c_out, eps=bn_eps, momentum=0.03)
+        self.bn = None if fused else nn.BatchNorm2d(c_out, eps=bn_eps, momentum=bn_momentum)
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_bias_apart(self.conv, x) if self.bias_apart else self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = batch_norm_train(self.bn, x) if self.training else self.bn(x)
         return self.act(x)
 
 

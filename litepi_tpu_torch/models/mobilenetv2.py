@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN, ConvBN, Dropout, at_least_float32
 
 
 def _make_divisible(v: float, divisor: int = 8) -> int:
@@ -34,13 +34,13 @@ class InvertedResidualV2(nn.Module):
         super().__init__()
         hidden = c_in * expand
         self.pw = (
-            ConvBN(c_in, hidden, 1, act="relu6", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+            ConvBN(c_in, hidden, 1, act="relu6", fused=fused, **CLASSIFIER_BN)
             if expand != 1 else None
         )
         self.dw = ConvBN(
-            hidden, hidden, 3, stride, hidden, act="relu6", fused=fused, bn_eps=CLASSIFIER_BN_EPS
+            hidden, hidden, 3, stride, hidden, act="relu6", fused=fused, **CLASSIFIER_BN
         )
-        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.pw_linear = ConvBN(hidden, c_out, 1, act=None, fused=fused, **CLASSIFIER_BN)
         self.residual = stride == 1 and c_in == c_out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +68,7 @@ class MobileNetV2(nn.Module):
     def __init__(self, num_classes: int, width_mult: float = 1.0, fused: bool = False) -> None:
         super().__init__()
         c_in = _make_divisible(32 * width_mult)
-        self.stem = ConvBN(3, c_in, 3, 2, act="relu6", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.stem = ConvBN(3, c_in, 3, 2, act="relu6", fused=fused, **CLASSIFIER_BN)
         self.n_blocks = 0
         for t, ch, n, s in _V2_SETTINGS:
             c_out = _make_divisible(ch * width_mult)
@@ -78,12 +78,13 @@ class MobileNetV2(nn.Module):
                 self.n_blocks += 1
                 c_in = c_out
         last = _make_divisible(1280 * max(1.0, width_mult))
-        self.head_conv = ConvBN(c_in, last, 1, act="relu6", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.head_conv = ConvBN(c_in, last, 1, act="relu6", fused=fused, **CLASSIFIER_BN)
+        self.dropout = Dropout(0.2)
         self.fc = nn.Linear(last, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x.to(self.stem.conv.weight.dtype))
         for i in range(self.n_blocks):
             x = getattr(self, f"block{i}")(x)
-        x = self.head_conv(x).mean(dim=(2, 3))
-        return self.fc(x.to(self.fc.weight.dtype)).float()
+        x = self.dropout(self.head_conv(x).mean(dim=(2, 3)))
+        return at_least_float32(self.fc(x.to(self.fc.weight.dtype)))

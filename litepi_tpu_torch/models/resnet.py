@@ -16,7 +16,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN, conv_bias_apart
+from litepi_tpu_torch.models.layers import (
+    CLASSIFIER_BN,
+    ConvBN,
+    at_least_float32,
+    batch_norm_train,
+    conv_bias_apart,
+)
 
 
 class BasicBlock(nn.Module):
@@ -25,7 +31,7 @@ class BasicBlock(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, stride: int = 1, fused: bool = False) -> None:
         super().__init__()
-        kw = dict(fused=fused, bn_eps=CLASSIFIER_BN_EPS, bias_apart=True)
+        kw = dict(fused=fused, bias_apart=True, **CLASSIFIER_BN)
         self.cb1 = ConvBN(c_in, c_out, 3, stride, act="relu", **kw)
         self.cb2 = ConvBN(c_out, c_out, 3, 1, act=None, **kw)
         self.down = (
@@ -62,10 +68,10 @@ class ResNet18(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_bias_apart(self.conv1, x.to(self.conv1.weight.dtype))
         if self.bn1 is not None:
-            x = self.bn1(x)
+            x = batch_norm_train(self.bn1, x) if self.training else self.bn1(x)
         x = F.max_pool2d(F.relu(x), 3, 2, 1)
         for stage, blocks in enumerate(self.stage_sizes):
             for i in range(blocks):
                 x = getattr(self, f"layer{stage + 1}_{i}")(x)
         x = x.mean(dim=(2, 3))
-        return self.fc(x.to(self.fc.weight.dtype)).float()
+        return at_least_float32(self.fc(x.to(self.fc.weight.dtype)))

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, ConvBN
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN, ConvBN, at_least_float32
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
@@ -33,16 +33,16 @@ class InvertedResidual(nn.Module):
         half = c_out // 2
         self.stride = stride
         b2_in = c_in if stride != 1 else c_in // 2
-        self.b2_pw1 = ConvBN(b2_in, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.b2_pw1 = ConvBN(b2_in, half, 1, act="relu", fused=fused, **CLASSIFIER_BN)
         self.b2_dw = ConvBN(
-            half, half, 3, stride, half, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS
+            half, half, 3, stride, half, act=None, fused=fused, **CLASSIFIER_BN
         )
-        self.b2_pw2 = ConvBN(half, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+        self.b2_pw2 = ConvBN(half, half, 1, act="relu", fused=fused, **CLASSIFIER_BN)
         if stride != 1:
             self.b1_dw = ConvBN(
-                c_in, c_in, 3, stride, c_in, act=None, fused=fused, bn_eps=CLASSIFIER_BN_EPS
+                c_in, c_in, 3, stride, c_in, act=None, fused=fused, **CLASSIFIER_BN
             )
-            self.b1_pw = ConvBN(c_in, half, 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS)
+            self.b1_pw = ConvBN(c_in, half, 1, act="relu", fused=fused, **CLASSIFIER_BN)
 
     def _branch2(self, x: torch.Tensor) -> torch.Tensor:
         return self.b2_pw2(self.b2_dw(self.b2_pw1(x)))
@@ -71,7 +71,7 @@ class ShuffleNetV2(nn.Module):
         super().__init__()
         self.stage_repeats = tuple(stage_repeats)
         self.conv1 = ConvBN(
-            3, stage_channels[0], 3, 2, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS
+            3, stage_channels[0], 3, 2, act="relu", fused=fused, **CLASSIFIER_BN
         )
         c_in = stage_channels[0]
         for s, (reps, ch) in enumerate(
@@ -82,7 +82,7 @@ class ShuffleNetV2(nn.Module):
                 setattr(self, f"stage{s}_{i}", InvertedResidual(ch, ch, 1, fused))
             c_in = ch
         self.conv5 = ConvBN(
-            c_in, stage_channels[4], 1, act="relu", fused=fused, bn_eps=CLASSIFIER_BN_EPS
+            c_in, stage_channels[4], 1, act="relu", fused=fused, **CLASSIFIER_BN
         )
         self.fc = nn.Linear(stage_channels[4], num_classes)
 
@@ -94,4 +94,4 @@ class ShuffleNetV2(nn.Module):
             for i in range(reps):
                 x = getattr(self, f"stage{s}_{i}")(x)
         x = self.conv5(x).mean(dim=(2, 3))
-        return self.fc(x.to(self.fc.weight.dtype)).float()
+        return at_least_float32(self.fc(x.to(self.fc.weight.dtype)))

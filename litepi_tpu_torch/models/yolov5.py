@@ -122,8 +122,15 @@ class YoloV5(nn.Module):
             # each step as the JAX program (every other detector), its one
             # valid detection in tests/test_torch_bf16_zoo_parity.py lands
             # one bf16 ulp of logit from JAX's, 59.9x that test's bound (JAX's
-            # drift at that one slot, 1/64 ulp); the differences are conv-
-            # order noise carried through the net (ROADMAP section 3).
+            # drift at that one slot, 1/64 ulp).  With the five steps, each
+            # backbone module fed JAX's own bf16 input differs from JAX's
+            # output in at most 0.03% of elements (c3_1 0.0195%, down2
+            # 0.0039%, c3_2 0.0117%, down3 0.0078%, sppf 0.0312%; 0 in down1,
+            # c3_3, down4, c3_4): each conv sums in another order than XLA's.
+            # Feeding JAX's stem output to the rest changes nothing (c3_3 still
+            # differs in 21.3% of elements, the cls outputs in 28-32%), so the
+            # ulp is conv-order noise of every layer, not of the stem alone
+            # (ROADMAP section 3).
             for m in self.modules():
                 if isinstance(m, ConvBN) and m.act is silu:
                     m.act = F.silu

@@ -8,6 +8,14 @@ backend; torch's ``F.silu`` and ``torch.sigmoid`` round once (39.4% and
 :func:`silu` and :func:`sigmoid` round at each step: the kernel
 ``csrc/act.cu`` on a CUDA tensor (one pass), the plain versions on a CPU
 tensor.  Float32 stays on ``F.silu`` and ``torch.sigmoid``.
+
+Their gradient in bf16 is what ``jax.vjp`` of the same ops computes, each
+op rounded: with ``s`` the bf16 sigmoid and ``d = s * (1 - s)`` (JAX's
+derivative of ``logistic``), SiLU's ``g * s + (x * g) * d`` and sigmoid's
+``g * d``.  A ``torch.autograd.Function`` carries it: its backward is the
+act kernel's backward mode on a CUDA tensor, the plain passes on a CPU
+tensor.  Without autograd (no grad needed) the forward runs alone, as
+before.
 """
 
 from __future__ import annotations
@@ -26,9 +34,50 @@ def silu_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid_bf16_plain(x)
 
 
+def sigmoid_bf16_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 sigmoid's gradient as ``jax.vjp`` rounds it: ``g * (s * (1
+    - s))``, each op rounded, ``s`` the four-step sigmoid of ``x``."""
+    s = sigmoid_bf16_plain(x)
+    return g * (s * (1 - s))
+
+
+def silu_bf16_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 SiLU's gradient as ``jax.vjp`` rounds it: ``g * s + (x *
+    g) * (s * (1 - s))``, each op rounded, ``s`` the four-step sigmoid."""
+    s = sigmoid_bf16_plain(x)
+    return g * s + (x * g) * (s * (1 - s))
+
+
+def _backward(x: torch.Tensor, g: torch.Tensor, silu: bool) -> torch.Tensor:
+    if x.is_cuda:
+        from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda
+
+        return act_bf16_backward_cuda(x, g, silu)
+    if x.device.type != "cpu":
+        raise ValueError(f"no bf16 activation for device {x.device}")
+    return silu_bf16_grad_plain(x, g) if silu else sigmoid_bf16_grad_plain(x, g)
+
+
+class _ActBf16(torch.autograd.Function):
+    """The bf16 activation with JAX's rounded gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, silu: bool) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.silu = silu
+        return _act(x, silu)  # grad mode is off here: the forward alone
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return _backward(x, g.to(torch.bfloat16), ctx.silu), None
+
+
 def _act(x: torch.Tensor, silu: bool) -> torch.Tensor:
     if x.dtype != torch.bfloat16:
         return F.silu(x) if silu else torch.sigmoid(x)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _ActBf16.apply(x, silu)
     if x.is_cuda:
         from litepi_tpu_torch.kernels.act import act_bf16_cuda
 

@@ -12,6 +12,10 @@ mechanically:
   ``<path>.weight``;
 * ``batch_stats/<path>/mean``, ``var`` -> ``<path>.running_mean``,
   ``running_var`` (plus a zero ``num_batches_tracked``).
+
+:func:`state_dict_to_jax` is the inverse: a trained model's ``state_dict``
+leaves as the Flax-named tree that the checkpoint, the emitters and the
+e2e CLI take.
 """
 
 from __future__ import annotations
@@ -61,4 +65,50 @@ def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         )
         if path[-1] == "var":
             out[".".join(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
+    return out
+
+
+def _unkernel(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 4:  # OIHW -> HWIO (depthwise (C, 1, kh, kw) -> (kh, kw, 1, C))
+        return arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 2:  # Linear (out, in) -> Dense (in, out)
+        return arr.T
+    raise ValueError(f"unexpected weight rank {arr.ndim}")
+
+
+def _put(tree: Dict[str, Any], path: Tuple[str, ...], leaf: np.ndarray) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def state_dict_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` as a Flax variable tree of float32 numpy
+    arrays, ``{"params": ..., "batch_stats": ...}`` (no ``batch_stats``
+    where the state has no BatchNorm), the inverse of
+    :func:`jax_to_state_dict`: a 4-D or 2-D ``weight`` is a kernel, a 1-D
+    one a BatchNorm ``scale`` (its module holds running statistics);
+    ``num_batches_tracked`` has no Flax counterpart and is dropped."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    bn_modules = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        path = tuple(module.split("."))
+        arr = value.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            _put(stats, path + ({"running_mean": "mean", "running_var": "var"}[leaf],), arr.copy())
+        elif leaf == "weight" and module in bn_modules:
+            _put(params, path + ("scale",), arr.copy())
+        elif leaf == "weight":
+            _put(params, path + ("kernel",), np.ascontiguousarray(_unkernel(arr)))
+        elif leaf == "bias":
+            _put(params, path + ("bias",), arr.copy())
+        else:
+            raise ValueError(f"unexpected state entry {key}")
+    out: Dict[str, Any] = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
     return out

@@ -14,7 +14,7 @@ import torch
 
 from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
-from litepi_tpu_torch.kernels.act import act_bf16_cuda
+from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda, act_bf16_cuda
 from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
@@ -430,7 +430,7 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
     # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only
     assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1,
                       "roi_crop_pyramid_bf16": 0, "stem": 0, "silu_bf16": 0,
-                      "sigmoid_bf16": 0}
+                      "sigmoid_bf16": 0, "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
 
 
 def _small_cfg(**kw):
@@ -463,7 +463,8 @@ def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
     # the bf16 detector's SiLUs go through the activation kernel
     assert counts.pop("silu_bf16") > 0
     assert counts == {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0,
-                      "roi_crop_pyramid_bf16": 0, "stem": 1, "sigmoid_bf16": 0}
+                      "roi_crop_pyramid_bf16": 0, "stem": 1, "sigmoid_bf16": 0,
+                      "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -644,3 +645,71 @@ def test_act_kernel_bit_equal_to_plain(cuda, silu, case):
     assert torch.equal((act.silu if silu else act.sigmoid)(x.float()),
                        torch.nn.functional.silu(x.float()) if silu else torch.sigmoid(x.float()))
     assert LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] == before + 1
+
+
+def test_act_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros(8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        act_bf16_backward_cuda(x, x, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("case", ["contiguous", "channels_last", "odd", "unaligned", "strided"])
+def test_act_backward_kernel_bit_equal_to_plain(cuda, silu, case):
+    """The backward mode rounds each op of ``jax.vjp`` as the plain
+    version's: through autograd on the card, the gradient equals
+    ``silu_bf16_grad_plain`` / ``sigmoid_bf16_grad_plain`` on every
+    element, on the vector path, the scalar tail, an unaligned view and a
+    strided one (and an output gradient of another layout); one launch of
+    the backward mode per backward, none of it without autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn((4, 32, 40, 40), generator=gen, device=cuda) * 4).bfloat16()
+    if case == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif case == "odd":
+        x = x.reshape(-1)[:1001]
+    elif case == "unaligned":
+        x = x.reshape(-1)[1:4097]
+    elif case == "strided":
+        x = x[:, ::2]
+    g = torch.randn(x.shape, generator=gen, device=cuda).bfloat16()
+    if case == "contiguous":
+        g = g.contiguous(memory_format=torch.channels_last)
+    key = "silu_bf16_bwd" if silu else "sigmoid_bf16_bwd"
+    before = LAUNCHES[key]
+    xt = x.detach().clone().requires_grad_(True)
+    (act.silu if silu else act.sigmoid)(xt).backward(g)
+    assert LAUNCHES[key] == before + 1
+    want = (act.silu_bf16_grad_plain if silu else act.sigmoid_bf16_grad_plain)(x, g)
+    direct = act_bf16_backward_cuda(x, g, silu)
+    torch.cuda.synchronize()
+    assert xt.grad.dtype == torch.bfloat16 and xt.grad.shape == x.shape
+    assert torch.equal(xt.grad, want) and torch.equal(direct, want)
+    with torch.no_grad():
+        (act.silu if silu else act.sigmoid)(x)
+    assert LAUNCHES[key] == before + 2
+
+
+@pytest.mark.gpu
+def test_train_step_launches_the_act_kernel_both_ways(cuda):
+    """A bf16 detector train step on the card runs the SiLU forward and its
+    backward mode, and its float32 master weights stay float32."""
+    from litepi_tpu_torch.core.types import ablation_configs
+    from litepi_tpu_torch.train import create_detector_train_state, detector_train_step
+
+    import dataclasses
+
+    cfg = dataclasses.replace(ablation_configs(width_scales=(0.25,), extra=())[0], input_size=128)
+    model, state, tx = create_detector_train_state(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    batch = {"images": torch.rand(2, 3, 128, 128, generator=gen, device=cuda),
+             "gt_boxes": torch.tensor([[[10.0, 10.0, 60.0, 50.0]]] * 2, device=cuda),
+             "gt_labels": torch.zeros(2, 1, dtype=torch.int32, device=cuda),
+             "gt_mask": torch.ones(2, 1, dtype=torch.bool, device=cuda)}
+    reset_launch_counts()
+    _, m = detector_train_step(model, tx, state, batch, cfg=cfg)
+    counts = launch_counts()
+    assert counts["silu_bf16"] > 0 and counts["silu_bf16_bwd"] == counts["silu_bf16"]
+    assert bool(torch.isfinite(m["loss"]))
+    assert all(p.dtype == torch.float32 for p in model.parameters())

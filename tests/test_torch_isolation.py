@@ -86,3 +86,26 @@ def test_streaming_runner_defaults_to_the_card():
     pipe.device = torch.device("cuda")  # as TwoStagePipeline.initialize(cfg) would set it
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingRunner(pipe, use_native_loader=False)
+
+
+@pytest.mark.parametrize("app", ["train_detector", "train_classifier"])
+def test_training_clis_default_to_the_card(app, tmp_path):
+    """The training CLIs and their train states run on the card unless
+    told ``--device cpu``; without one they raise before touching data."""
+    import importlib
+
+    from litepi_tpu_torch.core import types
+    from litepi_tpu_torch.models import build_classifier
+    from litepi_tpu_torch.train import create_classifier_train_state, create_detector_train_state
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    main = importlib.import_module(f"litepi_tpu_torch.apps.{app}").main
+    data = ["--images", str(tmp_path), "--labels", str(tmp_path)] if app == "train_detector" \
+        else ["--data", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(data + ["--output", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_detector_train_state(types.YOLO_PLUS_V2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_classifier_train_state(build_classifier("shufflenetv2", 4))

@@ -1,6 +1,7 @@
 """Layer-by-layer bf16 comparison of the zoo's nets, port against JAX.
 
-For a net of the zoo (YOLOv11n, YOLOv5n in both heads, ResNet18), the
+For a net of the zoo (YOLOv11n, YOLOv5n in both heads, ResNet18,
+MobileNetV2), the
 same variables and the same bf16-exact input go through the JAX model in
 float32 and in bfloat16 (flax ``capture_intermediates``) and through the
 port's model in bfloat16 as its pipeline places it (forward hooks).  For
@@ -14,11 +15,14 @@ every module output both sides have, in the port's execution order:
 drift.  :func:`op_checks` feeds single ops one identical bf16 input on
 both sides, to name the op that rounds otherwise.  Run::
 
-    JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers [yolov11n yolov5n yolov5n_legacy resnet18]
+    JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers [yolov11n yolov5n yolov5n_legacy resnet18 mobilenetv2]
     JAX_PLATFORMS=cpu python -m tests.torch_bf16_layers --pairs
 
 The first prints the first rows of each table, the first module outside
-and the op checks; the second the ratios of the port's difference to its
+and the op checks; ``--inject`` feeds each module of MobileNetV2 and of
+the anchor-free YOLOv5n's backbone JAX's own bf16 input (with and without a
+trial rounding) and runs YOLOv5n-u with JAX's stem output in place of the
+port's; ``--pairs`` prints the ratios of the port's difference to its
 bound for each zoo pair and for the default pair (yolo_plus + ShuffleNetV2,
 tests/test_torch_bf16_parity.py), as the port rounds and in two trials:
 every bf16 SiLU and sigmoid rounded once, as torch's ``F.silu`` and
@@ -46,7 +50,8 @@ from litepi_tpu.models.yolov11 import YoloV11 as JaxYoloV11
 from litepi_tpu.weights.fold_bn import fold_pipeline_vars
 from tests.torch_port_helpers import peaked_frames, perturb_batchnorm
 
-NETS = ("yolov11n", "yolov5n", "yolov5n_legacy", "resnet18")
+NETS = ("yolov11n", "yolov5n", "yolov5n_legacy", "resnet18", "mobilenetv2")
+CLASSIFIERS = ("resnet18", "mobilenetv2", "efficientnet")
 
 
 def _jax_model(net, dtype, fused=False):
@@ -61,7 +66,7 @@ def setup(net):
     """((JAX variables, fused) as the JAX pipeline holds them, the port's
     module placed as its bf16 pipeline places it, a bf16-exact input
     (N, S, S, 3) float32): a detector's on the letterboxed peaked scene x
-    1/255, ResNet18's (folded, as both pipelines fold a classifier) on
+    1/255, a classifier's (folded, as both pipelines fold it) on
     normalised random crops."""
     from types import SimpleNamespace
 
@@ -74,7 +79,7 @@ def setup(net):
     from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
     place = SimpleNamespace(device=torch.device("cpu"), dtype=torch.bfloat16)
-    if net == "resnet18":
+    if net in CLASSIFIERS:
         clf = perturb_batchnorm(fast_init(jax_build_classifier(net, 10), seed=3, spatial=64),
                                 seed=4, spread=0.05)
         state = fold_pipeline_state(jax_to_state_dict(clf), PORT_EPS)
@@ -281,9 +286,93 @@ def pair_ratios(pair, trial=None):
     return ratios
 
 
+# the modules fed one another's outputs in turn, for :func:`injected_rows`
+CHAINS = {
+    "mobilenetv2": ("stem", *[f"block{i}" for i in range(17)], "head_conv"),
+    "yolov5n": ("stem", "down1", "c3_1", "down2", "c3_2", "down3", "c3_3", "down4", "c3_4",
+                "sppf"),
+}
+
+
+def _five_step_silu(module) -> None:
+    """Every ConvBN of ``module`` that runs torch's ``F.silu`` rounds at
+    each step instead (the anchor-free YOLOv5n's one-rounding override
+    undone)."""
+    from litepi_tpu_torch.models.layers import ConvBN
+    from litepi_tpu_torch.ops.act import silu
+
+    for m in module.modules():
+        if isinstance(m, ConvBN) and m.act is torch.nn.functional.silu:
+            m.act = silu
+
+
+def injected_rows(net, trial=None):
+    """[(module, share of elements that differ, max difference)] of each
+    module of ``CHAINS[net]`` fed JAX's own bf16 input (the JAX output of
+    the module before it): where a module rounds as JAX's, only its conv
+    summation order remains.  ``trial``: "bias apart everywhere" (see
+    TRIALS) or "silu rounded at each step" (the anchor-free YOLOv5n)."""
+    from litepi_tpu_torch.models import layers
+
+    saved = layers.ConvBN.forward
+    if trial == "bias apart everywhere":
+        layers.ConvBN.forward = _bias_apart_forward
+    try:
+        (variables, fused), module, x = setup(net)
+        if trial == "silu rounded at each step":
+            _five_step_silu(module)
+        j16 = jax_outputs(net, variables, fused, x, jnp.bfloat16)
+        rows, chain = [], CHAINS[net]
+        with torch.inference_mode():
+            for i, name in enumerate(chain):
+                src = x.transpose(0, 3, 1, 2) if i == 0 else j16[chain[i - 1]]
+                got = getattr(module, name)(torch.from_numpy(src).to(torch.bfloat16))
+                got = got.float().numpy()
+                rows.append((name, float((got != j16[name]).mean()),
+                             float(np.abs(got - j16[name]).max())))
+    finally:
+        layers.ConvBN.forward = saved
+    return rows
+
+
+def stem_injected_rows(net="yolov5n", names=("c3_1", "c3_3", "sppf", "cls0_out", "cls1_out",
+                                                "cls2_out")):
+    """{injected: [(module, share differing from JAX's bf16, port difference,
+    JAX's drift)]} of the anchor-free YOLOv5n with SiLU rounded at each
+    step, run whole, and with JAX's own stem output put in place of the
+    port's (does the stem's conv order alone carry the difference?)."""
+    (variables, fused), module, x = setup(net)
+    _five_step_silu(module)
+    j16 = jax_outputs(net, variables, fused, x, jnp.bfloat16)
+    j32 = jax_outputs(net, variables, fused, x, jnp.float32)
+    out = {}
+    for inject in (False, True):
+        hook = (module.stem.register_forward_hook(
+            lambda m, i, o: torch.from_numpy(j16["stem"]).to(torch.bfloat16)) if inject else None)
+        try:
+            p16 = port_outputs(module, x)
+        finally:
+            if hook is not None:
+                hook.remove()
+        out[inject] = [(n, float((p16[n] != j16[n]).mean()), float(np.abs(p16[n] - j16[n]).max()),
+                        float(np.abs(j16[n] - j32[n]).max())) for n in names]
+    return out
+
+
 def main(argv=None) -> int:
     argv = list(argv or [])
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--inject"]:
+        for net, trial in (("mobilenetv2", None), ("mobilenetv2", "bias apart everywhere"),
+                           ("yolov5n", None), ("yolov5n", "silu rounded at each step")):
+            print(f"== {net}{f' (trial: {trial})' if trial else ''}, each module fed JAX's input")
+            for name, share, diff in injected_rows(net, trial):
+                print(f"  {name:12s} differing {share:.4%}  max {diff:.3g}")
+        for inject, rows in stem_injected_rows().items():
+            print(f"== yolov5n, five-step SiLU, {'JAX' if inject else 'its own'} stem output")
+            for name, share, diff, drift in rows:
+                print(f"  {name:10s} differing {share:.4%}  port {diff:.3g}  drift {drift:.3g}")
+        return 0
     if argv[:1] == ["--pairs"]:
         from tests.test_torch_bf16_zoo_parity import PAIRS
 
