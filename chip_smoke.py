@@ -149,12 +149,14 @@ source, in parallel), then:
    and images/s, ShuffleNetV2-91 64x64 B=128 in ms); then the training
    CLIs in this process on data written here: the detector
    (``apps/train_detector.py``, yolo_plus_v2, 640, B=16, bf16, 2 epochs
-   of 4 steps, validation through ``PipelineEvaluator``) with its launch
-   counts zeroed just before and read just after (the bf16 SiLU and its
+   of 4 steps, validation through ``PipelineEvaluator``) as a user runs
+   it, its epoch and validation seconds printed, with its launch counts
+   zeroed just before and read just after (the bf16 SiLU and its
    backward and the NMS kernel at least once, the stem kernel never),
-   finite losses and ``results.json`` with the JAX CLI's keys; the same
-   run stopped after one epoch and resumed, its last epoch's loss equal
-   to the uninterrupted run's within 1e-5 (deterministic algorithms on);
+   finite losses and ``results.json`` with the JAX CLI's keys; under
+   deterministic algorithms the same run again, and stopped after one
+   epoch and resumed, the resumed run's last epoch's loss equal to the
+   uninterrupted one's within 1e-5;
    the NMS kernel on validation's own inputs (the first validation batch,
    K=512, the last weights) bit-equal to ``suppress_sorted``; and the
    classifier (``apps/train_classifier.py``, ShuffleNetV2-91, 64, B=128,
@@ -2134,6 +2136,18 @@ def epoch_losses(text: str, what: str) -> list:
     return losses
 
 
+def epoch_seconds(text: str, what: str) -> list:
+    """[(epoch seconds, of which validation seconds)] from a training CLI's
+    epoch lines."""
+    import re
+
+    times = [(float(a), float(b)) for a, b in
+             re.findall(r"^epoch \d+/\d+ .*\((\S+)s, validation (\S+)s\)$", text, re.M)]
+    if not times:
+        fail(f"{what}: no epoch times")
+    return times
+
+
 def check_validation_nms(dev, tree, val_dir: str) -> dict:
     """The NMS kernel on validation's own inputs: the validation pipeline
     rebuilt from the run's ``last`` weights (the EMA, as the last epoch
@@ -2172,11 +2186,12 @@ def training_phase(dev, root: str) -> dict:
     """The act kernel's backward, the float32 step card vs CPU, the timed
     steps, then both training CLIs at full width on data written here: the
     detector (yolo_plus_v2, 640, B=16, bf16) for TRAIN_DET_EPOCHS epochs of
-    TRAIN_DET_STEPS steps with validation, its launch counts zeroed just
-    before and read just after (the bf16 SiLU forward and backward and the
-    NMS kernel at least once each); the same run stopped after one epoch
-    and resumed, its last epoch's loss equal to the uninterrupted run's
-    (deterministic algorithms on); validation's NMS inputs against the
+    TRAIN_DET_STEPS steps with validation, as a user runs it: its epoch
+    and validation seconds, its launch counts zeroed just before and read
+    just after (the bf16 SiLU forward and backward and the NMS kernel at
+    least once each); under deterministic algorithms the same run again,
+    and stopped after one epoch and resumed, the resumed run's last
+    epoch's loss equal to the uninterrupted one's; validation's NMS inputs against the
     plain keep mask; and the classifier (ShuffleNetV2-91, 64, B=128) for
     one epoch of TRAIN_CLS_STEPS steps with validation."""
     from litepi_tpu_torch.apps import train_classifier, train_detector
@@ -2193,37 +2208,44 @@ def training_phase(dev, root: str) -> dict:
               str(TRAIN_DET_BATCH), "--epochs", str(TRAIN_DET_EPOCHS), "--steps_per_epoch",
               str(TRAIN_DET_STEPS), "--max_gt", str(TRAIN_MAX_GT), "--patience", "99",
               "--device", dev.type]
+    # the timed run, as a user runs it (cuDNN's own algorithm choice)
+    straight = os.path.join(root, "det_straight")
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    text = run_cli(train_detector.main, common + ["--output", straight],
+                   "detector CLI, uninterrupted")
+    det_seconds = time.perf_counter() - t1
+    det_launches = launch_counts()
+    losses = epoch_losses(text, "detector CLI")
+    det_epochs = epoch_seconds(text, "detector CLI")
+    if (det_launches["silu_bf16"] < 1 or det_launches["silu_bf16_bwd"] < 1
+            or det_launches["nms_suppress"] < 1 or det_launches["stem"]):
+        fail(f"detector CLI: launch counts {det_launches}")
+    with open(os.path.join(straight, "results.json")) as f:
+        results = json.load(f)
+    if sorted(results) != ["best_epoch", "best_map50", "config", "epochs_run", "variant"] \
+            or results["epochs_run"] != TRAIN_DET_EPOCHS:
+        fail(f"detector CLI: results.json {results}")
+    # resume against an uninterrupted run, both under deterministic algorithms
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        straight = os.path.join(root, "det_straight")
-        reset_launch_counts()
-        t1 = time.perf_counter()
-        text = run_cli(train_detector.main, common + ["--output", straight],
-                       "detector CLI, uninterrupted")
-        det_seconds = time.perf_counter() - t1
-        det_launches = launch_counts()
-        losses = epoch_losses(text, "detector CLI")
-        if (det_launches["silu_bf16"] < 1 or det_launches["silu_bf16_bwd"] < 1
-                or det_launches["nms_suppress"] < 1 or det_launches["stem"]):
-            fail(f"detector CLI: launch counts {det_launches}")
-        with open(os.path.join(straight, "results.json")) as f:
-            results = json.load(f)
-        if sorted(results) != ["best_epoch", "best_map50", "config", "epochs_run", "variant"] \
-                or results["epochs_run"] != TRAIN_DET_EPOCHS:
-            fail(f"detector CLI: results.json {results}")
+        text_d = run_cli(train_detector.main,
+                         common + ["--output", os.path.join(root, "det_deterministic")],
+                         "detector CLI, uninterrupted, deterministic")
         resumed = os.path.join(root, "det_resumed")
         run_cli(train_detector.main, common + ["--output", resumed, "--stop_after", "1"],
-                "detector CLI, --stop_after 1")
+                "detector CLI, --stop_after 1, deterministic")
         text_r = run_cli(train_detector.main, common + ["--output", resumed, "--resume"],
-                         "detector CLI, --resume")
-        resumed_losses = epoch_losses(text_r, "detector CLI resumed")
+                         "detector CLI, --resume, deterministic")
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
-    resume_rel = abs(resumed_losses[-1] - losses[-1]) / abs(losses[-1])
+    det_losses = epoch_losses(text_d, "detector CLI deterministic")
+    resumed_losses = epoch_losses(text_r, "detector CLI resumed")
+    resume_rel = abs(resumed_losses[-1] - det_losses[-1]) / abs(det_losses[-1])
     if resume_rel > 1e-5:
-        fail(f"detector CLI: resumed last loss {resumed_losses[-1]} != {losses[-1]}")
+        fail(f"detector CLI: resumed last loss {resumed_losses[-1]} != {det_losses[-1]}")
     validation = check_validation_nms(dev, load_checkpoint(os.path.join(straight, "last")),
                                       val_dir[0])
     crops = write_crop_set(os.path.join(root, "crops"), rng)
@@ -2237,18 +2259,28 @@ def training_phase(dev, root: str) -> dict:
     cls_seconds = time.perf_counter() - t1
     cls_launches = launch_counts()
     cls_losses = epoch_losses(ctext, "classifier CLI")
+    cls_epochs = epoch_seconds(ctext, "classifier CLI")
     result.update(
         detector_cli=dict(seconds=det_seconds, epoch_losses=losses, results=results,
-                          launches=det_launches, resumed_losses=resumed_losses,
+                          launches=det_launches, epoch_seconds=[a for a, _ in det_epochs],
+                          validation_seconds=[b for _, b in det_epochs],
+                          deterministic_losses=det_losses, resumed_losses=resumed_losses,
                           resume_rel_diff=resume_rel),
         validation_nms=validation,
         classifier_cli=dict(seconds=cls_seconds, epoch_losses=cls_losses,
-                            launches=cls_launches),
+                            launches=cls_launches, epoch_seconds=[a for a, _ in cls_epochs],
+                            validation_seconds=[b for _, b in cls_epochs]),
         train_launches={k: det_launches[k] + cls_launches[k] for k in det_launches},
         seconds=time.perf_counter() - t0)
-    print(f"training phase (act backward, card vs CPU step, timed steps, detector CLI x3, "
+    print(f"detector CLI ({TRAIN_DET_STEPS} steps of B={TRAIN_DET_BATCH} at {TRAIN_DET_SIZE} per "
+          f"epoch, not deterministic): epochs {[a for a, _ in det_epochs]} s, of which "
+          f"validation {[b for _, b in det_epochs]} s; classifier CLI ({TRAIN_CLS_STEPS} steps of "
+          f"B={TRAIN_CLS_BATCH}): epoch {[a for a, _ in cls_epochs]} s, of which validation "
+          f"{[b for _, b in cls_epochs]} s")
+    print(f"training phase (act backward, card vs CPU step, timed steps, detector CLI x4, "
           f"classifier CLI): {result['seconds']:.1f} s; resumed last loss "
-          f"{resumed_losses[-1]} vs uninterrupted {losses[-1]} (rel diff {resume_rel:.3g})")
+          f"{resumed_losses[-1]} vs deterministic uninterrupted {det_losses[-1]} "
+          f"(rel diff {resume_rel:.3g})")
     return result
 
 
@@ -2310,7 +2342,8 @@ def run(dev) -> None:
                      "roi_crop_pyramid": eval_counts["roi_crop_pyramid"],
                      "roi_crop_pyramid_bf16": eval_counts["roi_crop_pyramid_bf16"],
                      "stem": eval_counts["stem"], "silu_bf16": eval_counts["silu_bf16"],
-                     "sigmoid_bf16": eval_counts["sigmoid_bf16"]}
+                     "sigmoid_bf16": eval_counts["sigmoid_bf16"],
+                     "act_bf16_bwd": eval_counts["silu_bf16_bwd"]}
     # the e2e CLI phase's full-width launches (both runs, zeroed before each):
     # K1 at K=512, K2 dense at B=8 on 2048x2048 frames (the float32 run), K2
     # pyramid in its bf16 mode (the bf16 run)
@@ -2324,13 +2357,15 @@ def run(dev) -> None:
                     "roi_crop_pyramid": cli_sum("roi_crop_pyramid"),
                     "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
                     "stem": cli_sum("stem"), "silu_bf16": cli_sum("silu_bf16"),
-                    "sigmoid_bf16": cli_sum("sigmoid_bf16")}
+                    "sigmoid_bf16": cli_sum("sigmoid_bf16"),
+                    "act_bf16_bwd": cli_sum("silu_bf16_bwd")}
     # the convert phase's full-width e2e run over the emitted NCNN pairs
     conv_counts = convert["e2e"]["launches"]
     convert_launches = {"nms_suppress": 0, "nms_suppress_k512": conv_counts["nms_suppress"],
                         "roi_crop_dense": 0, "roi_crop_dense_b8": conv_counts["roi_crop_dense"],
                         **{k: conv_counts[k] for k in ("roi_crop_pyramid", "roi_crop_pyramid_bf16",
-                                                       "stem", "silu_bf16", "sigmoid_bf16")}}
+                                                       "stem", "silu_bf16", "sigmoid_bf16")},
+                        "act_bf16_bwd": conv_counts["silu_bf16_bwd"]}
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
 
@@ -2422,9 +2457,9 @@ def run(dev) -> None:
                       "silu_bf16": tl["silu_bf16"], "sigmoid_bf16": tl["sigmoid_bf16"],
                       "act_bf16_bwd": tl["silu_bf16_bwd"]}
     for k in kernels:
-        k["eval_launches"] = eval_launches.get(k["name"], 0)
-        k["e2e_cli_launches"] = cli_launches.get(k["name"], 0)
-        k["convert_launches"] = convert_launches.get(k["name"], 0)
+        k["eval_launches"] = eval_launches[k["name"]]
+        k["e2e_cli_launches"] = cli_launches[k["name"]]
+        k["convert_launches"] = convert_launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,

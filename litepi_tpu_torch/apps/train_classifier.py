@@ -157,13 +157,14 @@ def main(argv=None) -> int:
             state, m = classifier_train_step(model, tx, state, tb, gen)
             losses.append(m["loss"])
             accs.append(m["accuracy"])
+        mean_loss = float(np.mean([float(l) for l in losses]))  # waits for the steps
+        t1 = time.perf_counter()
         val_loss, val_acc = validate()
-        dt = time.perf_counter() - t0
-        mean_loss = float(np.mean([float(l) for l in losses]))
+        dt, val_dt = time.perf_counter() - t0, time.perf_counter() - t1
         print(
             f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
             f"acc {float(np.mean([float(a) for a in accs])):.4f}  "
-            f"val_loss {val_loss:.4f}  val_acc {val_acc:.4f}  ({dt:.1f}s)"
+            f"val_loss {val_loss:.4f}  val_acc {val_acc:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)"
         )
         score = val_loss if val_loss == val_loss else mean_loss
         if score < best_val:

@@ -273,11 +273,12 @@ def main(argv=None) -> int:
                 model, tx, state, to_device_batch(batch, device), cfg=cfg
             )
             losses.append(metrics["loss"])
-        mean_loss = float(np.mean([float(l) for l in losses]))
+        mean_loss = float(np.mean([float(l) for l in losses]))  # waits for the steps
+        t1 = time.perf_counter()
         val_map = validate(args, cfg, model, state, custom_model, device)
-        dt = time.perf_counter() - t0
+        dt, val_dt = time.perf_counter() - t0, time.perf_counter() - t1
         print(f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
-              f"val mAP50 {val_map:.4f}  ({dt:.1f}s)")
+              f"val mAP50 {val_map:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)")
         score = val_map if val_map == val_map else -mean_loss  # NaN -> loss
         if score > best_map:
             best_map, best_epoch = score, epoch

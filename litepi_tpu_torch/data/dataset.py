@@ -266,7 +266,10 @@ class CropClassificationDataset:
 
 class Prefetcher:
     """Background-thread batch prefetcher: overlaps host decode/augment with
-    device steps (the double-buffered host->HBM feed, in its host half)."""
+    device steps (the double-buffered host->HBM feed, in its host half).
+    An exception the iterator raises (a corrupt image, a bad label) is
+    raised again by ``__next__`` in the consumer's thread, so the epoch
+    fails instead of ending short."""
 
     def __init__(self, iterator: Iterator, depth: int = 2) -> None:
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -280,6 +283,8 @@ class Prefetcher:
         try:
             for item in iterator:
                 self._q.put(item)
+        except BaseException as e:  # handed to the consumer
+            self._q.put(_Failed(e))
         finally:
             self._q.put(self._sentinel)
 
@@ -289,5 +294,15 @@ class Prefetcher:
     def __next__(self):
         item = self._q.get()
         if item is self._sentinel:
+            self._q.put(item)  # later calls stop too
             raise StopIteration
+        if isinstance(item, _Failed):
+            raise item.error
         return item
+
+
+class _Failed:
+    """The exception a :class:`Prefetcher`'s worker thread caught."""
+
+    def __init__(self, error: BaseException) -> None:
+        self.error = error

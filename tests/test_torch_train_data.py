@@ -139,6 +139,22 @@ def test_prefetcher_keeps_order():
     _equal(list(pd.Prefetcher(iter(items), depth=2)), items)
 
 
+def test_prefetcher_raises_the_worker_error():
+    """A batch that fails to load fails the epoch, after the batches that
+    came before it, instead of ending it short."""
+
+    def batches():
+        yield {"i": np.zeros(3)}
+        raise ValueError("corrupt image f001.jpg")
+
+    it = pd.Prefetcher(batches(), depth=2)
+    _equal([next(it)], [{"i": np.zeros(3)}])
+    with pytest.raises(ValueError, match="corrupt image"):
+        next(it)
+    with pytest.raises(StopIteration):
+        next(it)
+
+
 def test_ablation_configs_equal_jax():
     from litepi_tpu.core.types import ablation_configs as jgrid
     from litepi_tpu_torch.core.types import ablation_configs as pgrid
