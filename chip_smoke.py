@@ -160,7 +160,31 @@ source, in parallel), then:
    the NMS kernel on validation's own inputs (the first validation batch,
    K=512, the last weights) bit-equal to ``suppress_sorted``; and the
    classifier (``apps/train_classifier.py``, ShuffleNetV2-91, 64, B=128,
-   3 steps, validation).
+   3 steps, validation);
+13. the baselines: Faster R-CNN-ResNet50-FPN (640, 1 foreground class,
+   1,024 / 256 proposals) and SSD300-VGG16.  Card vs CPU (float32, TF32
+   off, B=2): Faster R-CNN's forward at 640 (outputs within 1e-4 of their
+   scale, ``proposal_valid`` equal) and one train step of each (Faster
+   R-CNN at 640, SSD300 at 300, the sampling draws given): loss 1e-5
+   relative, gradient leaves 1e-3 of their scale, parameters 1e-5; each
+   bf16 train step at B=8 timed on device batches (ms, host issue ms);
+   both models' bf16 inference at B=8 (``detector_bench.make_harness``:
+   ``infer`` + ``post``) issued under ``set_sync_debug_mode("error")``, the
+   NMS kernel on that run's own inputs (the RPN's (8, 1,024) candidates,
+   the final class-aware NMS at K=256 of each) bit-equal to
+   ``suppress_sorted``, the RPN's call timed beside its bound and the plain
+   version; the windowed crop (``roi_impl="windowed"``) card vs CPU on B=8
+   1080x1920 frames in float32 and bf16 within ROI_TOL, and its dense
+   fallback on 128x128 frames launching the ROI kernel once; then, with
+   the launch counts zeroed before each and summed: the training CLI
+   (``apps/train_baselines.py --device cuda``, B=8, bf16, the recipes'
+   optimizers) for each model on synthetic labelled JPEGs, 2 epochs of 3
+   steps with validation, ``results.json`` with the JAX CLI's keys; the
+   detector bench (``bench/detector_bench.py --checkpoint``) on each run's
+   ``last`` weights with the validation set's mAP columns; and the fair
+   benchmark of all eight variants at batch 1 and 8 (bf16, warmup 5, timed
+   20, pre / infer / post ms and device ms, FPS), each row printed as a
+   JSON line with the card's name and power limit.
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -176,9 +200,11 @@ bounds from this run's inputs against the H100 SXM's published 3.35 TB/s
 and 67 TFLOP/s float32; ``eval_launches`` the eval phase's full-width
 launches on the entry of their shape, ``e2e_cli_launches`` the e2e CLI
 phase's, ``convert_launches`` the convert phase's, ``train_launches`` the
-training phase's; the act kernel's backward has a row of its own), an
+training phase's, ``baseline_launches`` the baselines phase's; the act
+kernel's backward has a row of its own, and K1 a row at the RPN's (8,
+1,024), which takes every K1 launch of the baselines phase), an
 ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
-"training": ...}`` JSON line, and
+"training": ..., "baselines": ...}`` JSON line, and
 last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
@@ -376,6 +402,20 @@ TRAIN_DET_EPOCHS, TRAIN_DET_STEPS = 2, 4
 TRAIN_DET_IMAGES, TRAIN_DET_VAL_IMAGES, TRAIN_FRAME = 64, 32, (480, 640)
 TRAIN_CLS_BATCH, TRAIN_CLS_STEPS, TRAIN_CLS_CROPS = 128, 3, 3
 TRAIN_TIMED_STEPS = 5
+# the baselines phase: Faster R-CNN-ResNet50-FPN at the reference recipe
+# (640, B=8, 1 foreground class, 1,024 / 256 proposals, bf16, SGD) and
+# SSD300-VGG16 (300, B=8, AdamW), each through the training CLI for
+# BASE_EPOCHS epochs of BASE_STEPS steps (cut from 30 epochs) on
+# BASE_IMAGES synthetic JPEGs (BASE_VAL_IMAGES to validate); card vs CPU
+# at B=2; the fair benchmark of every variant at BASE_BENCH_BATCHES; the
+# windowed crop card vs CPU on B=8 1080x1920 frames
+BASE_BATCH, BASE_CHECK_BATCH = 8, 2
+BASE_EPOCHS, BASE_STEPS = 2, 3
+BASE_IMAGES, BASE_VAL_IMAGES = 32, 8
+BASE_BENCH_BATCHES = (1, 8)
+BASE_TIMED_STEPS = 3
+BASE_REL_TOL = 1e-4  # card vs CPU float32 forward, relative to each output's scale
+BASE_STEP_SIZE = 320  # Faster R-CNN's float64 card-vs-CPU step (the CPU's float64 convs are slow)
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
@@ -2284,6 +2324,326 @@ def training_phase(dev, root: str) -> dict:
     return result
 
 
+# --------------------------------------------------------------------- #
+# the baselines: Faster R-CNN, SSD300, their CLI, both benches          #
+# --------------------------------------------------------------------- #
+
+class NmsRecorder:
+    """Stands in for ``suppress`` in a module: records each call's inputs
+    (cloned) and calls the real one."""
+
+    def __init__(self, module):
+        self.module, self.real, self.calls = module, module.suppress, []
+
+    def __enter__(self):
+        def record(boxes, valid, cls, thr):
+            self.calls.append((boxes.clone(), valid.clone(), cls.clone(), thr))
+            return self.real(boxes, valid, cls, thr)
+
+        self.module.suppress = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.suppress = self.real
+
+
+def nms_keep_check(call, what: str) -> dict:
+    """The NMS kernel against ``suppress_sorted`` on one recorded call's
+    inputs: bit-equal or the run fails."""
+    boxes, valid, cls, thr = call
+    keep = nms_suppress_cuda(boxes, cls.to(torch.int32), valid, thr)
+    want = suppress_sorted(boxes, valid, cls, thr)
+    torch.cuda.synchronize()
+    bad = int((keep != want).sum())
+    if bad or not bool(valid.any()):
+        fail(f"{what}: {bad} NMS keep bits differ from suppress_sorted, {int(valid.sum())} valid")
+    r = dict(shape=list(valid.shape), valid=int(valid.sum()), kept=int(keep.sum()),
+             classes=int(cls.unique().numel()), mismatches=0)
+    print(f"{what}: the NMS kernel equals suppress_sorted on its own inputs {r}")
+    return r
+
+
+def baseline_card_vs_cpu(dev) -> dict:
+    """Faster R-CNN's float32 forward at 640, B=2 (eval mode, TF32 off) on
+    the card vs the CPU, the CPU on the card's proposal choices (top-k,
+    NMS keep mask, survivors: ``FasterRCNN.forward(selection=...)``; how
+    many of the CPU's own choices differ is printed): RPN outputs,
+    proposals, scores and box-head outputs within BASE_REL_TOL of each
+    output's scale; then one train step of each baseline (Faster R-CNN at
+    BASE_STEP_SIZE on the card's choices, SSD300 at 300, B=2, the sampling
+    draws given) card vs CPU at the detector step's tolerances: loss 1e-5
+    relative, every gradient leaf within 1e-3 of its largest element, the
+    parameters after the step within 1e-5.  The step runs in float64: in
+    float32 each baseline's gradient is in part rounding noise (on the CPU
+    the port's own float32 gradient stands up to 68% of a leaf's scale from
+    its float64 gradient for Faster R-CNN at 640, B=2, 0.45% for SSD300, and
+    the float32 Faster R-CNN step's leaves stood 24% apart card vs CPU),
+    which no tolerance of 1e-3 can hold; the model's float32 casts (the
+    RPN's and the box head's outputs) stay."""
+    from litepi_tpu_torch.train.baselines import baseline_loss, create_baseline_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    result = {}
+    outs, choices = {}, {}
+    x = torch.rand(BASE_CHECK_BATCH, 3, 640, 640, generator=torch.Generator().manual_seed(9))
+    for key, where in (("card", dev), ("cpu", cpu)):
+        state, _ = create_baseline_train_state("faster_rcnn", 1, 640, seed=8,
+                                               dtype=torch.float32, device=where)
+        model = state.model.eval()
+        with torch.no_grad():
+            if key == "cpu":  # its own choices, then the card's
+                model(x)
+                choices["cpu"] = [t.clone() for t in model.last_selection]
+            given = None if key == "card" else [t.to(where) for t in choices["card"]]
+            outs[key] = {k: v.cpu() for k, v in model(x.to(where), selection=given).items()}
+            if key == "card":
+                choices["card"] = [t.cpu() for t in model.last_selection]
+    want, got = outs["cpu"], outs["card"]
+    # near-tie objectness scores (within the card-vs-CPU noise of each other
+    # among 204,600 anchors) may pick either candidate: counted, and the
+    # outputs compared on the card's choices
+    differ = {name: int((a != b).sum()) for name, a, b in
+              zip(("topk", "keep", "selected"), choices["card"], choices["cpu"])}
+    errs = {}
+    for k in ("rpn_obj", "rpn_deltas", "proposals", "proposal_scores", "roi_cls", "roi_reg"):
+        errs[k] = float((got[k] - want[k]).abs().max() / want[k].abs().max())
+        if errs[k] > BASE_REL_TOL:
+            fail(f"faster_rcnn forward card vs CPU: {k} {errs[k]}")
+    result["frcnn_forward"] = dict(batch=BASE_CHECK_BATCH, size=640, rel_err=errs,
+                                   valid=int(want["proposal_valid"].sum()),
+                                   own_choices_differ=differ)
+    print(f"faster_rcnn float32 forward 640x640 B={BASE_CHECK_BATCH} card vs CPU on the card's "
+          f"proposal choices: {errs}; the CPU's own choices differ in {differ}")
+
+    for arch, size in (("faster_rcnn", BASE_STEP_SIZE), ("ssd300", 300)):
+        runs = {}
+        batch_cpu = detector_batch(cpu, BASE_CHECK_BATCH, size, torch.Generator().manual_seed(10))
+        batch_cpu = {k: v.double() if v.is_floating_point() else v for k, v in batch_cpu.items()}
+        # the sampling draws (B, A) twice and (B, R) twice, given to both sides
+        n_anchors = sum(3 * (size // st) ** 2 for st in (4, 8, 16, 32, 64))
+        dgen = torch.Generator().manual_seed(12)
+        draws = [torch.rand(shape, generator=dgen, dtype=torch.float64) for shape in
+                 ((BASE_CHECK_BATCH, n_anchors),) * 2 + ((BASE_CHECK_BATCH, 256),) * 2]
+        selection = None
+        for key, where in (("card", dev), ("cpu", cpu)):
+            state, tx = create_baseline_train_state(arch, 1, size, seed=11, lr=1e-4, epochs=30,
+                                                    steps_per_epoch=10, dtype=torch.float64,
+                                                    device=where)
+            state.model.double()
+            batch = {k: v.to(where) for k, v in batch_cpu.items()}
+            d = [t.to(where) for t in draws] if arch == "faster_rcnn" else None
+            given = None if selection is None else [t.to(where) for t in selection]
+            loss, _, _ = baseline_loss(state, batch, d, given)
+            if arch == "faster_rcnn" and key == "card":
+                selection = [t.cpu() for t in state.model.last_selection]
+            params = list(state.model.parameters())
+            grads = torch.autograd.grad(loss, params)
+            tx.update_(params, grads, state.opt_state, 0)
+            runs[key] = (float(loss.detach()), [g.cpu() for g in grads],
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()})
+        (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = runs["cpu"], runs["card"]
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                       for a, b in zip(g_dev, g_cpu))
+        param_err = max(float(((p_dev[k] - p_cpu[k]).abs() / (1 + p_cpu[k].abs())).max())
+                        for k in p_cpu)
+        r = dict(loss=l_dev, loss_rel_err=loss_rel, grad_worst_leaf_rel_err=grad_rel,
+                 param_max_err=param_err, leaves=len(g_cpu))
+        print(f"{arch} float64 train step card vs CPU ({size}x{size}, B={BASE_CHECK_BATCH}): "
+              f"{json.dumps(r)}")
+        if not (loss_rel <= 1e-5 and grad_rel <= 1e-3 and param_err <= 1e-5):
+            fail(f"{arch} float64 train step card vs CPU: {r}")
+        result[f"{arch}_step"] = r
+    return result
+
+
+def time_baseline_steps(dev) -> dict:
+    """Each baseline's bf16 train step at the recipe's full width on device
+    batches (B=8; Faster R-CNN at 640 with 1,024 / 256 proposals, SSD300 at
+    300): CUDA events, the median of WINDOWS windows of BASE_TIMED_STEPS
+    steps, and the host's time to issue one step."""
+    from litepi_tpu_torch.train.baselines import baseline_train_step, create_baseline_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    r = {}
+    for arch, size in (("faster_rcnn", 640), ("ssd300", 300)):
+        torch.cuda.reset_peak_memory_stats()
+        state, tx = create_baseline_train_state(arch, 1, size, seed=0, lr=1e-4, epochs=30,
+                                                steps_per_epoch=100, device=dev)
+        batch = detector_batch(dev, BASE_BATCH, size, gen)
+        draws = torch.Generator(device=dev).manual_seed(14)
+        step = lambda: baseline_train_step(state, tx, batch, draws)  # noqa: E731
+        ms, windows = median_ms(step, BASE_TIMED_STEPS, 2)
+        host = host_ms(step, 2)
+        r[arch] = dict(size=size, batch=BASE_BATCH, ms=ms, windows=windows, host_ms=host,
+                       images_per_s=BASE_BATCH / ms * 1e3,
+                       peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"{arch} bf16 train step ({size}x{size}, B={BASE_BATCH}): {ms:.3f} ms "
+              f"(windows {windows}), host issue {host:.3f} ms, "
+              f"{r[arch]['images_per_s']:.1f} images/s")
+        del state, tx, batch
+    return r
+
+
+def baseline_inference(dev) -> dict:
+    """Faster R-CNN (640) and SSD300 at B=8 in bf16 through
+    ``detector_bench.make_harness``: ``infer`` + ``post`` issued under
+    ``set_sync_debug_mode("error")``; the NMS kernel on its own inputs of
+    that run (the RPN's (8, 1,024) candidates of 1 class, the final
+    class-aware NMS at K=256 of each model) bit-equal to
+    ``suppress_sorted``; the RPN's call timed (``ms``, ``device_ms``,
+    ``host_ms``) beside its bound and the plain version."""
+    from litepi_tpu_torch.bench.detector_bench import make_harness
+    from litepi_tpu_torch.models import faster_rcnn as frcnn_mod
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    result = {}
+    for variant in ("faster_rcnn", "ssd300"):
+        h = make_harness(variant, 640, "bfloat16", seed=0, num_classes=1, conf=0.05, device=dev)
+        frames = torch.randint(0, 256, (BASE_BATCH, 640, 640, 3), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        with torch.inference_mode():
+            x = h.pre(frames)
+            h.post(h.infer(x))  # warm-up (cuDNN's algorithm choice)
+            torch.cuda.synchronize()
+            with NmsRecorder(frcnn_mod) as rpn, NmsRecorder(nms_ops) as final:
+                out, counts = issue_sync_free(lambda: h.post(h.infer(x)), f"{variant} infer + post")
+        if counts["nms_suppress"] < 1 or counts["stem"]:
+            fail(f"{variant} inference: launch counts {counts}")
+        b, s, c, v = out
+        if not bool(torch.isfinite(b).all()) or tuple(b.shape) != (BASE_BATCH, 64, 4):
+            fail(f"{variant} inference: boxes not finite of shape ({BASE_BATCH}, 64, 4)")
+        r = dict(launches=counts, detections=int(v.sum()),
+                 final_nms=nms_keep_check(final.calls[0], f"{variant} final NMS"))
+        if variant == "faster_rcnn":
+            call = rpn.calls[0]
+            r["rpn_nms"] = nms_keep_check(call, "faster_rcnn RPN NMS")
+            boxes, valid, cls, thr = call
+            cls32 = cls.to(torch.int32)
+            fn = lambda: nms_suppress_cuda(boxes, cls32, valid, thr)  # noqa: E731
+            plain = lambda: suppress_sorted(boxes, valid, cls, thr)  # noqa: E731
+            r["rpn_nms_timing"] = dict(
+                ms=median_ms(fn, 100)[0], device_ms=device_ms(fn, 100, "nms_"),
+                host_ms=host_ms(fn, 100), plain_ms=median_ms(plain, 3, 1)[0],
+                bound=nms_bound(boxes, cls32, valid), library_ms=None)
+            print(f"faster_rcnn RPN NMS (B, K) = {list(valid.shape)}: "
+                  f"{json.dumps(r['rpn_nms_timing'])}")
+        print(f"{variant} bf16 inference B={BASE_BATCH}: infer + post issued without a host "
+              f"synchronisation; {r['detections']} detections; launch counts {counts}")
+        result[variant] = r
+    return result
+
+
+def baseline_windowed(dev) -> dict:
+    """``roi_impl="windowed"``'s crop card vs CPU on B=8 1080x1920 frames
+    (boxes from 8 to 400 pixels: the window's own taps and the pyramid
+    levels) in float32 and with bf16 rounding, within ROI_TOL; then on
+    128x128 frames, no larger than the window, where it is the dense crop:
+    the ROI kernel launched once."""
+    from litepi_tpu_torch.ops.roi import crop_and_resize_windowed
+
+    gen = torch.Generator().manual_seed(16)
+    frames = torch.randint(0, 256, (8, 1080, 1920, 3), generator=gen, dtype=torch.uint8)
+    xy = torch.rand(8, 8, 2, generator=gen) * torch.tensor([1400.0, 600.0])
+    side = 8 + torch.rand(8, 8, 2, generator=gen) * 392
+    boxes = torch.cat([xy, xy + side], -1)
+    valid = torch.rand(8, 8, generator=gen) > 0.1
+    r = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        want = crop_and_resize_windowed(frames, boxes, valid, 64, dtype)
+        got = crop_and_resize_windowed(frames.to(dev), boxes.to(dev), valid.to(dev), 64,
+                                       dtype).cpu()
+        err = float((got - want).abs().max())
+        if err > ROI_TOL:
+            fail(f"windowed crop ({dtype}) card vs CPU: max err {err}")
+        r[str(dtype).split(".")[-1]] = err
+    small = frames[:, :128, :128].contiguous().to(dev)
+    reset_launch_counts()
+    crop_and_resize_windowed(small, (boxes % 120).to(dev), valid.to(dev), 64)
+    n = launch_counts()["roi_crop_dense"]
+    torch.cuda.synchronize()
+    if n != 1:
+        fail(f"windowed crop on 128x128 frames launched the ROI kernel {n} times, not once")
+    r["small_frame_roi_launches"] = n
+    print(f"windowed crop card vs CPU (B=8, 1080x1920, D=8): max err {r}")
+    return r
+
+
+def bench_rows(text: str) -> list:
+    rows = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if not rows:
+        fail("detector bench printed no row")
+    return rows
+
+
+def baselines_phase(dev, root: str, smi: str) -> dict:
+    """The baselines at full width (see the module docstring, step 13)."""
+    from litepi_tpu_torch.apps import train_baselines
+    from litepi_tpu_torch.bench import detector_bench
+
+    t0 = time.perf_counter()
+    result = {"card_vs_cpu": baseline_card_vs_cpu(dev), "steps": time_baseline_steps(dev),
+              "inference": baseline_inference(dev), "windowed": baseline_windowed(dev)}
+    rng = np.random.default_rng(24)
+    train_dir = write_detection_set(os.path.join(root, "base_train"), BASE_IMAGES, rng)
+    val_dir = write_detection_set(os.path.join(root, "base_val"), BASE_VAL_IMAGES, rng)
+    launches = {k: 0 for k in launch_counts()}
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        for k, v in launch_counts().items():
+            launches[k] += v
+        return out
+
+    clis, benches = {}, {}
+    for arch in ("faster_rcnn", "ssd300"):
+        out_dir = os.path.join(root, f"base_{arch}")
+        argv = ["--arch", arch, "--images", train_dir[0], "--labels", train_dir[1],
+                "--val_images", val_dir[0], "--val_labels", val_dir[1], "--batch",
+                str(BASE_BATCH), "--epochs", str(BASE_EPOCHS), "--steps_per_epoch",
+                str(BASE_STEPS), "--max_gt", str(TRAIN_MAX_GT), "--patience", "99",
+                "--output", out_dir, "--device", dev.type]
+        t1 = time.perf_counter()
+        text = counted(lambda: run_cli(train_baselines.main, argv, f"train_baselines {arch}"))
+        seconds = time.perf_counter() - t1
+        with open(os.path.join(out_dir, "results.json")) as f:
+            res = json.load(f)
+        if sorted(res) != ["arch", "best_epoch", "best_score", "epochs_run"] \
+                or res["epochs_run"] != BASE_EPOCHS:
+            fail(f"train_baselines {arch}: results.json {res}")
+        epochs = epoch_seconds(text, f"train_baselines {arch}")
+        clis[arch] = dict(seconds=seconds, epoch_losses=epoch_losses(text, arch), results=res,
+                          epoch_seconds=[a for a, _ in epochs],
+                          validation_seconds=[b for _, b in epochs])
+        bench_argv = ["--variants", arch, "--checkpoint", os.path.join(out_dir, "last"),
+                      "--images", val_dir[0], "--labels", val_dir[1], "--device", dev.type]
+        row = bench_rows(counted(lambda: run_cli(detector_bench.main, bench_argv,
+                                                 f"detector_bench --checkpoint {arch}")))[0]
+        for key in ("mAP50", "mAP50_95", "precision", "recall", "fps"):
+            if not np.isfinite(row[key]):
+                fail(f"detector_bench {arch}: {key} {row[key]}")
+        benches[arch] = row
+        print(json.dumps({"baseline_checkpoint_bench": row, "card": smi}))
+    fair = []
+    for b in BASE_BENCH_BATCHES:
+        rows = counted(lambda: detector_bench.run_fair_benchmark(
+            detector_bench.ALL_VARIANTS, batch=b, device=dev))
+        for row in rows:
+            print(json.dumps({"fair_benchmark": row, "card": smi}))
+        fair += rows
+    if launches["nms_suppress"] < 1 or launches["stem"]:
+        fail(f"baselines phase: launch counts {launches}")
+    result.update(cli=clis, checkpoint_bench=benches, fair_benchmark=fair, launches=launches,
+                  seconds=time.perf_counter() - t0)
+    print(f"baselines phase (card vs CPU, timed steps, inference, windowed crop, both CLIs, "
+          f"both checkpoint benches, the fair benchmark at B={BASE_BENCH_BATCHES}): "
+          f"{result['seconds']:.1f} s; launches {launches}")
+    return result
+
+
 def run(dev) -> None:
     """Every phase on ``dev``; prints the kernels and e2e JSON lines and the
     card's name and power limit.  Raises on any failure."""
@@ -2318,6 +2678,7 @@ def run(dev) -> None:
         cli, files = e2e_cli_phase(dev, root)
         convert = convert_phase(dev, cli, files, root)
         training = training_phase(dev, root)
+        baselines = baselines_phase(dev, root, smi)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
@@ -2461,10 +2822,32 @@ def run(dev) -> None:
         k["e2e_cli_launches"] = cli_launches[k["name"]]
         k["convert_launches"] = convert_launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
+    # the baselines phase's launches (both CLIs, both checkpoint benches, the
+    # fair benchmark): K1 at K=1,024 (the RPN), 256 (the final NMS and the
+    # YOLO variants) and 1,024 class-aware (SSD300's evaluation) all count on
+    # the RPN row, its own shape
+    bl = baselines["launches"]
+    baseline_launches = {"nms_suppress": 0, "nms_suppress_k512": 0,
+                         "nms_suppress_rpn_k1024": bl["nms_suppress"],
+                         "roi_crop_dense": 0, "roi_crop_dense_b8": bl["roi_crop_dense"],
+                         "roi_crop_pyramid": bl["roi_crop_pyramid"],
+                         "roi_crop_pyramid_bf16": bl["roi_crop_pyramid_bf16"], "stem": bl["stem"],
+                         "silu_bf16": bl["silu_bf16"], "sigmoid_bf16": bl["sigmoid_bf16"],
+                         "act_bf16_bwd": bl["silu_bf16_bwd"]}
+    rpn = baselines["inference"]["faster_rcnn"]
+    kernels.insert(2, entry(
+        "nms_suppress_rpn_k1024", "nms.cu", nms_at, bl["nms_suppress"], rpn["rpn_nms_timing"], 0,
+        "B={} K={}, 1 class, Faster R-CNN RPN proposals".format(*rpn["rpn_nms"]["shape"]),
+        rpn_valid=rpn["rpn_nms"]["valid"], rpn_kept=rpn["rpn_nms"]["kept"],
+        final_nms_mismatches={k: v["final_nms"]["mismatches"]
+                              for k, v in baselines["inference"].items()},
+        eval_launches=0, e2e_cli_launches=0, convert_launches=0, train_launches=0))
+    for k in kernels:
+        k["baseline_launches"] = baseline_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
                       "eval": evaluation, "e2e_cli": cli, "convert": convert,
-                      "training": training, "power": smi_after}))
+                      "training": training, "baselines": baselines, "power": smi_after}))
     print(smi_after)
 
 

@@ -125,8 +125,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument(
         "--roi_impl", default="dense", choices=["dense", "windowed", "pallas"],
-        help="fused-path ROI crop: dense, or pallas (the pyramid crop); "
-        "windowed is not ported",
+        help="fused-path ROI crop: dense, pallas (the pyramid crop) or "
+        "windowed (the JAX package's windowed crop; the dense one on small frames)",
     )
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument(
@@ -350,10 +350,6 @@ def build_pipeline(args: argparse.Namespace):
     (completed in place: ``detector_variant``, ``num_classes``), with the
     TF32 flags of ``--matmul_precision`` set; a message (str) where a flag
     or an artifact is refused."""
-    if args.roi_impl == "windowed":
-        return ("--roi_impl windowed is not ported to PyTorch (ROADMAP queue 1, "
-                "M10); use dense or pallas")
-
     # infer the variant from a deployed graph's topology, so that
     # --detector_variant can stay unset (the reference CLI has no such flag)
     probe = None

@@ -181,8 +181,9 @@ class PipelineConfig:
     # the port takes its compute dtype as a constructor argument instead
     compute_dtype: str = "bfloat16"
     # ROI crop of the fused path.  In the port "dense" is the ROI kernel's
-    # exact 2-tap mode (any box size) and "pallas" its 4^k pyramid mode;
-    # "windowed" is not ported and raises.
+    # exact 2-tap mode (any box size), "pallas" its 4^k pyramid mode and
+    # "windowed" the JAX package's windowed crop (stock torch, ``roi_window``
+    # wide; the dense crop on frames no larger than the window).
     roi_impl: str = "dense"
     roi_window: int = 128
     # images per sequential step of the JAX dense crop: a TPU loop-shape

@@ -53,6 +53,21 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def batch_norm_flax(bn: nn.BatchNorm2d, x: torch.Tensor, training: bool) -> torch.Tensor:
+    """``bn`` as flax's ``nn.BatchNorm(dtype=x.dtype)`` computes in either
+    mode: in train mode :func:`batch_norm_train`; in eval mode the running
+    statistics in ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
+    computed in float32 (float64 for a float64 input) and cast to ``x``'s
+    dtype.  torch's eval-mode BatchNorm folds ``weight * rsqrt(var + eps)``
+    into a scale and shift first, which rounds otherwise in bf16."""
+    if training:
+        return batch_norm_train(bn, x)
+    xf = at_least_float32(x)
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    y = (xf - bn.running_mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
 class Dropout(nn.Module):
     """flax's ``nn.Dropout``: in train mode each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, in the

@@ -39,3 +39,32 @@ def clip_boxes(boxes: torch.Tensor, w, h) -> torch.Tensor:
     x2 = torch.clamp(boxes[..., 2], 0.0, float(w))
     y2 = torch.clamp(boxes[..., 3], 0.0, float(h))
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def box_iou_signed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``box_iou``, which the baselines' losses match
+    with: pairwise IoU (..., M, N) with the areas *not* clamped
+    (:func:`box_iou` clamps them, as the NMS kernel does); the two differ
+    only for inverted boxes."""
+    a = a[..., :, None, :]
+    b = b[..., None, :, :]
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area_a + area_b - inter + EPS)
+
+
+def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], dim=-1)
+
+
+def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
+    cx, cy, w, h = boxes.unbind(-1)
+    hw, hh = w * 0.5, h * 0.5
+    return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)

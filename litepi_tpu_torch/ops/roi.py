@@ -15,6 +15,10 @@ tensor and by :func:`crop_and_resize_plain` on a CPU tensor:
   contract: each ROI samples the smallest level of a 4^k average-pooled
   uint8 pyramid on which its extent is at most :data:`EXACT_EXTENT`.
 
+:func:`crop_and_resize_windowed` is the JAX package's windowed XLA crop
+(``roi_impl="windowed"``): stock torch windows, the dense crop (the kernel
+on the card) for frames no larger than its window.
+
 The JAX package's ``roi_chunk`` loop knob has no meaning here (the kernel
 covers every ROI in one launch).  Both crops compute in float32, or, with
 ``compute_dtype=torch.bfloat16``, round where the JAX package's bf16 crops
@@ -32,6 +36,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # extent bound of the JAX pyramid crop (its 128-row slab minus 10 rows of
 # alignment slack); kept so pyramid mode picks the same levels
@@ -234,3 +239,99 @@ def crop_and_resize_pyramid(
     levels = build_pyramid(images, len(pyramid_scales(h, w)))
     return _crop(levels, boxes, valid, out_size, EXACT_EXTENT, "pyramid",
                  compute_dtype == torch.bfloat16)
+
+
+def _window_hat(start, extent, r0, limit, out_size: int, window: int) -> torch.Tensor:
+    """(B, D, out, window) hat weights over the ``window`` lines from ``r0``
+    of each crop's level: the dense crop's weights restricted to that
+    slice (in float32, as the JAX package computes them)."""
+    o = torch.arange(out_size, dtype=torch.float32, device=start.device) + 0.5
+    # true division by a tensor, as axis_taps divides
+    u = o * (extent / torch.full_like(extent, float(out_size)))[..., None] - 0.5 + start[..., None]
+    u = torch.minimum(torch.clamp(u, min=0.0), limit[..., None] - 1.0)
+    grid = r0[..., None, None] + torch.arange(window, dtype=torch.float32, device=start.device)
+    return torch.clamp(1.0 - torch.abs(u[..., None] - grid), min=0.0)
+
+
+def crop_and_resize_windowed(
+    images: torch.Tensor,
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    out_size: int = 64,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    window: int = 128,
+) -> torch.Tensor:
+    """The JAX package's windowed crop (``ops/roi.py::
+    crop_and_resize_windowed``): each crop interpolates inside one
+    (window, window) slice of its frame, or, for a box whose extent exceeds
+    ``window - 3``, of the 4^k average-pooled level that brings it under;
+    for any box of extent <= ``window - 3`` it samples exactly the dense
+    crop's taps.  Frames no larger than the window (or ``window <= 0``) go
+    to the dense :func:`crop_and_resize` — the ROI kernel on the card, as
+    the dense path.  The windows and their two contractions are stock
+    torch (XLA ops on the JAX side), rounded where JAX rounds: levels,
+    weights and the y-stage in ``compute_dtype``, both sums in float32.
+
+    images (B, H, W, C) uint8; boxes (B, D, 4) xyxy; valid (B, D).
+    Returns (B, D, out, out, C) float32, zero at invalid slots."""
+    _check_dtype(compute_dtype)
+    _check_frames(images)
+    h, w = int(images.shape[1]), int(images.shape[2])
+    if window <= 0 or min(h, w) <= window:
+        return crop_and_resize(images, boxes, valid, out_size, compute_dtype=compute_dtype)
+    scales = [1]
+    while max(h, w) // scales[-1] > window:
+        scales.append(scales[-1] * 4)
+    sizes = [(max(h // s, 1), max(w // s, 1)) for s in scales]
+    levels = [images.to(compute_dtype)]
+    for k in range(1, len(scales)):
+        prev = levels[-1].float()
+        b, hp, wp, c = prev.shape
+        hk, wk = hp // 4, wp // 4
+        pooled = prev[:, : hk * 4, : wk * 4].reshape(b, hk, 4, wk, 4, c).sum(dim=(2, 4)) * 0.0625
+        levels.append(pooled.to(compute_dtype))
+    # every level padded to at least (window, window) with zeros, which never
+    # carry weight (sample coordinates are clamped to the level's extent)
+    levels = [F.pad(l, (0, 0, 0, max(window - l.shape[2], 0), 0, max(window - l.shape[1], 0)))
+              for l in levels]
+
+    dev = boxes.device
+    n_levels = len(scales)
+    scales_f = torch.tensor(scales, dtype=torch.float32, device=dev)
+    lim_h = torch.tensor([float(s[0]) for s in sizes], device=dev)
+    lim_w = torch.tensor([float(s[1]) for s in sizes], device=dev)
+    x1 = torch.floor(boxes[..., 0])
+    y1 = torch.floor(boxes[..., 1])
+    bw = torch.clamp(torch.floor(boxes[..., 2]) - x1, min=1.0)
+    bh = torch.clamp(torch.floor(boxes[..., 3]) - y1, min=1.0)
+    ext = torch.maximum(bw, bh)
+    lv = (ext[..., None] > (window - 3) * scales_f[:-1]).sum(-1)  # (B, D)
+    s = scales_f[lv]
+    y1s, bhs, x1s, bws = y1 / s, bh / s, x1 / s, bw / s
+    lh, lw = lim_h[lv], lim_w[lv]
+    r0 = torch.minimum(torch.clamp(torch.floor(y1s) - 1.0, min=0.0),
+                       torch.clamp(lh - window, min=0.0))
+    c0 = torch.minimum(torch.clamp(torch.floor(x1s) - 1.0, min=0.0),
+                       torch.clamp(lw - window, min=0.0))
+    wy = _window_hat(y1s, bhs, r0, lh, out_size, window).to(compute_dtype).float()
+    wx = _window_hat(x1s, bws, c0, lw, out_size, window).to(compute_dtype).float()
+
+    # each crop's window from one flat buffer over the padded levels
+    c = images.shape[-1]
+    flat = torch.cat([l.reshape(-1) for l in levels])
+    offsets = torch.tensor([0] + [l.numel() for l in levels], device=dev).cumsum(0)[:-1]
+    per_img = torch.tensor([l.shape[1] * l.shape[2] * c for l in levels], device=dev)
+    widths = torch.tensor([l.shape[2] for l in levels], device=dev)
+    bidx = torch.arange(boxes.shape[0], device=dev)[:, None]
+    base = offsets[lv] + bidx * per_img[lv]  # (B, D)
+    ar = torch.arange(window, device=dev)
+    rows = r0.long()[..., None] + ar  # (B, D, window)
+    cols = c0.long()[..., None] + ar
+    idx = (base[..., None, None, None]
+           + (rows * (widths[lv] * c)[..., None])[..., :, None, None]
+           + (cols * c)[..., None, :, None]
+           + torch.arange(c, device=dev))
+    win = flat[idx.reshape(-1)].reshape(idx.shape).float()  # (B, D, window, window, C)
+    t = torch.einsum("bdow,bdwxc->bdoxc", wy, win).to(compute_dtype).float()
+    crops = torch.einsum("bdpx,bdoxc->bdopc", wx, t)
+    return torch.where(valid[..., None, None, None], crops, 0.0)

@@ -44,7 +44,11 @@ from litepi_tpu_torch.ops.boxes import box_area, clip_boxes
 from litepi_tpu_torch.ops.dfl import decode_candidates, topk_stable
 from litepi_tpu_torch.ops.letterbox import letterbox_nchw, letterbox_params
 from litepi_tpu_torch.ops.nms import nms_sorted
-from litepi_tpu_torch.ops.roi import crop_and_resize, crop_and_resize_pyramid
+from litepi_tpu_torch.ops.roi import (
+    crop_and_resize,
+    crop_and_resize_pyramid,
+    crop_and_resize_windowed,
+)
 from litepi_tpu_torch.ops.stem import ROW_MULTIPLE, fused_stem
 from litepi_tpu_torch.weights.fold_bn import (
     BN_EPS,
@@ -89,12 +93,7 @@ class TwoStagePipeline:
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-        if cfg.roi_impl == "windowed":
-            raise NotImplementedError(
-                "roi_impl='windowed' is not ported (ROADMAP queue 1, M10); "
-                "use 'dense' or 'pallas'"
-            )
-        if cfg.roi_impl not in ("dense", "pallas"):
+        if cfg.roi_impl not in ("dense", "pallas", "windowed"):
             raise ValueError(f"unknown roi_impl {cfg.roi_impl!r}")
         self.cfg = cfg
         self.dtype = dtype
@@ -349,8 +348,12 @@ class TwoStagePipeline:
         """ROI crop (kernel on the card) -> (B, D, c, c, 3) float32 in [0, 1];
         both crops round as the JAX crops in the pipeline's dtype."""
         size = self.cfg.cls_input_size
-        crop = crop_and_resize_pyramid if self.cfg.roi_impl == "pallas" else crop_and_resize
-        crops = crop(frames, boxes, valid, size, compute_dtype=self.dtype)
+        if self.cfg.roi_impl == "windowed":
+            crops = crop_and_resize_windowed(frames, boxes, valid, size, self.dtype,
+                                             self.cfg.roi_window)
+        else:
+            crop = crop_and_resize_pyramid if self.cfg.roi_impl == "pallas" else crop_and_resize
+            crops = crop(frames, boxes, valid, size, compute_dtype=self.dtype)
         return crops * (1.0 / 255.0)
 
     def _classify(self, crops01: torch.Tensor) -> torch.Tensor:

@@ -4,15 +4,18 @@ tensor lists (``torch._foreach_*``, one pass per op over every leaf).
 Each keeps optax's arithmetic in its order: ``clip_by_global_norm``
 (``(g / norm) * max_norm`` where the norm reaches ``max_norm``),
 ``add_decayed_weights`` (``g + wd * p``), ``trace`` with nesterov (``t' =
-g + m * t``, update ``g + m * t'``), ``scale_by_adam`` (moments ``(1 - b) *
-g + b * m``, bias correction ``m / (1 - b^count)``, ``mu / (sqrt(nu) +
-eps)``), the learning rate applied as ``-lr * u``.  Schedules are
-functions of the integer step (``warmup_cosine_decay_schedule``,
-``cosine_decay_schedule``), optax's formulas evaluated in float64 and
-rounded once to float32: XLA rewrites optax's float32 program (a divide by
-a constant becomes a multiply by its reciprocal, constants fold), so its
-values sit within 2 float32 ulps of these.  They go to the device as
-Python floats, so a step needs no host synchronisation.
+g + m * t``, update ``g + m * t'``) or without (update ``t'``: ``sgd``'s
+momentum), ``scale_by_adam`` (moments ``(1 - b) * g + b * m``, bias
+correction ``m / (1 - b^count)``, ``mu / (sqrt(nu) + eps)``), the learning
+rate applied as ``-lr * u``; ``adamw`` is ``scale_by_adam``, then the
+decoupled ``+ wd * p``, then the rate.  Schedules are functions of the
+integer step (``warmup_cosine_decay_schedule``, ``cosine_decay_schedule``,
+``piecewise_constant_schedule``), optax's formulas evaluated in float64 and
+rounded once to float32 (the piecewise one in float32 steps, as optax
+multiplies): XLA rewrites optax's float32 program (a divide by a constant
+becomes a multiply by its reciprocal, constants fold), so its values sit
+within 2 float32 ulps of these.  They go to the device as Python floats, so
+a step needs no host synchronisation.
 """
 
 from __future__ import annotations
@@ -66,6 +69,22 @@ def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.
     return schedule
 
 
+def piecewise_constant_schedule(init_value: float, boundaries_and_scales) -> Schedule:
+    """optax's ``piecewise_constant_schedule``: ``init_value`` times the
+    scale of every boundary the step has reached (``step >= boundary``),
+    multiplied in float32 in boundary order."""
+    pairs = sorted((int(k), float(v)) for k, v in dict(boundaries_and_scales).items())
+
+    def schedule(step: int) -> float:
+        v = np.float32(init_value)
+        for boundary, scale in pairs:
+            if step >= boundary:
+                v = np.float32(v * np.float32(scale))
+        return float(v)
+
+    return schedule
+
+
 def constant_schedule(value: float) -> Schedule:
     return lambda step: _f32(value)
 
@@ -94,6 +113,14 @@ def nesterov_trace(grads: Tensors, trace: Tensors, decay: float) -> Tensors:
     torch._foreach_mul_(trace, decay)
     torch._foreach_add_(trace, grads)  # decay * t + g, as g + decay * t rounds
     return torch._foreach_add(grads, torch._foreach_mul(trace, decay))
+
+
+def momentum_trace(grads: Tensors, trace: Tensors, decay: float) -> Tensors:
+    """optax's ``trace(decay, nesterov=False)`` (``sgd``'s momentum):
+    updates ``trace`` in place to ``g + decay * t`` and returns it."""
+    torch._foreach_mul_(trace, decay)
+    torch._foreach_add_(trace, grads)  # decay * t + g, as g + decay * t rounds
+    return list(trace)
 
 
 def scale_by_adam(

@@ -87,11 +87,10 @@ def state_dict_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     arrays, ``{"params": ..., "batch_stats": ...}`` (no ``batch_stats``
     where the state has no BatchNorm), the inverse of
     :func:`jax_to_state_dict`: a 4-D or 2-D ``weight`` is a kernel, a 1-D
-    one a BatchNorm ``scale`` (its module holds running statistics);
+    one a ``scale`` (a BatchNorm's, or SSD300's ``L2Norm``);
     ``num_batches_tracked`` has no Flax counterpart and is dropped."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    bn_modules = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
     for key, value in state.items():
         module, leaf = key.rsplit(".", 1)
         path = tuple(module.split("."))
@@ -100,7 +99,7 @@ def state_dict_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             continue
         if leaf in ("running_mean", "running_var"):
             _put(stats, path + ({"running_mean": "mean", "running_var": "var"}[leaf],), arr.copy())
-        elif leaf == "weight" and module in bn_modules:
+        elif leaf == "weight" and arr.ndim == 1:
             _put(params, path + ("scale",), arr.copy())
         elif leaf == "weight":
             _put(params, path + ("kernel",), np.ascontiguousarray(_unkernel(arr)))

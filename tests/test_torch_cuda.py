@@ -713,3 +713,89 @@ def test_train_step_launches_the_act_kernel_both_ways(cuda):
     assert counts["silu_bf16"] > 0 and counts["silu_bf16_bwd"] == counts["silu_bf16"]
     assert bool(torch.isfinite(m["loss"]))
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+# ---- the baseline detectors (Faster R-CNN, SSD300) on the card ---------
+
+
+@pytest.mark.gpu
+def test_rpn_nms_on_its_own_candidates_bit_equal(cuda):
+    """Faster R-CNN's RPN at 640 (B=2, 1,024 candidates of 1 class) runs
+    the NMS kernel; on the candidates it was given, the keep mask equals
+    ``suppress_sorted`` bit for bit, and so does the final class-aware
+    NMS's at K=256."""
+    from litepi_tpu_torch.models import faster_rcnn as frcnn_mod
+    from litepi_tpu_torch.ops import nms as nms_ops
+    from litepi_tpu_torch.train.baselines import create_baseline_train_state
+
+    state, _ = create_baseline_train_state("faster_rcnn", 2, 640, seed=0, dtype=torch.float32,
+                                           device=cuda)
+    x = torch.rand(2, 3, 640, 640, generator=torch.Generator(device=cuda).manual_seed(1),
+                   device=cuda)
+    calls = []
+
+    def recorder(module):
+        real = module.suppress
+
+        def record(boxes, valid, cls, thr):
+            calls.append((boxes.clone(), valid.clone(), cls.clone(), thr))
+            return real(boxes, valid, cls, thr)
+        return real, record
+
+    real_rpn, module_rpn = recorder(frcnn_mod)
+    real_final, module_final = recorder(nms_ops)
+    frcnn_mod.suppress, nms_ops.suppress = module_rpn, module_final
+    reset_launch_counts()
+    try:
+        with torch.no_grad():
+            out = state.model.eval()(x)
+            frcnn_mod.postprocess_detections(out, 640)
+    finally:
+        frcnn_mod.suppress, nms_ops.suppress = real_rpn, real_final
+    assert launch_counts()["nms_suppress"] == 2
+    assert [tuple(c[0].shape) for c in calls] == [(2, 1024, 4), (2, 256, 4)]
+    for boxes, valid, cls, thr in calls:
+        got = nms_suppress_cuda(boxes, cls.to(torch.int32), valid, thr)
+        assert bool(valid.any()) and torch.equal(got, suppress_sorted(boxes, valid, cls, thr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,size", [("faster_rcnn", 320), ("ssd300", 300)])
+def test_baseline_train_step_card_vs_cpu(cuda, arch, size):
+    """One train step of each baseline at B=2 on the card and on the CPU
+    from the same weights, batch and sampling draws, in float64 (in
+    float32 the step's gradient is in part rounding noise, up to 68% of a
+    leaf's scale for Faster R-CNN, tests/test_torch_faster_rcnn.py), the
+    CPU's forward on the card's proposal choices (near-tie objectness
+    scores may pick either of two candidates): the loss within 1e-5
+    relative, the parameters after it within 1e-5 (``|card - cpu| / (1 +
+    |cpu|)``)."""
+    from litepi_tpu_torch.train.baselines import baseline_train_step, create_baseline_train_state
+
+    gen = torch.Generator().manual_seed(2)
+    images = torch.rand(2, 3, size, size, generator=gen, dtype=torch.float64)
+    xy = torch.rand(2, 4, 2, generator=gen, dtype=torch.float64) * size * 0.6
+    boxes = torch.cat([xy, xy + 8 + torch.rand(2, 4, 2, generator=gen, dtype=torch.float64)
+                       * size * 0.3], -1)
+    batch = {"images": images, "gt_boxes": boxes,
+             "gt_labels": torch.zeros(2, 4, dtype=torch.int32),
+             "gt_mask": torch.tensor([[True, True, True, False], [True, False, False, False]])}
+    n_anchors = sum(3 * (size // s) ** 2 for s in (4, 8, 16, 32, 64))
+    draws = [torch.rand(shape, generator=gen, dtype=torch.float64)
+             for shape in ((2, n_anchors),) * 2 + ((2, 256),) * 2]
+    runs, selection = [], None
+    for dev in (cuda, torch.device("cpu")):  # the CPU on the card's proposal choices
+        state, tx = create_baseline_train_state(arch, 1, size, seed=3, dtype=torch.float64,
+                                                device=dev)
+        state.model.double()
+        d = [t.to(dev) for t in draws] if arch == "faster_rcnn" else None
+        given = None if selection is None else [t.to(dev) for t in selection]
+        _, m = baseline_train_step(state, tx, {k: v.to(dev) for k, v in batch.items()}, d, given)
+        if arch == "faster_rcnn":
+            selection = [t.cpu() for t in state.model.last_selection]
+        runs.append((float(m["loss"]), {k: p.detach().cpu()
+                                        for k, p in state.model.named_parameters()}))
+    (l_dev, p_dev), (l_cpu, p_cpu) = runs
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    for k in p_cpu:
+        assert float(((p_dev[k] - p_cpu[k]).abs() / (1 + p_cpu[k].abs())).max()) <= 1e-5, k

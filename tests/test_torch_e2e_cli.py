@@ -15,7 +15,8 @@ tests/test_torch_evaluator.py's tolerances (floats 1e-6, counts exact).
 The rc-2 paths give rc 2 and the same key words on stderr on both sides
 (a conflicting ``--detector_variant``, a classifier graph with another
 class count, ``--detector_param`` without ``--detector_bin``); an orbax
-directory and ``--roi_impl windowed`` are the port's own rc-2 paths.  Also:
+directory is the port's own rc-2 path, and ``--roi_impl windowed`` runs on
+both sides with the same metric columns.  Also:
 the port's checkpoint round trip, through the CLI too, and the
 ``--matmul_precision`` mapping.
 """
@@ -248,10 +249,12 @@ def test_rc2_orbax_directory(data, tmp_path, capsys):
         assert flag in lines[0]
 
 
-def test_rc2_roi_impl_windowed(data, tmp_path, capsys):
-    rc, err = _rc2(port_e2e.main, _args(data, tmp_path / "out", "--roi_impl", "windowed"),
-                   capsys)
-    assert rc == 2 and "M10" in err and "windowed" in err
+def test_rc2_roi_impl_windowed(data, tmp_path):
+    """``--roi_impl windowed`` is ported now (the name is the test's
+    history): both CLIs with it write the same metric columns."""
+    outs = _run_both(data, tmp_path, "--detector_param", data["param"], "--detector_bin",
+                     data["bin"], "--classifier", data["pth"], "--roi_impl", "windowed")
+    _assert_same_outputs(outs["port"], outs["jax"], "yolo_plus_v2+shufflenetv2")
 
 
 def test_checkpoint_round_trip(data, tmp_path):

@@ -224,11 +224,18 @@ def test_stages_on_the_same_head_output(variables, frames):
     np.testing.assert_array_equal(got_p.argmax(-1), want_p.argmax(-1))
 
 
-def test_windowed_roi_impl_not_ported(variables):
+def test_windowed_roi_impl_not_ported(variables, frames):
+    """``roi_impl="windowed"`` is ported now (the name is the test's
+    history): run_fused with the windowed crop on the 200x300 frames,
+    larger than its 128 window, matches the JAX package's within the
+    run_fused tolerances."""
     det, clf = variables
-    cfg = port_config(dataclasses.replace(SMALL, roi_impl="windowed"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TwoStagePipeline.from_jax_vars(cfg, det, clf, device="cpu")
+    cfg = dataclasses.replace(SMALL, roi_impl="windowed")
+    want = {k: np.asarray(v) for k, v in JaxPipeline(cfg, det, clf).run_fused(frames, CONF).items()}
+    port = TwoStagePipeline.from_jax_vars(port_config(cfg), det, clf, device="cpu")
+    got = {k: v.numpy() for k, v in port.run_fused(frames, CONF).items()}
+    _compare(got, want)
+    assert want["valid"].any()
 
 
 def test_bfloat16_pipeline_runs(variables, frames):
