@@ -162,12 +162,14 @@ source, in parallel), then:
    classifier (``apps/train_classifier.py``, ShuffleNetV2-91, 64, B=128,
    3 steps, validation);
 13. the baselines: Faster R-CNN-ResNet50-FPN (640, 1 foreground class,
-   1,024 / 256 proposals) and SSD300-VGG16.  Card vs CPU (float32, TF32
-   off, B=2): Faster R-CNN's forward at 640 (outputs within 1e-4 of their
-   scale, ``proposal_valid`` equal) and one train step of each (Faster
-   R-CNN at 640, SSD300 at 300, the sampling draws given): loss 1e-5
-   relative, gradient leaves 1e-3 of their scale, parameters 1e-5; each
-   bf16 train step at B=8 timed on device batches (ms, host issue ms);
+   1,024 / 256 proposals) and SSD300-VGG16.  Card vs CPU (TF32 off,
+   B=2, the CPU on the card's proposal choices): Faster R-CNN's float32
+   forward at 640 (outputs within 1e-4 of their scale, each of the card's
+   top-k picks a near-tie of the CPU's own, its RPN keep mask bit-equal to
+   ``suppress_sorted``) and one float64 train step of each (Faster R-CNN
+   at 320, SSD300 at 300, the sampling draws given): loss 1e-5 relative,
+   gradient leaves 1e-3 of their scale, parameters 1e-5; each bf16 train
+   step at B=8 timed on device batches (ms, host issue ms);
    both models' bf16 inference at B=8 (``detector_bench.make_harness``:
    ``infer`` + ``post``) issued under ``set_sync_debug_mode("error")``, the
    NMS kernel on that run's own inputs (the RPN's (8, 1,024) candidates,
@@ -184,7 +186,9 @@ source, in parallel), then:
    ``last`` weights with the validation set's mAP columns; and the fair
    benchmark of all eight variants at batch 1 and 8 (bf16, warmup 5, timed
    20, pre / infer / post ms and device ms, FPS), each row printed as a
-   JSON line with the card's name and power limit.
+   JSON line with the card's name and power limit.  The timed steps, the
+   bf16 inference, the CLIs and the benches run under the TF32 flags of a
+   fresh process (FRESH_TF32), as a user's process does.
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -202,7 +206,8 @@ launches on the entry of their shape, ``e2e_cli_launches`` the e2e CLI
 phase's, ``convert_launches`` the convert phase's, ``train_launches`` the
 training phase's, ``baseline_launches`` the baselines phase's; the act
 kernel's backward has a row of its own, and K1 a row at the RPN's (8,
-1,024), which takes every K1 launch of the baselines phase), an
+1,024), which holds K1's total over every K of the baselines phase,
+split by K in ``baseline_launches_by_k``), an
 ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
 "training": ..., "baselines": ...}`` JSON line, and
 last
@@ -212,6 +217,7 @@ Exits non-zero without a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import importlib.util
@@ -416,9 +422,25 @@ BASE_BENCH_BATCHES = (1, 8)
 BASE_TIMED_STEPS = 3
 BASE_REL_TOL = 1e-4  # card vs CPU float32 forward, relative to each output's scale
 BASE_STEP_SIZE = 320  # Faster R-CNN's float64 card-vs-CPU step (the CPU's float64 convs are slow)
+# PyTorch's TF32 flags (cuDNN, matmul) as a fresh process has them, read
+# before any phase sets them: the baselines' timed train steps, CLIs and
+# benches run under them, as a user's process does
+FRESH_TF32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def fresh_tf32():
+    """The TF32 flags of a fresh process (FRESH_TF32), the caller's given
+    back on exit."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = FRESH_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -2347,6 +2369,76 @@ class NmsRecorder:
         self.module.suppress = self.real
 
 
+class ProposalChoices:
+    """Stands in for ``topk_stable`` and ``suppress`` in
+    ``models.faster_rcnn``.  Without ``given`` it records a forward's
+    choices (its two top-k picks and its RPN keep mask, in call order);
+    with ``given`` (another forward's record) the forward computes its own
+    choices, keeps them in ``chosen`` and goes on with the given ones, its
+    scores gathered at the given picks, so that two runs whose objectness
+    differs by rounding noise are compared on the same proposals.  Each
+    NMS call's inputs are kept in ``nms_calls`` (``nms_keep_check``)."""
+
+    def __init__(self, given=None):
+        self.given, self.chosen, self.ranked, self.nms_calls = given, [], [], []
+
+    def _choose(self, own):
+        self.chosen.append(own.detach().clone())
+        if self.given is None:
+            return own
+        return self.given[len(self.chosen) - 1].to(own.device)
+
+    def __enter__(self):
+        from litepi_tpu_torch.models import faster_rcnn as frcnn_mod
+
+        self.module, self.real = frcnn_mod, (frcnn_mod.topk_stable, frcnn_mod.suppress)
+        real_topk, real_suppress = self.real
+
+        def topk(x, k):
+            values, idx = real_topk(x, k)
+            picks = self._choose(idx)
+            if picks is idx:
+                return values, idx
+            taken = torch.gather(x, 1, picks)
+            self.ranked.append((taken.detach().cpu(), values.detach().cpu()))
+            return taken, picks
+
+        def supp(boxes, valid, cls, thr):
+            self.nms_calls.append((boxes.clone(), valid.clone(), cls.clone(), thr))
+            return self._choose(real_suppress(boxes, valid, cls, thr))
+
+        frcnn_mod.topk_stable, frcnn_mod.suppress = topk, supp
+        return self
+
+    def __exit__(self, *exc):
+        self.module.topk_stable, self.module.suppress = self.real
+
+    def check_near_ties(self, eps: float, what: str) -> dict:
+        """After a replay: every given top-k pick must be one that an exact
+        top-k of scores ``eps`` away from this run's could make.  At each
+        rank the score this run has at the given pick lies within ``2 *
+        eps`` of this run's own top-k score at that rank (the sorted scores
+        of two runs ``eps`` apart are ``eps`` apart rank by rank), -inf
+        exactly where its own is; ``eps`` is the largest difference of the
+        two runs' objectness.  A wrong pick on the recording side fails.
+        Returns the worst gap and how many choices differ."""
+        worst = 0.0
+        for taken, own in self.ranked:
+            finite = torch.isfinite(own)
+            if not torch.equal(finite, torch.isfinite(taken)):
+                fail(f"{what}: the given top-k picks {int(torch.isfinite(taken).sum())} "
+                     f"finite scores where the own picks {int(finite.sum())}")
+            if bool(finite.any()):
+                gap = (taken[finite].double() - own[finite].double()).abs().max()
+                worst = max(worst, float(gap))
+        differ = {name: int((own.cpu() != given.cpu()).sum()) for name, own, given in
+                  zip(("topk", "keep", "selected"), self.chosen, self.given)}
+        r = dict(worst_rank_gap=worst, bound=2 * eps, own_choices_differ=differ)
+        if worst > 2 * eps:
+            fail(f"{what}: a given top-k pick is no near-tie {r}")
+        return r
+
+
 def nms_keep_check(call, what: str) -> dict:
     """The NMS kernel against ``suppress_sorted`` on one recorded call's
     inputs: bit-equal or the run fails."""
@@ -2366,17 +2458,19 @@ def nms_keep_check(call, what: str) -> dict:
 def baseline_card_vs_cpu(dev) -> dict:
     """Faster R-CNN's float32 forward at 640, B=2 (eval mode, TF32 off) on
     the card vs the CPU, the CPU on the card's proposal choices (top-k,
-    NMS keep mask, survivors: ``FasterRCNN.forward(selection=...)``; how
-    many of the CPU's own choices differ is printed): RPN outputs,
+    NMS keep mask, survivors: :class:`ProposalChoices`): RPN outputs,
     proposals, scores and box-head outputs within BASE_REL_TOL of each
-    output's scale; then one train step of each baseline (Faster R-CNN at
-    BASE_STEP_SIZE on the card's choices, SSD300 at 300, B=2, the sampling
-    draws given) card vs CPU at the detector step's tolerances: loss 1e-5
-    relative, every gradient leaf within 1e-3 of its largest element, the
-    parameters after the step within 1e-5.  The step runs in float64: in
-    float32 each baseline's gradient is in part rounding noise (on the CPU
-    the port's own float32 gradient stands up to 68% of a leaf's scale from
-    its float64 gradient for Faster R-CNN at 640, B=2, 0.45% for SSD300, and
+    output's scale; the card's top-k picks near-ties of the CPU's own
+    (``ProposalChoices.check_near_ties``) and its RPN keep mask bit-equal
+    to ``suppress_sorted`` on its own inputs.  Then one train step of each
+    baseline (Faster R-CNN at BASE_STEP_SIZE on the card's choices, held
+    the same way; SSD300 at 300; B=2, the sampling draws given) card vs
+    CPU at the detector step's tolerances: loss 1e-5 relative, every
+    gradient leaf within 1e-3 of its largest element, the parameters after
+    the step within 1e-5.  The step runs in float64: in float32 each
+    baseline's gradient is in part rounding noise (on the CPU the port's
+    own float32 gradient stands up to 68% of a leaf's scale from its
+    float64 gradient for Faster R-CNN at 640, B=2, 0.45% for SSD300, and
     the float32 Faster R-CNN step's leaves stood 24% apart card vs CPU),
     which no tolerance of 1e-3 can hold; the model's float32 casts (the
     RPN's and the box head's outputs) stay."""
@@ -2386,36 +2480,28 @@ def baseline_card_vs_cpu(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu = torch.device("cpu")
     result = {}
-    outs, choices = {}, {}
+    outs = {}
     x = torch.rand(BASE_CHECK_BATCH, 3, 640, 640, generator=torch.Generator().manual_seed(9))
-    for key, where in (("card", dev), ("cpu", cpu)):
+    card = ProposalChoices()
+    for key, where, choices in (("card", dev, card), ("cpu", cpu, ProposalChoices(card.chosen))):
         state, _ = create_baseline_train_state("faster_rcnn", 1, 640, seed=8,
                                                dtype=torch.float32, device=where)
-        model = state.model.eval()
-        with torch.no_grad():
-            if key == "cpu":  # its own choices, then the card's
-                model(x)
-                choices["cpu"] = [t.clone() for t in model.last_selection]
-            given = None if key == "card" else [t.to(where) for t in choices["card"]]
-            outs[key] = {k: v.cpu() for k, v in model(x.to(where), selection=given).items()}
-            if key == "card":
-                choices["card"] = [t.cpu() for t in model.last_selection]
+        with torch.no_grad(), choices:
+            outs[key] = {k: v.cpu() for k, v in state.model.eval()(x.to(where)).items()}
     want, got = outs["cpu"], outs["card"]
-    # near-tie objectness scores (within the card-vs-CPU noise of each other
-    # among 204,600 anchors) may pick either candidate: counted, and the
-    # outputs compared on the card's choices
-    differ = {name: int((a != b).sum()) for name, a, b in
-              zip(("topk", "keep", "selected"), choices["card"], choices["cpu"])}
     errs = {}
     for k in ("rpn_obj", "rpn_deltas", "proposals", "proposal_scores", "roi_cls", "roi_reg"):
         errs[k] = float((got[k] - want[k]).abs().max() / want[k].abs().max())
         if errs[k] > BASE_REL_TOL:
             fail(f"faster_rcnn forward card vs CPU: {k} {errs[k]}")
+    eps = float((got["rpn_obj"].double() - want["rpn_obj"].double()).abs().max())
+    ties = choices.check_near_ties(eps, "faster_rcnn forward card vs CPU")
+    rpn_nms = nms_keep_check(card.nms_calls[0], "faster_rcnn float32 forward RPN NMS")
     result["frcnn_forward"] = dict(batch=BASE_CHECK_BATCH, size=640, rel_err=errs,
-                                   valid=int(want["proposal_valid"].sum()),
-                                   own_choices_differ=differ)
+                                   valid=int(want["proposal_valid"].sum()), choices=ties,
+                                   rpn_nms=rpn_nms)
     print(f"faster_rcnn float32 forward 640x640 B={BASE_CHECK_BATCH} card vs CPU on the card's "
-          f"proposal choices: {errs}; the CPU's own choices differ in {differ}")
+          f"proposal choices: {errs}; the card's picks are near-ties of the CPU's {ties}")
 
     for arch, size in (("faster_rcnn", BASE_STEP_SIZE), ("ssd300", 300)):
         runs = {}
@@ -2426,24 +2512,24 @@ def baseline_card_vs_cpu(dev) -> dict:
         dgen = torch.Generator().manual_seed(12)
         draws = [torch.rand(shape, generator=dgen, dtype=torch.float64) for shape in
                  ((BASE_CHECK_BATCH, n_anchors),) * 2 + ((BASE_CHECK_BATCH, 256),) * 2]
-        selection = None
-        for key, where in (("card", dev), ("cpu", cpu)):
+        card = ProposalChoices()
+        for key, where, choices in (("card", dev, card),
+                                    ("cpu", cpu, ProposalChoices(card.chosen))):
             state, tx = create_baseline_train_state(arch, 1, size, seed=11, lr=1e-4, epochs=30,
                                                     steps_per_epoch=10, dtype=torch.float64,
                                                     device=where)
             state.model.double()
             batch = {k: v.to(where) for k, v in batch_cpu.items()}
             d = [t.to(where) for t in draws] if arch == "faster_rcnn" else None
-            given = None if selection is None else [t.to(where) for t in selection]
-            loss, _, _ = baseline_loss(state, batch, d, given)
-            if arch == "faster_rcnn" and key == "card":
-                selection = [t.cpu() for t in state.model.last_selection]
+            with choices:
+                loss, _, out = baseline_loss(state, batch, d)
             params = list(state.model.parameters())
             grads = torch.autograd.grad(loss, params)
             tx.update_(params, grads, state.opt_state, 0)
             runs[key] = (float(loss.detach()), [g.cpu() for g in grads],
-                         {k: p.detach().cpu() for k, p in state.model.named_parameters()})
-        (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = runs["cpu"], runs["card"]
+                         {k: p.detach().cpu() for k, p in state.model.named_parameters()},
+                         out.get("rpn_obj"))
+        (l_cpu, g_cpu, p_cpu, obj_cpu), (l_dev, g_dev, p_dev, obj_dev) = runs["cpu"], runs["card"]
         loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
         grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                        for a, b in zip(g_dev, g_cpu))
@@ -2451,6 +2537,10 @@ def baseline_card_vs_cpu(dev) -> dict:
                         for k in p_cpu)
         r = dict(loss=l_dev, loss_rel_err=loss_rel, grad_worst_leaf_rel_err=grad_rel,
                  param_max_err=param_err, leaves=len(g_cpu))
+        if arch == "faster_rcnn":
+            eps = float((obj_dev.detach().cpu().double() - obj_cpu.detach().double()).abs().max())
+            r["choices"] = choices.check_near_ties(eps, f"{arch} float64 train step card vs CPU")
+            r["rpn_nms"] = nms_keep_check(card.nms_calls[0], f"{arch} float64 train step RPN NMS")
         print(f"{arch} float64 train step card vs CPU ({size}x{size}, B={BASE_CHECK_BATCH}): "
               f"{json.dumps(r)}")
         if not (loss_rel <= 1e-5 and grad_rel <= 1e-3 and param_err <= 1e-5):
@@ -2580,20 +2670,48 @@ def bench_rows(text: str) -> list:
 
 def baselines_phase(dev, root: str, smi: str) -> dict:
     """The baselines at full width (see the module docstring, step 13)."""
+    t0 = time.perf_counter()
+    result = {"card_vs_cpu": baseline_card_vs_cpu(dev), "windowed": baseline_windowed(dev)}
+    with fresh_tf32():  # the timed steps, CLIs and benches as a user's process runs them
+        result.update(steps=time_baseline_steps(dev), inference=baseline_inference(dev))
+        baselines_as_users_run_them(dev, root, smi, result)
+    print(f"baselines phase (card vs CPU, timed steps, inference, windowed crop, both CLIs, "
+          f"both checkpoint benches, the fair benchmark at B={BASE_BENCH_BATCHES}): "
+          f"{time.perf_counter() - t0:.1f} s; launches {result['launches']}")
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
+def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
+    """Both training CLIs, both checkpoint benches and the fair benchmark,
+    their launch counts zeroed before each and summed into ``result``."""
     from litepi_tpu_torch.apps import train_baselines
     from litepi_tpu_torch.bench import detector_bench
+    from litepi_tpu_torch.kernels import nms as nms_kernel
 
-    t0 = time.perf_counter()
-    result = {"card_vs_cpu": baseline_card_vs_cpu(dev), "steps": time_baseline_steps(dev),
-              "inference": baseline_inference(dev), "windowed": baseline_windowed(dev)}
     rng = np.random.default_rng(24)
     train_dir = write_detection_set(os.path.join(root, "base_train"), BASE_IMAGES, rng)
     val_dir = write_detection_set(os.path.join(root, "base_val"), BASE_VAL_IMAGES, rng)
     launches = {k: 0 for k in launch_counts()}
+    # K1's launches by K (the RPN's 1,024, the final NMS's 256, ...): its
+    # wrapper stands in the kernel module while the phase runs, and each
+    # call adds what the launch counter moved by to its K
+    real_k1, k1_by_k = nms_kernel.nms_suppress_cuda, {}
+
+    def k1_tallied(boxes, *args):
+        before = launch_counts()["nms_suppress"]
+        keep = real_k1(boxes, *args)
+        k = int(boxes.shape[1])
+        k1_by_k[k] = k1_by_k.get(k, 0) + launch_counts()["nms_suppress"] - before
+        return keep
 
     def counted(fn):
         reset_launch_counts()
-        out = fn()
+        nms_kernel.nms_suppress_cuda = k1_tallied
+        try:
+            out = fn()
+        finally:
+            nms_kernel.nms_suppress_cuda = real_k1
         for k, v in launch_counts().items():
             launches[k] += v
         return out
@@ -2634,14 +2752,11 @@ def baselines_phase(dev, root: str, smi: str) -> dict:
         for row in rows:
             print(json.dumps({"fair_benchmark": row, "card": smi}))
         fair += rows
-    if launches["nms_suppress"] < 1 or launches["stem"]:
-        fail(f"baselines phase: launch counts {launches}")
+    if launches["nms_suppress"] < 1 or launches["stem"] or not k1_by_k.get(1024) \
+            or sum(k1_by_k.values()) != launches["nms_suppress"]:
+        fail(f"baselines phase: launch counts {launches}, K1 by K {k1_by_k}")
     result.update(cli=clis, checkpoint_bench=benches, fair_benchmark=fair, launches=launches,
-                  seconds=time.perf_counter() - t0)
-    print(f"baselines phase (card vs CPU, timed steps, inference, windowed crop, both CLIs, "
-          f"both checkpoint benches, the fair benchmark at B={BASE_BENCH_BATCHES}): "
-          f"{result['seconds']:.1f} s; launches {launches}")
-    return result
+                  k1_launches_by_k={str(k): n for k, n in sorted(k1_by_k.items())})
 
 
 def run(dev) -> None:
@@ -2823,9 +2938,9 @@ def run(dev) -> None:
         k["convert_launches"] = convert_launches[k["name"]]
         k["train_launches"] = train_launches[k["name"]]
     # the baselines phase's launches (both CLIs, both checkpoint benches, the
-    # fair benchmark): K1 at K=1,024 (the RPN), 256 (the final NMS and the
-    # YOLO variants) and 1,024 class-aware (SSD300's evaluation) all count on
-    # the RPN row, its own shape
+    # fair benchmark): the RPN row holds K1's total over every K of the phase
+    # (1,024: the RPN, the evaluations' class-aware NMS; 256: the final NMS,
+    # the YOLO variants), split by K in baseline_launches_by_k
     bl = baselines["launches"]
     baseline_launches = {"nms_suppress": 0, "nms_suppress_k512": 0,
                          "nms_suppress_rpn_k1024": bl["nms_suppress"],
@@ -2838,6 +2953,7 @@ def run(dev) -> None:
     kernels.insert(2, entry(
         "nms_suppress_rpn_k1024", "nms.cu", nms_at, bl["nms_suppress"], rpn["rpn_nms_timing"], 0,
         "B={} K={}, 1 class, Faster R-CNN RPN proposals".format(*rpn["rpn_nms"]["shape"]),
+        baseline_launches_by_k=baselines["k1_launches_by_k"],
         rpn_valid=rpn["rpn_nms"]["valid"], rpn_kept=rpn["rpn_nms"]["kept"],
         final_nms_mismatches={k: v["final_nms"]["mismatches"]
                               for k, v in baselines["inference"].items()},

@@ -81,14 +81,13 @@ def evaluate_classifier(
     device="cuda",
 ) -> Dict[str, float]:
     """The reference's classifier report.  ``images`` (N, c, c, 3)
-    normalised float32 NHWC; ``labels`` (N,)."""
+    normalised float32 NHWC; ``labels`` (N,).  Runs with TF32 off and gives
+    the caller's flags back."""
     from litepi_tpu_torch.core.device import resolve_device
+    from litepi_tpu_torch.weights.graph_ops import tf32_off
 
     dev = resolve_device(device)
     tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    if dev.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     model = _model(arch, variables, num_classes, dev, tdtype)
 
     def fwd(x: np.ndarray) -> torch.Tensor:
@@ -99,7 +98,7 @@ def evaluate_classifier(
     preds = np.zeros(n, np.int64)
     pad_n = int(np.ceil(n / batch) * batch)
     padded = np.concatenate([images, np.zeros((pad_n - n, *images.shape[1:]), images.dtype)])
-    with torch.inference_mode():
+    with tf32_off(), torch.inference_mode():
         for i in range(0, pad_n, batch):
             logits = fwd(padded[i: i + batch]).cpu().numpy()
             preds[i: min(i + batch, n)] = logits.argmax(-1)[: max(0, min(batch, n - i))]

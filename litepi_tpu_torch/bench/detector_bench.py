@@ -113,6 +113,17 @@ def _place_yolo(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
     return model
 
 
+def _without_tf32(fn: Callable) -> Callable:
+    """``fn`` run with TF32 off (``weights/graph_ops.py::tf32_off``)."""
+    from litepi_tpu_torch.weights.graph_ops import tf32_off
+
+    def run(x):
+        with tf32_off():
+            return fn(x)
+
+    return run
+
+
 def make_harness(
     variant: str,
     input_size: int = 640,
@@ -130,15 +141,18 @@ def make_harness(
     """The staged programs of any variant of :data:`ALL_VARIANTS` on
     ``device`` (the card unless the caller asks for the CPU).
     ``input_color="bgr"`` reverses the channel axis in ``pre`` (cv2
-    frames; the models compute in RGB)."""
+    frames; the models compute in RGB).  In float32 each stage runs with
+    TF32 off and gives the caller's flags back when it returns."""
     from litepi_tpu_torch.core.device import resolve_device
     from litepi_tpu_torch.ops.nms import nms_sorted
 
     dev = resolve_device(device)
     tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    if tdtype == torch.float32 and dev.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def harness(name, size, geometry, pre, infer, post) -> DetectorHarness:
+        if tdtype == torch.float32:
+            pre, infer, post = (_without_tf32(f) for f in (pre, infer, post))
+        return DetectorHarness(name, size, geometry, pre, infer, post)
 
     def to_rgb(f):
         return f.flip(-1) if input_color == "bgr" else f
@@ -184,7 +198,7 @@ def make_harness(
             boxes, scores, cls = candidates(out)
             return nms_sorted(boxes.contiguous(), scores, cls, conf, iou, max_detections)
 
-        return DetectorHarness(variant, input_size, "letterbox", pre, model, post)
+        return harness(variant, input_size, "letterbox", pre, model, post)
 
     from litepi_tpu_torch.ops.boxes import clip_boxes
     from litepi_tpu_torch.ops.resize import resize_bilinear
@@ -210,7 +224,7 @@ def make_harness(
             return nms_sorted(boxes.contiguous(), torch.gather(scores, 1, order),
                               torch.gather(labels, 1, order), conf, iou, max_detections)
 
-        return DetectorHarness(variant, size, "resize", pre, model, post)
+        return harness(variant, size, "resize", pre, model, post)
 
     if variant == "faster_rcnn":
         from litepi_tpu_torch.models.faster_rcnn import FasterRCNN, postprocess_detections
@@ -231,7 +245,7 @@ def make_harness(
         def post(out):
             return postprocess_detections(out, input_size, conf, iou, max_detections)
 
-        return DetectorHarness(variant, input_size, "resize", pre, infer, post)
+        return harness(variant, input_size, "resize", pre, infer, post)
 
     raise ValueError(f"unknown detector variant: {variant!r}")
 

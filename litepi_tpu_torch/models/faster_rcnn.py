@@ -261,37 +261,22 @@ class FasterRCNN(nn.Module):
         self.register_buffer("anchors", torch.from_numpy(rpn_anchors(input_size)),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor, selection=None) -> Dict[str, torch.Tensor]:
-        """``selection``: the discrete choices of another forward, its
-        :attr:`last_selection` ``(idx, keep, sel)`` (top-k candidates, NMS
-        keep mask, surviving proposals), applied instead of this forward's
-        own, so that two runs whose objectness scores differ by rounding
-        noise can be compared on the same proposals.  Each forward leaves
-        its choices in :attr:`last_selection`."""
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         b = x.shape[0]
         pyramid = self.fpn(self.backbone(x))  # P2..P6
         obj, deltas = self.rpn(pyramid)
-        anchors = self.anchors
+        anchors = self.anchors.float()  # float32 in any dtype, as JAX's numpy constant
 
-        if selection is None:
-            top_obj, idx = topk_stable(obj, min(self.pre_nms_topk, obj.shape[1]))
-        else:
-            idx = selection[0]
-            top_obj = torch.gather(obj, 1, idx)
+        top_obj, idx = topk_stable(obj, min(self.pre_nms_topk, obj.shape[1]))
         cand = decode_deltas(torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4)),
                              anchors[idx])
         cand = clip_boxes(cand, self.input_size, self.input_size)
         ok = (cand[..., 2] - cand[..., 0] > 1) & (cand[..., 3] - cand[..., 1] > 1)
-        if selection is None:
-            keep = suppress(cand.detach().float().contiguous(), ok,
-                            torch.zeros(ok.shape, dtype=torch.int32, device=ok.device),
-                            self.rpn_nms_iou)
-            kept_scores = torch.where(keep, top_obj, float("-inf"))
-            p_scores, sel = topk_stable(kept_scores, self.post_nms_topk)
-        else:
-            keep, sel = selection[1], selection[2]
-            p_scores = torch.gather(torch.where(keep, top_obj, float("-inf")), 1, sel)
-        self.last_selection = (idx.detach(), keep.detach(), sel.detach())
+        keep = suppress(cand.detach().float().contiguous(), ok,
+                        torch.zeros(ok.shape, dtype=torch.int32, device=ok.device),
+                        self.rpn_nms_iou)
+        kept_scores = torch.where(keep, top_obj, float("-inf"))
+        p_scores, sel = topk_stable(kept_scores, self.post_nms_topk)
         proposals = torch.gather(cand, 1, sel[..., None].expand(-1, -1, 4))
         p_valid = torch.isfinite(p_scores)
         proposals = torch.where(p_valid[..., None], proposals, 0.0)

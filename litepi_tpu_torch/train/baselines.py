@@ -137,17 +137,16 @@ def create_baseline_train_state(
 
 
 def baseline_loss(state: BaselineTrainState, batch: Dict[str, torch.Tensor],
-                  draws: Optional[Draws] = None, selection=None):
+                  draws: Optional[Draws] = None):
     """(loss, aux, forward output) of one batch on device (images NCHW
     float32 in [0, 1], padded gt boxes / labels / mask), BatchNorm in
-    train mode (its statistics move).  ``selection``: Faster R-CNN's
-    proposal choices of another forward (``FasterRCNN.forward``)."""
+    train mode (its statistics move)."""
     model = state.model
     model.train()
     if state.arch == "faster_rcnn":
         if draws is None:
             raise ValueError("the Faster R-CNN loss needs its sampling draws or a generator")
-        out = forward_in(model, state.dtype, batch["images"], selection=selection)
+        out = forward_in(model, state.dtype, batch["images"])
         loss, aux = frcnn_loss(out, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
                                draws)
     else:
@@ -159,13 +158,12 @@ def baseline_loss(state: BaselineTrainState, batch: Dict[str, torch.Tensor],
 
 
 def baseline_train_step(state: BaselineTrainState, tx, batch: Dict[str, torch.Tensor],
-                        draws: Optional[Draws] = None, selection=None):
+                        draws: Optional[Draws] = None):
     """One optimization step in place on ``state``: the loss, its gradient
     with respect to the float32 masters, the optimizer update.  ``draws``
-    and ``selection`` (Faster R-CNN only): the loss's four uniform tensors
-    or a ``torch.Generator``, and another forward's proposal choices.
-    Returns (state, metrics as device tensors)."""
-    loss, aux, _ = baseline_loss(state, batch, draws, selection)
+    (Faster R-CNN only): the loss's four uniform tensors or a
+    ``torch.Generator``.  Returns (state, metrics as device tensors)."""
+    loss, aux, _ = baseline_loss(state, batch, draws)
     params = list(state.model.parameters())
     grads = torch.autograd.grad(loss, params)
     tx.update_(params, grads, state.opt_state, state.step)

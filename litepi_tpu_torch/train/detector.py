@@ -68,14 +68,14 @@ def compute_params(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tens
     return out
 
 
-def forward_in(model: nn.Module, dtype: torch.dtype, x: torch.Tensor, **kwargs):
-    """``model(x, **kwargs)`` with ``x`` and its convs in ``dtype``
+def forward_in(model: nn.Module, dtype: torch.dtype, x: torch.Tensor):
+    """``model(x)`` with ``x`` and its convs in ``dtype``
     (:func:`compute_params`), as a flax model with that ``dtype`` casts its
     input and its conv kernels."""
     cast = compute_params(model, dtype)
     if not cast:
-        return model(x, **kwargs)
-    return torch.func.functional_call(model, cast, (x.to(dtype),), kwargs, strict=False)
+        return model(x)
+    return torch.func.functional_call(model, cast, (x.to(dtype),), strict=False)
 
 
 @dataclasses.dataclass

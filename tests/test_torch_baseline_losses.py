@@ -27,7 +27,12 @@ from litepi_tpu.models.faster_rcnn import rpn_anchors
 from litepi_tpu.models.ssd import ssd_default_boxes
 from litepi_tpu.ops.boxes import xywh_to_xyxy
 from litepi_tpu_torch.train import optim
-from litepi_tpu_torch.train.baselines import AdamW, SGDMomentum, step_lr_boundaries
+from litepi_tpu_torch.train.baselines import (
+    AdamW,
+    SGDMomentum,
+    make_baseline_optimizer,
+    step_lr_boundaries,
+)
 from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -260,36 +265,61 @@ def _param_tree(rng):
             "b": rng.normal(0, 1, (7,)).astype(np.float32)}
 
 
+# the tests' weight decay: high enough that the decay term (lr * WD * |p|,
+# 5e-4 a step at lr 1e-2) stands far above the 1e-5 tolerance
+WD = 0.05
+
+
 @pytest.mark.parametrize("which", ["sgd", "adamw"])
 def test_baseline_optimizers_match_optax(which):
-    """Four steps of each recipe's chain on random gradients."""
+    """Four steps of each recipe's chain on random gradients, its weight
+    decay raised to WD on both sides: the parameters within 1e-5 of
+    optax's, and the same steps without the decay end at least 100x the
+    tolerance away (the test sees a dropped or misplaced decay).  The
+    recipes' own constants are the JAX CLI's: SGD momentum 0.9 with decay
+    5e-4, AdamW with decay 1e-4."""
     rng = np.random.default_rng(4)
     params = _param_tree(rng)
     grads = [_param_tree(rng) for _ in range(4)]
     if which == "sgd":
         bounds = {2: 0.1}
-        tx = optax.chain(optax.add_decayed_weights(5e-4),
+        tx = optax.chain(optax.add_decayed_weights(WD),
                          optax.sgd(optax.piecewise_constant_schedule(1e-2, bounds),
                                    momentum=0.9))
-        ptx = SGDMomentum(optim.piecewise_constant_schedule(1e-2, bounds))
+
+        def port(wd):
+            return SGDMomentum(optim.piecewise_constant_schedule(1e-2, bounds), weight_decay=wd)
+        recipe = make_baseline_optimizer("faster_rcnn", 1e-2, 6, 2)
+        assert (recipe.weight_decay, recipe.momentum) == (5e-4, 0.9)
     else:
-        tx = optax.adamw(optax.cosine_decay_schedule(1e-2, 4), weight_decay=1e-4)
-        ptx = AdamW(optim.cosine_decay_schedule(1e-2, 4))
+        tx = optax.adamw(optax.cosine_decay_schedule(1e-2, 4), weight_decay=WD)
+
+        def port(wd):
+            return AdamW(optim.cosine_decay_schedule(1e-2, 4), weight_decay=wd)
+        assert make_baseline_optimizer("ssd300", 1e-4, 30, 10).weight_decay == 1e-4
     jp, state = params, tx.init(params)
-    pp = [_t(params[k]) for k in sorted(params)]
-    pstate = ptx.init(pp)
-    for step, g in enumerate(grads):
+    for g in grads:
         upd, state = tx.update(g, state, jp)
         jp = optax.apply_updates(jp, upd)
-        ptx.update_(pp, [_t(g[k]) for k in sorted(g)], pstate, step)
-    for k, p in zip(sorted(params), pp):
+    ends = {}
+    for wd in (WD, 0.0):
+        ptx = port(wd)
+        pp = [_t(params[k]) for k in sorted(params)]
+        pstate = ptx.init(pp)
+        for step, g in enumerate(grads):
+            ptx.update_(pp, [_t(g[k]) for k in sorted(g)], pstate, step)
+        ends[wd] = pp
+    for k, p in zip(sorted(params), ends[WD]):
         np.testing.assert_allclose(p.numpy(), np.asarray(jp[k]), atol=1e-5, rtol=1e-5)
+    assert max(float((a - b).abs().max()) for a, b in zip(ends[WD], ends[0.0])) >= 100 * 1e-5
 
 
 def test_adamw_on_the_ssd_loss_gradient_matches_optax(ssd_inputs):
-    """One AdamW step (lr 1e-4, weight decay 1e-4, the SSD recipe) taking
-    the SSD loss's gradient with respect to the head outputs as the
-    parameters' gradient: parameters within 1e-5."""
+    """One AdamW step (the SSD recipe's lr 1e-4, its weight decay raised
+    to 0.5 on both sides so that the decay term, lr * 0.5 * |p|, shows)
+    taking the SSD loss's gradient with respect to the head outputs as the
+    parameters' gradient: parameters within 1e-5; the same step without
+    the decay ends at least 10x the tolerance away."""
     loc, conf, db, db_xyxy, boxes, labels, mask = ssd_inputs
     params = {"conf": conf, "loc": loc}
 
@@ -297,15 +327,18 @@ def test_adamw_on_the_ssd_loss_gradient_matches_optax(ssd_inputs):
         return jsl.multibox_loss(p, db_xyxy, db, boxes, labels, mask)[0]
 
     g = jax.grad(jloss)(params)
-    tx = optax.adamw(optax.cosine_decay_schedule(1e-4, 10), weight_decay=1e-4)
+    tx = optax.adamw(optax.cosine_decay_schedule(1e-4, 10), weight_decay=0.5)
     upd, _ = tx.update(g, tx.init(params), params)
     want = optax.apply_updates(params, upd)
     pp = {k: _t(v).requires_grad_() for k, v in params.items()}
     loss, _ = psl.multibox_loss(pp, _t(db_xyxy), _t(db), _t(boxes), _t(labels), _t(mask))
     keys = sorted(pp)
     grads = torch.autograd.grad(loss, [pp[k] for k in keys])
-    ptx = AdamW(optim.cosine_decay_schedule(1e-4, 10))
-    leaves = [pp[k].detach().clone() for k in keys]
-    ptx.update_(leaves, grads, ptx.init(leaves), 0)
-    for k, p in zip(keys, leaves):
+    ends = {}
+    for wd in (0.5, 0.0):
+        ptx = AdamW(optim.cosine_decay_schedule(1e-4, 10), weight_decay=wd)
+        ends[wd] = [pp[k].detach().clone() for k in keys]
+        ptx.update_(ends[wd], grads, ptx.init(ends[wd]), 0)
+    for k, p in zip(keys, ends[0.5]):
         assert float(np.abs(p.numpy() - np.asarray(want[k])).max()) <= 1e-5, k
+    assert max(float((a - b).abs().max()) for a, b in zip(ends[0.5], ends[0.0])) >= 10 * 1e-5

@@ -93,6 +93,39 @@ def test_evaluate_detector_row_matches_jax(det_vars, folder):
     assert 0 < want["mAP50"] < 1
 
 
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def test_evaluate_detector_runs_float32_without_tf32_and_gives_the_flags_back(
+        det_vars, folder, monkeypatch):
+    """Every float32 stage (``pre``'s resize, ``infer``'s RPN NMS,
+    ``post``) sees TF32 off; the caller's flags (here on) are the same
+    after the call, so a training run's steps after its validation compute
+    as those before it."""
+    import litepi_tpu_torch.models.faster_rcnn as pfr
+    import litepi_tpu_torch.ops.resize as presize
+
+    seen = {}
+
+    def spy(stage, fn):
+        def run(*a, **kw):
+            seen.setdefault(stage, set()).add(_tf32_flags())
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(presize, "resize_bilinear", spy("pre", presize.resize_bilinear))
+    monkeypatch.setattr(pfr, "suppress", spy("infer", pfr.suppress))
+    monkeypatch.setattr(pfr, "postprocess_detections",
+                        spy("post", pfr.postprocess_detections))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    pdb.evaluate_detector("faster_rcnn", *folder, det_vars=det_vars, num_classes=2,
+                          input_size=64, max_images=2, device="cpu")
+    assert seen == {stage: {(False, False)} for stage in ("pre", "infer", "post")}
+    assert _tf32_flags() == (True, True)
+
+
 def test_macro_prf1_and_confusion_analysis_match_jax():
     rng = np.random.default_rng(2)
     labels = rng.integers(0, 7, 200)
@@ -139,3 +172,25 @@ def test_evaluate_classifier_matches_jax_predictions(classifier):
     assert row["params"] == jcb.count_params(variables)
     assert row["size_mb"] == round(jcb.model_size_mb(variables), 2)
     assert row["fps"] > 0 and row["batch"] == 16
+
+
+def test_evaluate_classifier_gives_the_tf32_flags_back(classifier, monkeypatch):
+    """The classifier bench runs with TF32 off and leaves the caller's
+    flags (here on) as they were."""
+    import litepi_tpu_torch.models as pmodels
+
+    variables, images, _ = classifier
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen = set()
+    build = pmodels.build_classifier
+
+    def spy(*a, **kw):
+        model = build(*a, **kw)
+        model.register_forward_pre_hook(lambda *_: seen.add(_tf32_flags()))
+        return model
+
+    monkeypatch.setattr(pmodels, "build_classifier", spy)
+    pcb.evaluate_classifier("shufflenetv2", variables, images[:4], np.zeros(4, np.int64), 10,
+                            batch=4, warmup=1, timed_iters=1, device="cpu")
+    assert seen == {(False, False)} and _tf32_flags() == (True, True)

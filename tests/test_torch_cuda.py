@@ -759,6 +759,46 @@ def test_rpn_nms_on_its_own_candidates_bit_equal(cuda):
         assert bool(valid.any()) and torch.equal(got, suppress_sorted(boxes, valid, cls, thr))
 
 
+class _ProposalChoices:
+    """Stands in for ``topk_stable`` and ``suppress`` in
+    ``models.faster_rcnn``: records a forward's choices (its two top-k picks
+    and its RPN keep mask) or, given another forward's, takes those, its
+    scores gathered at the given picks; ``gaps`` holds, per top-k, the
+    largest difference at a rank between the given picks' scores and its
+    own top-k's."""
+
+    def __init__(self, given=None):
+        self.given, self.chosen, self.gaps = given, [], []
+
+    def _choose(self, own):
+        self.chosen.append(own.detach().cpu())
+        return own if self.given is None else self.given[len(self.chosen) - 1].to(own.device)
+
+    def __enter__(self):
+        import litepi_tpu_torch.models.faster_rcnn as frcnn_mod
+
+        self.module, self.real = frcnn_mod, (frcnn_mod.topk_stable, frcnn_mod.suppress)
+        real_topk, real_suppress = self.real
+
+        def topk(x, k):
+            values, idx = real_topk(x, k)
+            picks = self._choose(idx)
+            if picks is idx:
+                return values, idx
+            taken = torch.gather(x, 1, picks)
+            fin = torch.isfinite(values)
+            assert torch.equal(fin, torch.isfinite(taken))
+            self.gaps.append(float((taken[fin].double() - values[fin].double()).abs().max()))
+            return taken, picks
+
+        frcnn_mod.topk_stable = topk
+        frcnn_mod.suppress = lambda *a: self._choose(real_suppress(*a))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.topk_stable, self.module.suppress = self.real
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,size", [("faster_rcnn", 320), ("ssd300", 300)])
 def test_baseline_train_step_card_vs_cpu(cuda, arch, size):
@@ -767,10 +807,12 @@ def test_baseline_train_step_card_vs_cpu(cuda, arch, size):
     float32 the step's gradient is in part rounding noise, up to 68% of a
     leaf's scale for Faster R-CNN, tests/test_torch_faster_rcnn.py), the
     CPU's forward on the card's proposal choices (near-tie objectness
-    scores may pick either of two candidates): the loss within 1e-5
-    relative, the parameters after it within 1e-5 (``|card - cpu| / (1 +
-    |cpu|)``)."""
-    from litepi_tpu_torch.train.baselines import baseline_train_step, create_baseline_train_state
+    scores may pick either of two candidates; each of the card's picks
+    scores within ``2 * eps`` of the CPU's own top-k at its rank, ``eps``
+    the largest objectness difference, as two exact top-k selections
+    obey): the loss within 1e-5 relative, the parameters after it within
+    1e-5 (``|card - cpu| / (1 + |cpu|)``)."""
+    from litepi_tpu_torch.train.baselines import baseline_loss, create_baseline_train_state
 
     gen = torch.Generator().manual_seed(2)
     images = torch.rand(2, 3, size, size, generator=gen, dtype=torch.float64)
@@ -783,19 +825,23 @@ def test_baseline_train_step_card_vs_cpu(cuda, arch, size):
     n_anchors = sum(3 * (size // s) ** 2 for s in (4, 8, 16, 32, 64))
     draws = [torch.rand(shape, generator=gen, dtype=torch.float64)
              for shape in ((2, n_anchors),) * 2 + ((2, 256),) * 2]
-    runs, selection = [], None
-    for dev in (cuda, torch.device("cpu")):  # the CPU on the card's proposal choices
+    runs, card = [], _ProposalChoices()
+    for dev, choices in ((cuda, card), (torch.device("cpu"), _ProposalChoices(card.chosen))):
         state, tx = create_baseline_train_state(arch, 1, size, seed=3, dtype=torch.float64,
                                                 device=dev)
         state.model.double()
         d = [t.to(dev) for t in draws] if arch == "faster_rcnn" else None
-        given = None if selection is None else [t.to(dev) for t in selection]
-        _, m = baseline_train_step(state, tx, {k: v.to(dev) for k, v in batch.items()}, d, given)
-        if arch == "faster_rcnn":
-            selection = [t.cpu() for t in state.model.last_selection]
-        runs.append((float(m["loss"]), {k: p.detach().cpu()
-                                        for k, p in state.model.named_parameters()}))
-    (l_dev, p_dev), (l_cpu, p_cpu) = runs
+        with choices:
+            loss, _, out = baseline_loss(state, {k: v.to(dev) for k, v in batch.items()}, d)
+        params = list(state.model.parameters())
+        tx.update_(params, torch.autograd.grad(loss, params), state.opt_state, 0)
+        runs.append((float(loss.detach()),
+                     {k: p.detach().cpu() for k, p in state.model.named_parameters()},
+                     out.get("rpn_obj")))
+    (l_dev, p_dev, obj_dev), (l_cpu, p_cpu, obj_cpu) = runs
+    if arch == "faster_rcnn":
+        eps = float((obj_dev.detach().cpu().double() - obj_cpu.detach().double()).abs().max())
+        assert len(choices.gaps) == 2 and max(choices.gaps) <= 2 * eps, (choices.gaps, eps)
     assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
     for k in p_cpu:
         assert float(((p_dev[k] - p_cpu[k]).abs() / (1 + p_cpu[k].abs())).max()) <= 1e-5, k
