@@ -12,7 +12,11 @@ source, in parallel), then:
    bit-equal at B=128 for K in {1, 63, 64, 65, 512, 1024} (both sides of
    the one-kernel bound at 64 and of a word edge) with 1, 3 and 91
    classes; timed at K=64 (the serving candidate budget) and K=512 (the
-   NMSConfig default) on 1-class inputs, the serving detector's;
+   NMSConfig default) on 1-class inputs, the serving detector's; above
+   1,024 candidates (the greedy pass in global memory) bit-equal at B=8
+   for K in {1,025, 2,000, 2,048, 4,096, 8,400} with 1 and 91 classes,
+   each case keeping and suppressing, and timed at (8, 2,000), (8, 8,400)
+   and (128, 2,048) beside (8, 256) and (8, 1,024);
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
    640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
    levels) and on an all-invalid batch, both modes also with the bf16
@@ -43,7 +47,11 @@ source, in parallel), then:
    (canvas-sized: the stem kernel runs); then the same check for two zoo
    pairs at a 160 input, the detectors at full width: YOLOv11n + ResNet18
    and the anchor-based YOLOv5n + EfficientNet-B0 (its candidate decoder),
-   with the stem kernel never launched;
+   with the stem kernel never launched; then the TF32 scope: a float32
+   pipeline leaves the caller's TF32 flags (on, and off) as it found them
+   around its construction and each entry point while its detector
+   computes with TF32 off, and with the caller's TF32 on the small
+   pipeline's card-vs-CPU check above still holds;
 5. the main path: ``TwoStagePipeline.run_fused`` at the full width of
    yolo_plus_v2 + ShuffleNetV2-91 in bfloat16 with the serving
    configuration (64 candidates, 16 detections, crop_det_budget 8,
@@ -99,7 +107,11 @@ source, in parallel), then:
    least once, the dense crop at least 4 times, the stem kernel and the
    pyramid crop never), then the NMS and dense ROI kernels against their
    plain versions on that run's first batch (bit-equal at K=512, B=8;
-   within 1e-3 on the 2048x2048 frames);
+   within 1e-3 on the 2048x2048 frames); then the optimisation ladder
+   (``bench/ladder.py``), L0-L4 on LADDER_FRAMES synthetic 640x640 frames,
+   its launch counts zeroed before and read after (K1, K2 dense and K3 at
+   least once), and K1, K2 and K3 against their plain versions on the L3
+   pipeline's first batch;
 10. the e2e CLI (``apps/e2e.py::main``, in this process) on deployed
    artifacts written on the card with torch only: an Ultralytics training
    container of the YOLOv8 mirror (``tests/torch_yolo_ref.py``) at
@@ -120,10 +132,12 @@ source, in parallel), then:
    then, in a pipeline built as the CLI builds its own, the NMS kernel
    and the crop in the run's mode and rounding against their plain
    versions on the inputs of the fused pass's first batch (in the bf16
-   run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames).  The
-   full-width frames' labels come from the artifacts' own detections at
-   ``benchmark_conf``, jittered, so that the metric rows are neither 0
-   nor 1;
+   run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames); then
+   the CLI at ``--max_candidates 8400`` (every prediction of the 640 grid
+   through the device NMS: K1 at (8, 8,400), its launches counted by K)
+   held the same way.  The full-width frames' labels come from the
+   artifacts' own detections at ``benchmark_conf``, jittered, so that the
+   metric rows are neither 0 nor 1;
 11. the convert phase, the reverse path, from phase 10's artifacts and
    frames: the convert CLI (``apps/convert.py::main``, ``--device cuda``)
    emits the detector at 640 as NCNN (fp32 and fp16), ONNX and OpenVINO,
@@ -137,7 +151,15 @@ source, in parallel), then:
    K2 against their plain versions on its first batch; last, the exported
    programs (``export_classifier`` at 64, ``export_detector`` at 640)
    against eager within PROGRAM_TOL.  The bf16 SiLU / sigmoid kernel is
-   held against its plain version with the kernel checks (step 3);
+   held against its plain version with the kernel checks (step 3); then
+   the stream app (``apps/stream.py``, the reference's deployed app) at
+   its defaults (bf16, 256 candidates) on phase 10's artifacts, video mode
+   on an mp4 written here and folder mode, card vs CPU (its CSV rows:
+   discrete columns equal, floats within both sides' bf16 drifts from
+   float32 plus the float32 programs' difference, measured on the app's
+   batches, floored at the float32 tolerances), its launches counted, K1
+   and K2 against their plain versions on its first batch; and the report
+   CLI (``apps/report.py``) over phase 10's output directory;
 12. training: the act kernel's backward mode (the gradient of the bf16
    SiLU / sigmoid as ``jax.vjp`` rounds it) against its plain version,
    bit-equal, on ACT_CASES and at ACT_BWD_SHAPE, timed there beside the
@@ -160,7 +182,9 @@ source, in parallel), then:
    the NMS kernel on validation's own inputs (the first validation batch,
    K=512, the last weights) bit-equal to ``suppress_sorted``; and the
    classifier (``apps/train_classifier.py``, ShuffleNetV2-91, 64, B=128,
-   3 steps, validation);
+   3 steps, validation); then the ablation CLI (``apps/ablation.py``):
+   static + ``--bench`` over the reference grid at 640, ``--train`` for
+   one variant and one epoch, its launches counted;
 13. the baselines: Faster R-CNN-ResNet50-FPN (640, 1 foreground class,
    1,024 / 256 proposals) and SSD300-VGG16.  Card vs CPU (TF32 off,
    B=2, the CPU on the card's proposal choices): Faster R-CNN's float32
@@ -186,7 +210,11 @@ source, in parallel), then:
    ``last`` weights with the validation set's mAP columns; and the fair
    benchmark of all eight variants at batch 1 and 8 (bf16, warmup 5, timed
    20, pre / infer / post ms and device ms, FPS), each row printed as a
-   JSON line with the card's name and power limit.  The timed steps, the
+   JSON line with the card's name and power limit.  At torchvision's
+   training budget of 2,000 proposals (K1 above 1,024): the float32
+   forward's RPN keep mask card vs CPU on the card's top-k picks, and the
+   training CLI with ``--pre_nms_topk 2000`` (2 epochs of 3 steps; K1's
+   launches counted by K).  The timed steps, the
    bf16 inference, the CLIs and the benches run under the TF32 flags of a
    fresh process (FRESH_TF32), as a user's process does.
 
@@ -207,9 +235,14 @@ phase's, ``convert_launches`` the convert phase's, ``train_launches`` the
 training phase's, ``baseline_launches`` the baselines phase's; the act
 kernel's backward has a row of its own, and K1 a row at the RPN's (8,
 1,024), which holds K1's total over every K of the baselines phase,
-split by K in ``baseline_launches_by_k``), an
+split by K in ``baseline_launches_by_k``, and rows at (8, 256) (the
+stream app), (8, 2,000) (the baseline CLI at ``--pre_nms_topk 2000``),
+(8, 8,400) (the e2e CLI at ``--max_candidates 8400``) and (128, 2,048)
+(a timing shape); ``stream_launches``, ``ladder_launches`` and
+``ablation_launches`` are those paths' counts on the row of their shape), an
 ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
-"training": ..., "baselines": ...}`` JSON line, and
+"training": ..., "baselines": ..., "stream": ..., "ladder": ...,
+"ablation": ...}`` JSON line, and
 last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
@@ -223,6 +256,8 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -314,6 +349,13 @@ ROI_TOL = 1e-3
 NMS_BATCH, NMS_KS = 128, (64, 512)  # timed: serving K, and the NMSConfig default
 NMS_EQUAL_KS = (1, 63, 64, 65, 512, 1024)  # both sides of the one-kernel bound and a word edge
 NMS_CLASSES = (1, 3, 91)
+# K1 above 1,024 candidates (the greedy pass in global memory): bit-equal at
+# B=8 (the plain version's (B, K, K) tensors bound the batch) at each K and
+# class count; timed at the RPN's training budget (8, 2,000), every anchor
+# of the 640 grid (8, 8,400) and the serving batch at 2,048
+NMS_LARGE_BATCH, NMS_LARGE_KS, NMS_LARGE_CLASSES = 8, (1025, 2000, 2048, 4096, 8400), (1, 91)
+NMS_LARGE_TIMED = ((8, 2000), (8, 8400), (128, 2048))
+NMS_STREAM_TIMED = (8, 256)  # the stream app's budget at its batch
 ROI_DENSE = (128, 8, 640, 640)  # B, D, H, W of the serving crop
 ROI_PYRAMID = (8, 8, 1080, 1920)
 STEM_CASES = ((128, 640, 640, 16), (2, 160, 240, 32))  # B, H, W, C; serving first
@@ -384,6 +426,7 @@ EVAL_FULL_FRAMES, EVAL_FULL_SIZE = 32, 2048
 # CPU)
 E2E_CLI_SMALL_FRAMES = ((200, 320), (240, 320), (320, 200))
 E2E_CLI_FULL_FRAMES, E2E_CLI_FULL_SIZE = 32, 2048
+E2E_CLI_LARGE_K = 8400  # every anchor of the 640 grid: no top-K cut before NMS
 ARTIFACT_TOL = 1e-4
 CLI_METRICS = ("mean_precision", "mean_recall", "mean_f1", "mAP50", "mAP50-95")
 # the convert phase: emitted graphs through their interpreters on the card
@@ -422,6 +465,19 @@ BASE_BENCH_BATCHES = (1, 8)
 BASE_TIMED_STEPS = 3
 BASE_REL_TOL = 1e-4  # card vs CPU float32 forward, relative to each output's scale
 BASE_STEP_SIZE = 320  # Faster R-CNN's float64 card-vs-CPU step (the CPU's float64 convs are slow)
+BASE_LARGE_PRE_NMS = 2000  # torchvision's rpn_pre_nms_top_n_train: K1 above 1,024
+# the stream app: video mode on an mp4 of STREAM_VIDEO_FRAMES of the e2e
+# CLI phase's frames (a batch of 8 and a padded one), folder mode on
+# STREAM_FOLDER_FRAMES of them; its conf in a
+# score gap with at most STREAM_MAX_ABOVE detections per frame and at least
+# STREAM_MIN_ABOVE in each mode; the float32 tolerances as the bounds' floor
+STREAM_VIDEO_FRAMES, STREAM_FOLDER_FRAMES = 12, 3
+STREAM_MAX_ABOVE, STREAM_MIN_ABOVE = 8, 2
+STREAM_FLOOR = {"boxes": 1e-3, "det_scores": 1e-6, "cls_scores": 1e-5}
+# the ladder on make_synthetic_dataset's 640x640 frames; the ablation's
+# --train run on ABLATION_IMAGES frames
+LADDER_FRAMES, LADDER_ITERATIONS = 16, 3
+ABLATION_IMAGES = 16
 # PyTorch's TF32 flags (cuDNN, matmul) as a fresh process has them, read
 # before any phase sets them: the baselines' timed train steps, CLIs and
 # benches run under them, as a user's process does
@@ -550,18 +606,93 @@ def check_nms(dev):
           f"classes {NMS_CLASSES})")
     result = {}
     for k in NMS_KS:
-        boxes, cls, valid = timed[k]
-        kernel = lambda: nms_suppress_cuda(boxes, cls, valid, thr)  # noqa: E731
-        ms, windows = median_ms(kernel, 200)
-        plain_ms = cuda_ms(lambda: suppress_sorted(boxes, valid, cls, thr), 10, 1)
-        host = host_ms(kernel, 200)
-        dev_ms = device_ms(kernel, 200, "nms_")
-        result[k] = dict(mismatches=0, ms=ms, windows=windows, host_ms=host,
-                         device_ms=dev_ms, plain_ms=plain_ms, bound=nms_bound(boxes, cls, valid))
-        print(f"nms K={k}, 1 class: kernel {ms:.4f} ms (windows {windows}), device "
-              f"{dev_ms:.4f} ms, host issue {host:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{result[k]['bound'][0]:.5f} ms ({result[k]['bound'][1]})")
+        r = result[k] = nms_timing(*timed[k], thr, 200, 10)
+        print(f"nms K={k}, 1 class: kernel {r['ms']:.4f} ms (windows {r['windows']}), device "
+              f"{r['device_ms']:.4f} ms, host issue {r['host_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     return result
+
+
+def nms_timing(boxes, cls, valid, thr: float, iters: int, plain_iters: int) -> dict:
+    """K1 on one input timed: ``ms`` (CUDA events, median of WINDOWS),
+    ``device_ms`` (summed over the call's kernels, and each kernel apart),
+    ``host_ms``, the plain version's ms and the bound."""
+    kernel = lambda: nms_suppress_cuda(boxes, cls, valid, thr)  # noqa: E731
+    ms, windows = median_ms(kernel, iters)
+    times = kernel_device_times(kernel, iters, "nms_")
+    seen = min((n for _, n in times.values()), default=0)
+    if seen < iters // 2:
+        fail(f"NMS device time: the trace shows {seen} of {iters} calls")
+    plain_ms = cuda_ms(lambda: suppress_sorted(boxes, valid, cls, thr), plain_iters, 1)
+    return dict(mismatches=0, ms=ms, windows=windows, host_ms=host_ms(kernel, iters),
+                device_ms=sum(t for t, _ in times.values()),
+                device_ms_by_kernel={re.search(r"nms_\w+", k).group(0): t
+                                     for k, (t, _) in times.items()},
+                plain_ms=plain_ms, bound=nms_bound(boxes, cls, valid), library_ms=None)
+
+
+def check_nms_large(dev) -> dict:
+    """K1 above 1,024 candidates: bit-equal to ``suppress_sorted`` at every K
+    of NMS_LARGE_KS and class count of NMS_LARGE_CLASSES (B=8), each case
+    both keeping and suppressing; timed at NMS_LARGE_TIMED on 1-class
+    inputs, with the stream app's (8, 256) and the RPN's (8, 1,024) timed
+    beside them."""
+    thr = 0.45
+    gen = torch.Generator(device=dev).manual_seed(40)
+    n = 0
+    for k in NMS_LARGE_KS:
+        for num_classes in NMS_LARGE_CLASSES:
+            boxes, cls, valid = nms_inputs(gen, NMS_LARGE_BATCH, k, num_classes, dev)
+            got = nms_suppress_cuda(boxes, cls, valid, thr)
+            want = suppress_sorted(boxes, valid, cls, thr)
+            torch.cuda.synchronize()
+            mismatches = int((got != want).sum())
+            if mismatches:
+                fail(f"NMS kernel K={k}, {num_classes} classes: {mismatches} keep bits differ "
+                     "from the plain version")
+            if not (0 < int(got.sum()) < int(valid.sum())):
+                fail(f"NMS check K={k}: inputs suppress nothing or keep nothing")
+            n += 1
+            del boxes, cls, valid, got, want
+    print(f"nms above 1,024: bit-equal to suppress_sorted in {n} cases (B={NMS_LARGE_BATCH}, "
+          f"K {NMS_LARGE_KS}, classes {NMS_LARGE_CLASSES})")
+    result = {}
+    for b, k in (NMS_STREAM_TIMED, (8, 1024), *NMS_LARGE_TIMED):
+        boxes, cls, valid = nms_inputs(gen, b, k, 1, dev)
+        r = nms_timing(boxes, cls, valid, thr, 50 if k > 1024 else 200, 3)
+        result[f"{b}x{k}"] = r
+        print(f"nms B={b} K={k}, 1 class: kernel {r['ms']:.4f} ms (windows {r['windows']}), "
+              f"device {r['device_ms']:.4f} ms {r['device_ms_by_kernel']}, host issue "
+              f"{r['host_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        del boxes, cls, valid
+    torch.cuda.empty_cache()
+    return result
+
+
+class K1ByK:
+    """Counts K1's launches by K while it is entered: the kernel module's
+    wrapper is replaced by one that adds what the launch counter moved by
+    to the call's K."""
+
+    def __init__(self):
+        from litepi_tpu_torch.kernels import nms as nms_kernel
+
+        self.module, self.real, self.by_k = nms_kernel, nms_kernel.nms_suppress_cuda, {}
+
+    def __enter__(self):
+        def tallied(boxes, *args):
+            before = launch_counts()["nms_suppress"]
+            keep = self.real(boxes, *args)
+            k = int(boxes.shape[1])
+            self.by_k[k] = self.by_k.get(k, 0) + launch_counts()["nms_suppress"] - before
+            return keep
+
+        self.module.nms_suppress_cuda = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.module.nms_suppress_cuda = self.real
 
 
 # --------------------------------------------------------------------- #
@@ -901,7 +1032,7 @@ def peaked_frames(seed=11, batch=2, h=200, w=300):
 
 
 def candidate_scores(pipe, frames) -> torch.Tensor:
-    with torch.inference_mode():
+    with pipe.precision(), torch.inference_mode():
         f = torch.as_tensor(frames).to(pipe.device)
         _, scores, _ = pipe._candidates(pipe._detect(pipe._stem(f)))
     return scores.cpu()
@@ -1726,7 +1857,8 @@ def check_cli_full(dev, weights, img_dir: str, lbl_dir: str, root: str, extra, w
     argv = ["--input", img_dir, "--labels", lbl_dir, *weights, "--output", out, *extra]
     reset_launch_counts()
     t0 = time.perf_counter()
-    rc = e2e_cli.main(argv)
+    with K1ByK() as k1:
+        rc = e2e_cli.main(argv)
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     if rc != 0:
@@ -1748,7 +1880,8 @@ def check_cli_full(dev, weights, img_dir: str, lbl_dir: str, root: str, extra, w
     kernel_checks = check_path_kernels(pipe, frames, None, f"e2e CLI {what}")
     del ev, pipe, frames
     result = dict(args=list(extra), seconds=seconds, fused_pass_fps=float(s["fps"]),
-                  launches=counts, kernel_checks=kernel_checks,
+                  launches=counts, k1_launches_by_k={str(k): n for k, n in sorted(k1.by_k.items())},
+                  kernel_checks=kernel_checks,
                   row={k: float(s[k]) for k in CLI_METRICS})
     print(f"e2e CLI {what}: rc 0 in {seconds:.1f} s, fused pass "
           f"{result['fused_pass_fps']:.1f} FPS, launches {counts}")
@@ -1800,10 +1933,18 @@ def e2e_cli_phase(dev, root: str):
                             ["--dtype", "bfloat16", "--roi_impl", "pallas"], "bf16 pallas",
                             {"nms_suppress": 1, "roi_crop_dense": 0, "roi_crop_pyramid": 0,
                              "roi_crop_pyramid_bf16": 1, "stem": 0})
+    # every prediction of the 640 grid through the device NMS (K1 at 8,400)
+    large = check_cli_full(dev, weights, img_dir, lbl_dir, root,
+                           ["--max_candidates", str(E2E_CLI_LARGE_K)],
+                           f"max_candidates {E2E_CLI_LARGE_K}",
+                           {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
+                            "roi_crop_pyramid_bf16": 0, "stem": 0})
+    if not large["k1_launches_by_k"].get(str(E2E_CLI_LARGE_K)):
+        fail(f"e2e CLI at {E2E_CLI_LARGE_K} candidates: K1 by K {large['k1_launches_by_k']}")
     result = dict(detector_rel_err=art["detector_rel_err"], small=small, full_dense=dense,
-                  full_bf16_pallas=pallas, decode_once_s=decode_s, label_detections=n_labels,
-                  seconds=time.perf_counter() - t0)
-    print(f"e2e CLI phase (artifacts, card vs CPU, two full-width runs): "
+                  full_bf16_pallas=pallas, full_k8400=large, decode_once_s=decode_s,
+                  label_detections=n_labels, seconds=time.perf_counter() - t0)
+    print(f"e2e CLI phase (artifacts, card vs CPU, three full-width runs): "
           f"{result['seconds']:.1f} s; cv2 decodes the {n} frames once in {decode_s:.2f} s")
     return result, dict(art=art, img_dir=img_dir, lbl_dir=lbl_dir)
 
@@ -2190,8 +2331,6 @@ def run_cli(main_fn, argv, what: str) -> str:
 
 
 def epoch_losses(text: str, what: str) -> list:
-    import re
-
     losses = [float(v) for v in re.findall(r"^epoch \d+/\d+\s+loss (\S+)", text, re.M)]
     if not losses or not all(np.isfinite(losses)):
         fail(f"{what}: epoch losses {losses}")
@@ -2201,8 +2340,6 @@ def epoch_losses(text: str, what: str) -> list:
 def epoch_seconds(text: str, what: str) -> list:
     """[(epoch seconds, of which validation seconds)] from a training CLI's
     epoch lines."""
-    import re
-
     times = [(float(a), float(b)) for a, b in
              re.findall(r"^epoch \d+/\d+ .*\((\S+)s, validation (\S+)s\)$", text, re.M)]
     if not times:
@@ -2502,6 +2639,7 @@ def baseline_card_vs_cpu(dev) -> dict:
                                    rpn_nms=rpn_nms)
     print(f"faster_rcnn float32 forward 640x640 B={BASE_CHECK_BATCH} card vs CPU on the card's "
           f"proposal choices: {errs}; the card's picks are near-ties of the CPU's {ties}")
+    result["frcnn_forward_k2000"] = baseline_rpn_k2000(dev, x)
 
     for arch, size in (("faster_rcnn", BASE_STEP_SIZE), ("ssd300", 300)):
         runs = {}
@@ -2547,6 +2685,39 @@ def baseline_card_vs_cpu(dev) -> dict:
             fail(f"{arch} float64 train step card vs CPU: {r}")
         result[f"{arch}_step"] = r
     return result
+
+
+def baseline_rpn_k2000(dev, x) -> dict:
+    """Faster R-CNN's float32 forward at 640 with ``pre_nms_topk``
+    BASE_LARGE_PRE_NMS (TF32 off, B=2, ``x``): the card's RPN keep mask
+    (K1 at K = 2,000) bit-equal to ``suppress_sorted`` on its own inputs and
+    to the CPU's keep mask on the card's top-k picks
+    (:class:`ProposalChoices`), each pick a near-tie of the CPU's own."""
+    from litepi_tpu_torch.train.baselines import create_baseline_train_state
+
+    card = ProposalChoices()
+    cpu_choices = ProposalChoices(card.chosen)
+    outs = {}
+    for key, where, choices in (("card", dev, card), ("cpu", torch.device("cpu"), cpu_choices)):
+        state, _ = create_baseline_train_state("faster_rcnn", 1, 640, seed=8,
+                                               pre_nms_topk=BASE_LARGE_PRE_NMS,
+                                               dtype=torch.float32, device=where)
+        with torch.no_grad(), choices:
+            outs[key] = {k: v.cpu() for k, v in state.model.eval()(x.to(where)).items()}
+    boxes, valid, _, _ = card.nms_calls[0]
+    if tuple(valid.shape) != (BASE_CHECK_BATCH, BASE_LARGE_PRE_NMS):
+        fail(f"faster_rcnn RPN at pre_nms_topk {BASE_LARGE_PRE_NMS}: NMS shape {valid.shape}")
+    eps = float((outs["card"]["rpn_obj"].double() - outs["cpu"]["rpn_obj"].double()).abs().max())
+    ties = cpu_choices.check_near_ties(eps, "faster_rcnn forward at K=2,000 card vs CPU")
+    keep_differ = int((card.chosen[1].cpu() != cpu_choices.chosen[1].cpu()).sum())
+    if keep_differ:
+        fail(f"faster_rcnn RPN at K={BASE_LARGE_PRE_NMS}: {keep_differ} keep bits of the card "
+             "differ from the CPU's on the card's picks")
+    r = dict(rpn_nms=nms_keep_check(card.nms_calls[0], "faster_rcnn RPN NMS at K=2,000"),
+             choices=ties, keep_bits_differ_cpu=keep_differ)
+    print(f"faster_rcnn float32 forward at pre_nms_topk {BASE_LARGE_PRE_NMS}: the card's RPN "
+          f"keep mask equals the CPU's on the card's picks; {json.dumps(r)}")
+    return r
 
 
 def time_baseline_steps(dev) -> dict:
@@ -2687,55 +2858,56 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
     their launch counts zeroed before each and summed into ``result``."""
     from litepi_tpu_torch.apps import train_baselines
     from litepi_tpu_torch.bench import detector_bench
-    from litepi_tpu_torch.kernels import nms as nms_kernel
 
     rng = np.random.default_rng(24)
     train_dir = write_detection_set(os.path.join(root, "base_train"), BASE_IMAGES, rng)
     val_dir = write_detection_set(os.path.join(root, "base_val"), BASE_VAL_IMAGES, rng)
     launches = {k: 0 for k in launch_counts()}
-    # K1's launches by K (the RPN's 1,024, the final NMS's 256, ...): its
-    # wrapper stands in the kernel module while the phase runs, and each
-    # call adds what the launch counter moved by to its K
-    real_k1, k1_by_k = nms_kernel.nms_suppress_cuda, {}
-
-    def k1_tallied(boxes, *args):
-        before = launch_counts()["nms_suppress"]
-        keep = real_k1(boxes, *args)
-        k = int(boxes.shape[1])
-        k1_by_k[k] = k1_by_k.get(k, 0) + launch_counts()["nms_suppress"] - before
-        return keep
+    # K1's launches by K (the RPN's 1,024 or 2,000, the final NMS's 256, ...)
+    k1 = K1ByK()
+    k2000 = {}
 
     def counted(fn):
         reset_launch_counts()
-        nms_kernel.nms_suppress_cuda = k1_tallied
-        try:
+        with k1:
             out = fn()
-        finally:
-            nms_kernel.nms_suppress_cuda = real_k1
         for k, v in launch_counts().items():
             launches[k] += v
         return out
 
     clis, benches = {}, {}
-    for arch in ("faster_rcnn", "ssd300"):
-        out_dir = os.path.join(root, f"base_{arch}")
+    # the recipes, then Faster R-CNN at torchvision's training budget of
+    # 2,000 proposals before the RPN's NMS (K1 above 1,024)
+    for name, arch, extra in (("faster_rcnn", "faster_rcnn", []), ("ssd300", "ssd300", []),
+                              ("faster_rcnn_k2000", "faster_rcnn",
+                               ["--pre_nms_topk", str(BASE_LARGE_PRE_NMS)])):
+        out_dir = os.path.join(root, f"base_{name}")
         argv = ["--arch", arch, "--images", train_dir[0], "--labels", train_dir[1],
                 "--val_images", val_dir[0], "--val_labels", val_dir[1], "--batch",
                 str(BASE_BATCH), "--epochs", str(BASE_EPOCHS), "--steps_per_epoch",
                 str(BASE_STEPS), "--max_gt", str(TRAIN_MAX_GT), "--patience", "99",
-                "--output", out_dir, "--device", dev.type]
+                "--output", out_dir, "--device", dev.type, *extra]
         t1 = time.perf_counter()
-        text = counted(lambda: run_cli(train_baselines.main, argv, f"train_baselines {arch}"))
+        before = dict(k1.by_k)
+        text = counted(lambda: run_cli(train_baselines.main, argv, f"train_baselines {name}"))
         seconds = time.perf_counter() - t1
         with open(os.path.join(out_dir, "results.json")) as f:
             res = json.load(f)
         if sorted(res) != ["arch", "best_epoch", "best_score", "epochs_run"] \
                 or res["epochs_run"] != BASE_EPOCHS:
-            fail(f"train_baselines {arch}: results.json {res}")
-        epochs = epoch_seconds(text, f"train_baselines {arch}")
-        clis[arch] = dict(seconds=seconds, epoch_losses=epoch_losses(text, arch), results=res,
+            fail(f"train_baselines {name}: results.json {res}")
+        epochs = epoch_seconds(text, f"train_baselines {name}")
+        clis[name] = dict(seconds=seconds, epoch_losses=epoch_losses(text, name), results=res,
                           epoch_seconds=[a for a, _ in epochs],
-                          validation_seconds=[b for _, b in epochs])
+                          validation_seconds=[b for _, b in epochs],
+                          k1_launches_by_k={str(k): n - before.get(k, 0)
+                                            for k, n in sorted(k1.by_k.items())
+                                            if n - before.get(k, 0)})
+        if extra:
+            k2000 = clis[name]["k1_launches_by_k"]
+            if not k2000.get(str(BASE_LARGE_PRE_NMS)):
+                fail(f"train_baselines {name}: K1 never ran at K={BASE_LARGE_PRE_NMS}: {k2000}")
+            continue
         bench_argv = ["--variants", arch, "--checkpoint", os.path.join(out_dir, "last"),
                       "--images", val_dir[0], "--labels", val_dir[1], "--device", dev.type]
         row = bench_rows(counted(lambda: run_cli(detector_bench.main, bench_argv,
@@ -2752,11 +2924,388 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
         for row in rows:
             print(json.dumps({"fair_benchmark": row, "card": smi}))
         fair += rows
-    if launches["nms_suppress"] < 1 or launches["stem"] or not k1_by_k.get(1024) \
-            or sum(k1_by_k.values()) != launches["nms_suppress"]:
-        fail(f"baselines phase: launch counts {launches}, K1 by K {k1_by_k}")
+    if launches["nms_suppress"] < 1 or launches["stem"] or not k1.by_k.get(1024) \
+            or sum(k1.by_k.values()) != launches["nms_suppress"]:
+        fail(f"baselines phase: launch counts {launches}, K1 by K {k1.by_k}")
     result.update(cli=clis, checkpoint_bench=benches, fair_benchmark=fair, launches=launches,
-                  k1_launches_by_k={str(k): n for k, n in sorted(k1_by_k.items())})
+                  k1_launches_by_k={str(k): n for k, n in sorted(k1.by_k.items())},
+                  k2000_cli_launches_by_k=k2000)
+
+
+# --------------------------------------------------------------------- #
+# the TF32 scope of a float32 pipeline                                  #
+# --------------------------------------------------------------------- #
+
+def tf32_flags() -> tuple:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def set_tf32(value: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = value
+
+
+def check_tf32_scope(dev) -> dict:
+    """A float32 pipeline on the card leaves the caller's TF32 flags as it
+    found them, on and off, around its construction and each entry point
+    (``run_fused``, ``detect``, ``detect_candidates``, ``classify``), while
+    its detector computes with TF32 off; then, with the caller's TF32 on,
+    the small float32 pipeline still equals the CPU's
+    (:func:`check_small_pipeline`)."""
+    saved = tf32_flags()
+    seen = []
+    frames = torch.from_numpy(peaked_frames(11)).to(dev)
+    s = SMALL.det_input_size
+    canvas = torch.rand((2, s, s, 3), generator=torch.Generator(device=dev).manual_seed(41),
+                        device=dev)
+    crops = torch.rand((4, 64, 64, 3), generator=torch.Generator(device=dev).manual_seed(42),
+                       device=dev)
+    try:
+        for caller in (True, False):
+            set_tf32(caller)
+            pipe = TwoStagePipeline.initialize(SMALL, seed=3, device=dev)
+            hook = pipe.det_model.register_forward_pre_hook(lambda *_: seen.append(tf32_flags()))
+            after = [tf32_flags()]
+            for call in (lambda: pipe.run_fused(frames), lambda: pipe.detect(canvas),
+                         lambda: pipe.detect_candidates(canvas), lambda: pipe.classify(crops)):
+                call()
+                after.append(tf32_flags())
+            hook.remove()
+            if set(after) != {(caller, caller)} or set(seen) != {(False, False)}:
+                fail(f"TF32 scope: caller's flags {caller}, after each call {after}, inside "
+                     f"{set(seen)}")
+        set_tf32(True)
+        check_small_pipeline(dev, *SMALL_SCENES[0], what="small pipeline, caller's TF32 on")
+        if tf32_flags() != (True, True):
+            fail("TF32 scope: the parity check changed the caller's flags")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print("TF32 scope: a float32 pipeline gives the caller's flags back (on and off) and runs "
+          f"its detector with TF32 off ({len(seen)} forwards seen)")
+    return dict(forwards_seen=len(seen), caller_flags_kept=True)
+
+
+# --------------------------------------------------------------------- #
+# the stream app (the reference's deployed app)                          #
+# --------------------------------------------------------------------- #
+
+def stream_conf(cpu: dict, card: dict) -> tuple:
+    """(conf, half-gap, noise): the middle of the widest gap of the CPU's
+    detection scores ({mode: frames x slots, descending}) with at most
+    STREAM_MAX_ABOVE scores over it in each frame and at least
+    STREAM_MIN_ABOVE in each mode's frames together, and the largest
+    card-vs-CPU difference of the top STREAM_MAX_ABOVE + 1 scores of a
+    frame, the ranks between which it falls
+    (tests/test_torch_bf16_parity.py's rule).  The half-gap, and the
+    spacing of the scores over it, must exceed twice that noise, so that
+    both runs keep the same candidates in the same order."""
+    top = STREAM_MAX_ABOVE + 1
+    noise = max(float(np.abs(cpu[m][:, :top] - card[m][:, :top]).max()) for m in cpu)
+    every = np.concatenate(list(cpu.values()))
+    flat = np.unique(every[:, :top].ravel())[::-1]
+    flat = flat[flat > 0]
+    best = None
+    for a, b in zip(flat[:-1], flat[1:]):
+        conf = (float(a) + float(b)) / 2
+        above = [np.sort(x[x > conf]) for x in every]
+        if (all(int((s > conf).sum()) >= STREAM_MIN_ABOVE for s in cpu.values())
+                and all(len(x) <= STREAM_MAX_ABOVE for x in above)
+                and all((np.diff(x) > 2 * noise).all() for x in above)
+                and (best is None or a - b > 2 * best[1])):
+            best = (conf, (float(a) - float(b)) / 2)
+    if best is None or not best[1] > 2 * noise:
+        tops = {m: np.round(v[:, :4], 4).tolist() for m, v in cpu.items()}
+        fail(f"stream app: no conf threshold in a gap wider than twice the card-vs-CPU "
+             f"noise {noise} ({best}); top scores {tops}")
+    return best[0], best[1], noise
+
+
+def stream_rows(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def compare_stream_rows(got: list, want: list, bounds: dict, what: str) -> int:
+    """The app's CSV rows card vs CPU: header, frame, class name and the
+    placeholder rows equal; corners and confidences within ``bounds``.
+    Returns the number of detection rows."""
+    from litepi_tpu_torch.apps.stream import CSV_HEADER
+
+    if got[0] != CSV_HEADER or want[0] != CSV_HEADER or len(got) != len(want):
+        fail(f"{what}: {len(got)} CSV rows on the card, {len(want)} on the CPU")
+    n = 0
+    for g, w in zip(got[1:], want[1:]):
+        if g[0] != w[0] or g[6] != w[6] or (w[1] == "") != (g[1] == ""):
+            fail(f"{what}: row {g} on the card, {w} on the CPU")
+        if w[1] == "":
+            continue
+        n += 1
+        for i, key in ((1, "boxes"), (2, "boxes"), (3, "boxes"), (4, "boxes"),
+                       (5, "det_scores"), (7, "cls_scores")):
+            if not abs(float(g[i]) - float(w[i])) <= bounds[key]:
+                fail(f"{what}: {CSV_HEADER[i]} {g[i]} on the card, {w[i]} on the CPU "
+                     f"(bound {bounds[key]})")
+    return n
+
+
+def stream_phase(dev, root: str, art: dict, img_dir: str) -> dict:
+    """The stream app (``apps/stream.py::main``) at its defaults (bf16, 640,
+    256 candidates, 16 detections, batch 8) on the e2e CLI phase's
+    artifacts (the ``.pt`` detector, the ShuffleNetV2-91 ``.pth`` with its
+    Dense x300) and frames (``img_dir``, 2048x2048 JPEGs, on which that
+    detector finds boxes over the min-area floor): video mode on an mp4
+    this phase writes of STREAM_VIDEO_FRAMES of them and folder mode on
+    STREAM_FOLDER_FRAMES, on
+    the card and on the CPU, each card run with its launch counts zeroed
+    just before and read just after (K1 and K2 dense at least once, K3 and
+    the pyramid crop never).  ``--conf`` sits in a gap of the CPU's
+    detection scores wider than twice the card-vs-CPU score difference
+    (:func:`stream_conf`);
+    the CSV rows card vs CPU: frames, class names and placeholder rows
+    equal, corners and confidences within the bf16 bound of
+    tests/test_torch_bf16_parity.py's rule taken on both sides: each side's
+    bf16 drift from its float32 program plus the two float32 programs'
+    difference, measured on the app's own batches (their sum bounds the
+    two bf16 programs' difference by the triangle inequality), floored at
+    the float32 tolerances.  Then K1 and K2 against their plain versions on the video's
+    first batch (:func:`check_path_kernels`)."""
+    import cv2
+
+    from litepi_tpu_torch.apps import stream
+
+    t0 = time.perf_counter()
+    d = os.path.join(root, "stream")
+    os.makedirs(os.path.join(d, "folder"))
+    video = os.path.join(d, "clip.mp4")
+    jpegs = sample_images(img_dir)[:STREAM_VIDEO_FRAMES]
+    h, w = cv2.imread(jpegs[0]).shape[:2]
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+    for p in jpegs:
+        writer.write(cv2.imread(p))
+    writer.release()
+    cap = cv2.VideoCapture(video)
+    video_frames = [cap.read()[1] for _ in range(STREAM_VIDEO_FRAMES)]
+    cap.release()
+    for p in jpegs[:STREAM_FOLDER_FRAMES]:
+        shutil.copy(p, os.path.join(d, "folder"))
+    folder_frames = [cv2.imread(p) for p in sorted(jpegs[:STREAM_FOLDER_FRAMES])]
+    # phase 10's classifier with its Dense x300: peaked probabilities, so
+    # that the two runs' labels are not within rounding noise of a tie
+    clf = os.path.join(d, "shufflenetv2_peaked.pth")
+    state = torch.load(art["pth"], map_location="cpu", weights_only=True)
+    state["fc.weight"] = state["fc.weight"] * 300.0
+    torch.save(state, clf)
+    weights = ["--detector", art["pt"], "--classifier", clf, "--clf_arch", "shufflenetv2"]
+
+    # the threshold: candidate scores through the app's own pipeline
+    pipes = {}
+    for where in (dev.type, "cpu"):
+        args = stream.build_arg_parser().parse_args([*weights, "--device", where])
+        pipes[where] = stream.build_pipeline(args)
+    # the threshold: the detections' scores at conf 0 (after NMS and the
+    # min-area floor), each frame's in descending order; the detections over
+    # a threshold c are those of them over c (a candidate under c suppresses
+    # none over it)
+    scores = {}
+    for where, pipe in pipes.items():
+        scores[where] = {}
+        for mode, f in (("video", video_frames), ("folder", folder_frames)):
+            out = pipe.run_fused(np.stack(f), 0.0)
+            s_ = torch.where(out["valid"], out["det_scores"], -1.0).float().cpu().numpy()
+            scores[where][mode] = -np.sort(-s_, axis=1)
+    conf, half_gap, noise = stream_conf(scores["cpu"], scores[dev.type])
+    # the bounds, measured on the app's own batches (video: batches of 8,
+    # the last padded with its last frame; folder: one frame at a time) at
+    # ``conf``: each side's bf16 program against its float32 program, and
+    # the two float32 programs against each other.  Over the slots valid in
+    # all four, |card bf16 - CPU bf16| <= |card bf16 - card f32| + |card
+    # f32 - CPU f32| + |CPU f32 - CPU bf16| (the triangle inequality), so
+    # the sum of the three largest differences bounds the rows
+    b = pipes["cpu"].cfg.batch_size
+    batches = [np.stack((video_frames[i:i + b] + [video_frames[-1]] * b)[:b])
+               for i in range(0, len(video_frames), b)]
+    batches += [f[None] for f in folder_frames]
+    det_vars = stream._detector_vars(art["pt"], pipes["cpu"].cfg.detector)
+    cls_vars = stream._classifier_vars(args)
+    outs = {}
+    for where, p16 in pipes.items():
+        p32 = TwoStagePipeline.from_jax_vars(p16.cfg, det_vars, cls_vars, torch.float32, where)
+        for dtype, pipe in (("bf16", p16), ("f32", p32)):
+            outs[where, dtype] = [{k: v.float().cpu() for k, v in pipe.run_fused(x, conf).items()}
+                                  for x in batches]
+        del p32
+    pairs = {"card_drift": ((dev.type, "bf16"), (dev.type, "f32")),
+             "f32_card_vs_cpu": ((dev.type, "f32"), ("cpu", "f32")),
+             "cpu_drift": (("cpu", "bf16"), ("cpu", "f32"))}
+    diffs = {name: {k: 0.0 for k in STREAM_FLOOR} for name in pairs}
+    for i in range(len(batches)):
+        v = torch.stack([outs[key][i]["valid"] > 0 for key in outs]).all(0)
+        if not bool(v.any()):
+            continue
+        for name, (x, y) in pairs.items():
+            for k in STREAM_FLOOR:
+                gap = float((outs[x][i][k] - outs[y][i][k]).abs()[v].max())
+                diffs[name][k] = max(diffs[name][k], gap)
+    bounds = {k: max(sum(t[k] for t in diffs.values()), STREAM_FLOOR[k]) for k in STREAM_FLOOR}
+    del outs
+    result = dict(conf=conf, half_gap=half_gap, score_noise=noise, differences=diffs,
+                  bounds=bounds,
+                  launches={})
+    for mode, argv in (("video", ["--mode", "video", "--input", video]),
+                       ("folder", ["--mode", "folder", "--input", os.path.join(d, "folder")])):
+        rows = {}
+        for where in (dev.type, "cpu"):
+            out = os.path.join(d, f"{mode}_{where}")
+            extra = (["--save_csv", os.path.join(out, "frames.csv"), "--save_video",
+                      os.path.join(out, "out.mp4")] if mode == "video" else [])
+            os.makedirs(out, exist_ok=True)
+            full = [*argv, *weights, "--conf", repr(conf), "--output", out, "--device", where,
+                    *extra]
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            run_cli(stream.main, full, f"stream app {mode} --device {where}")
+            if where == dev.type:
+                counts = launch_counts()
+                result["launches"][mode] = counts
+                result[f"{mode}_seconds"] = time.perf_counter() - t1
+                if (counts["nms_suppress"] < 1 or counts["roi_crop_dense"] < 1 or counts["stem"]
+                        or counts["roi_crop_pyramid"] or counts["roi_crop_pyramid_bf16"]):
+                    fail(f"stream app {mode}: launch counts {counts}")
+            rows[where] = stream_rows(os.path.join(
+                out, "frames.csv" if mode == "video" else "detections.csv"))
+        n = compare_stream_rows(rows[dev.type], rows["cpu"], bounds, f"stream app {mode}")
+        if n == 0:
+            fail(f"stream app {mode}: no detection at conf {conf}")
+        result[f"{mode}_detections"] = n
+    cap = cv2.VideoCapture(os.path.join(d, f"video_{dev.type}", "out.mp4"))
+    written = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    if written != STREAM_VIDEO_FRAMES:
+        fail(f"stream app video: the VideoWriter file holds {written} frames")
+    first = torch.from_numpy(np.stack(video_frames[: pipes[dev.type].cfg.batch_size])).to(dev)
+    result["kernel_checks"] = check_path_kernels(pipes[dev.type], first, None, "stream app")
+    result["seconds"] = time.perf_counter() - t0
+    print(f"stream phase (video and folder modes card vs CPU): {result['seconds']:.1f} s; "
+          f"conf {conf:.6f}, bounds {bounds}, {result['video_detections']} / "
+          f"{result['folder_detections']} detection rows equal")
+    return result
+
+
+# --------------------------------------------------------------------- #
+# the ladder, the ablation CLI and the report CLI                        #
+# --------------------------------------------------------------------- #
+
+def ladder_phase(dev) -> dict:
+    """``bench/ladder.py``'s levels L0-L4 on the card over
+    ``make_synthetic_dataset`` (LADDER_FRAMES frames of 640x640), the launch
+    counts zeroed just before and read just after: K1 at least once, K2
+    dense and K3 at least once (the fused levels on canvas-sized frames);
+    each level's FPS, latency and accuracy printed.  Then K1, K2 and K3
+    against their plain versions on the L3 pipeline's first batch."""
+    from litepi_tpu_torch.bench import ladder
+
+    t0 = time.perf_counter()
+    exp = ladder.OptimizationExperiment(device=dev)
+    exp.use_synthetic_dataset(n=LADDER_FRAMES)
+    reset_launch_counts()
+    results = exp.run_all_levels(warmup=1, iterations=LADDER_ITERATIONS)
+    counts = launch_counts()
+    if counts["nms_suppress"] < 1 or counts["roi_crop_dense"] < 1 or counts["stem"] < 1:
+        fail(f"ladder: launch counts {counts}")
+    if set(results) != {spec.name for spec in ladder.LEVELS}:
+        fail(f"ladder: levels {sorted(results)}")
+    report = exp.generate_comparison_report()
+    print(report)
+    spec = next(s for s in ladder.LEVELS if s.name == "Level 3")
+    pipe = exp._get_pipeline(spec)
+    frames = torch.from_numpy(exp._frames[: spec.batch]).to(dev)
+    checks = check_path_kernels(pipe, frames, None, "ladder L3")
+    stem_err = dict(f32_err=0.0, bf16_err=0.0, bf16_ulps=0.0)
+    with torch.inference_mode():
+        got = fused_stem(frames, pipe._stem_kernel, pipe._stem_bias, pipe.dtype,
+                         pipe._stem_params)
+        want = stem_plain(frames, pipe._stem_kernel, pipe._stem_bias, pipe.dtype)
+    torch.cuda.synchronize()
+    stem_error(stem_err, got, want, "ladder L3 frames")
+    checks["stem_bf16_max_abs_err"], checks["stem_bf16_ulps"] = (stem_err["bf16_err"],
+                                                                 stem_err["bf16_ulps"])
+    result = dict(levels=results, launches=counts, kernel_checks=checks,
+                  seconds=time.perf_counter() - t0)
+    print(f"ladder phase (L0-L4 on {LADDER_FRAMES} synthetic 640x640 frames): "
+          f"{result['seconds']:.1f} s; launches {counts}")
+    return result
+
+
+def ablation_phase(dev, root: str) -> dict:
+    """``apps/ablation.py`` on the card: static + ``--bench`` over the
+    reference grid at 640 (params, FlopCounterMode GFLOPs, forward FPS at
+    batch 32), then ``--train`` for one variant (w0.5 / d0.33) and one
+    epoch on synthetic labelled frames; its launch counts (the training
+    CLI's validation: K1) zeroed before and read after."""
+    import csv
+
+    from litepi_tpu_torch.apps import ablation
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, "ablation")
+    run_cli(ablation.main, ["--bench", "--output", out, "--device", dev.type],
+            "ablation static + --bench")
+    with open(os.path.join(out, "ablation_results.csv")) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != 4 or not all(float(r["fps"]) > 0 and float(r["gflops"]) > 0 for r in rows):
+        fail(f"ablation: rows {rows}")
+    img_dir, lbl_dir = write_detection_set(os.path.join(root, "abl_data"), ABLATION_IMAGES,
+                                           np.random.default_rng(44))
+    reset_launch_counts()
+    train_out = os.path.join(root, "ablation_train")
+    run_cli(ablation.main, ["--widths", "0.5", "--depths", "0.33", "--extra", "", "--train",
+                            "--images", img_dir, "--labels", lbl_dir, "--epochs", "1",
+                            "--output", train_out, "--device", dev.type, "--train_args",
+                            f"--batch {TRAIN_DET_BATCH} --steps_per_epoch 2 --max_gt 64"],
+            "ablation --train")
+    counts = launch_counts()
+    with open(os.path.join(train_out, "ablation_results.csv")) as f:
+        (trained,) = list(csv.DictReader(f))
+    if trained["map50"] == "" or trained["best_epoch"] != "1" or counts["nms_suppress"] < 1:
+        fail(f"ablation --train: row {trained}, launches {counts}")
+    result = dict(rows=rows, train_row=trained, train_launches=counts,
+                  seconds=time.perf_counter() - t0)
+    print(f"ablation phase: {result['seconds']:.1f} s; {json.dumps(rows)}")
+    return result
+
+
+def report_phase(root: str, eval_dir: str) -> dict:
+    """``apps/report.py`` over an evaluation output directory (the e2e CLI
+    phase's run at its defaults): rc 0, the LaTeX table and the summary
+    report written; figures only where matplotlib exists."""
+    from litepi_tpu_torch.apps import report
+
+    out = os.path.join(root, "report")
+    text = run_cli(report.main, ["--input", eval_dir, "--output", out], "report CLI")
+    files = sorted(os.listdir(out))
+    if not {"comparison_table.tex", "summary_report.txt"} <= set(files) \
+            or "PIPELINE COMPARISON SUMMARY" not in text:
+        fail(f"report CLI: wrote {files}")
+    return dict(files=files)
+
+
+def stream_counts(stream: dict) -> dict:
+    """The stream phase's card launches, video and folder summed."""
+    runs = stream["launches"].values()
+    return {k: sum(r[k] for r in runs) for k in next(iter(runs))}
+
+
+def by_row(counts: dict, nms_row: str, dense_row: str) -> dict:
+    """A path's launch counts on the kernels line's rows: K1 on the row of
+    its K, K2 dense on the row of its frames, the rest by name (the act
+    kernel's backward on ``act_bf16_bwd``)."""
+    rows = {nms_row: counts["nms_suppress"], dense_row: counts["roi_crop_dense"],
+            "act_bf16_bwd": counts["silu_bf16_bwd"]}
+    for name in ("roi_crop_pyramid", "roi_crop_pyramid_bf16", "stem", "silu_bf16",
+                 "sigmoid_bf16"):
+        rows[name] = counts[name]
+    return rows
 
 
 def run(dev) -> None:
@@ -2769,11 +3318,13 @@ def run(dev) -> None:
     print_resources(paths, smi, "before the timed windows")
 
     nms = check_nms(dev)
+    nms_large = check_nms_large(dev)
     roi = check_roi(dev)
     stem = check_stem(dev)
     acts = check_act(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
+    tf32 = check_tf32_scope(dev)
     t0 = time.perf_counter()
     for variant, arch in ZOO_SMALL_PAIRS:
         for seed, h, w in SMALL_SCENES:
@@ -2789,10 +3340,14 @@ def run(dev) -> None:
     zoo_seconds += time.perf_counter() - t0
     print(f"zoo phase (small checks and full-width runs): {zoo_seconds:.1f} s")
     evaluation = eval_phase(dev)
+    ladder = ladder_phase(dev)
     with tempfile.TemporaryDirectory() as root:
         cli, files = e2e_cli_phase(dev, root)
         convert = convert_phase(dev, cli, files, root)
+        stream = stream_phase(dev, root, files["art"], files["img_dir"])
+        report = report_phase(root, os.path.join(root, "defaults"))
         training = training_phase(dev, root)
+        ablation = ablation_phase(dev, root)
         baselines = baselines_phase(dev, root, smi)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
@@ -2960,10 +3515,55 @@ def run(dev) -> None:
         eval_launches=0, e2e_cli_launches=0, convert_launches=0, train_launches=0))
     for k in kernels:
         k["baseline_launches"] = baseline_launches[k["name"]]
+    # K1 above 1,024 candidates and at the stream app's budget, a row per
+    # shape: (8, 8,400) the e2e CLI at --max_candidates 8400, (8, 2,000) the
+    # baseline CLI at --pre_nms_topk 2000, (8, 256) the stream app, (128,
+    # 2,048) a timing shape no path runs
+    cli_k = cli["full_k8400"]
+    k2000 = baselines["k2000_cli_launches_by_k"]
+    for name, key, launches, extra in (
+            ("nms_suppress_k256", "8x256", stream_counts(stream)["nms_suppress"],
+             dict(stream_nms_mismatches=stream["kernel_checks"]["nms_mismatches"])),
+            ("nms_suppress_k2000", "8x2000", k2000.get(str(BASE_LARGE_PRE_NMS), 0),
+             dict(baseline_k2000_launches_by_k=k2000,
+                  rpn_k2000=baselines["card_vs_cpu"]["frcnn_forward_k2000"])),
+            ("nms_suppress_k8400", "8x8400", cli_k["k1_launches_by_k"].get(str(E2E_CLI_LARGE_K), 0),
+             dict(e2e_cli_k8400_launches_by_k=cli_k["k1_launches_by_k"],
+                  e2e_cli_k8400_nms_mismatches=cli_k["kernel_checks"]["nms_mismatches"],
+                  e2e_cli_k8400_valid=cli_k["kernel_checks"]["nms_valid"])),
+            ("nms_suppress_b128_k2048", "128x2048", 0, {})):
+        r = nms_large[key]
+        b, k = key.split("x")
+        kernels.append(entry(name, "nms.cu", nms_at, launches, r, 0, f"B={b} K={k}, 1 class",
+                             device_ms_by_kernel=r["device_ms_by_kernel"], **extra))
+    kernels[2]["synthetic_8x1024"] = {k: nms_large["8x1024"][k] for k in (  # the RPN row
+        "ms", "device_ms", "host_ms", "plain_ms", "device_ms_by_kernel")}
+    # the new paths' launches (each zeroed before its runs and summed): the
+    # stream app (video + folder), the ladder (L0-L4), the ablation CLI's
+    # --train run; K1 at each path's own K, K2 dense on its own frames
+    paths = {"stream_launches": (stream_counts(stream), "nms_suppress_k256", "roi_crop_dense_b8"),
+             "ladder_launches": (ladder["launches"], "nms_suppress_k512", "roi_crop_dense"),
+             "ablation_launches": (ablation["train_launches"], "nms_suppress_k512",
+                                   "roi_crop_dense")}
+    for column, (counts, nms_row, dense_row) in paths.items():
+        rows = by_row(counts, nms_row, dense_row)
+        for k in kernels:
+            k[column] = rows.get(k["name"], 0)
+    for k in kernels:
+        for column in ("eval_launches", "e2e_cli_launches", "convert_launches", "train_launches",
+                       "baseline_launches"):
+            k.setdefault(column, 0)
+    row = {k["name"]: k for k in kernels}
+    row["roi_crop_dense_b8"]["stream_max_abs_err"] = stream["kernel_checks"]["roi_max_abs_err"]
+    row["roi_crop_dense"]["ladder_max_abs_err"] = ladder["kernel_checks"]["roi_max_abs_err"]
+    row["stem"]["ladder_bf16_max_abs_err"] = ladder["kernel_checks"]["stem_bf16_max_abs_err"]
+    row["nms_suppress_k512"]["ladder_nms_mismatches"] = ladder["kernel_checks"]["nms_mismatches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": timings, "detect": detect, "streaming": streaming, "zoo": zoo,
                       "eval": evaluation, "e2e_cli": cli, "convert": convert,
-                      "training": training, "baselines": baselines, "power": smi_after}))
+                      "training": training, "baselines": baselines, "nms_large": nms_large,
+                      "tf32": tf32, "stream": stream, "ladder": ladder, "ablation": ablation,
+                      "report": report, "power": smi_after}))
     print(smi_after)
 
 

@@ -51,8 +51,9 @@ import torch
 # --matmul_precision for a float32 pipeline on the card.  JAX's "high"
 # (bf16_3x passes on a TPU) maps to torch's "high": float32 matmuls and
 # cuDNN convs may use TF32.  "default" and "highest" keep TF32 off, the
-# port's precision contract for float32 (TwoStagePipeline turns it off).
-# A bf16 pipeline's flags are left as they are.
+# port's precision contract for float32.  The pipeline sets the flags
+# around its own calls (TwoStagePipeline.precision); a bf16 pipeline's
+# calls run under the caller's.
 MATMUL_TF32 = {None: False, "default": False, "high": True, "highest": False}
 
 # the --detector_variant names of the zoo detectors and their names in the
@@ -151,16 +152,12 @@ def _error(msg: str) -> int:
     return 2
 
 
-def apply_matmul_precision(precision: Optional[str], dtype: torch.dtype,
-                           device: torch.device) -> bool:
-    """Set the TF32 flags of a float32 pipeline on the card from
-    ``--matmul_precision`` (:data:`MATMUL_TF32`); returns whether TF32 is
-    allowed.  Nothing changes for a bf16 pipeline or on the CPU."""
-    tf32 = dtype == torch.float32 and MATMUL_TF32[precision]
-    if device.type == "cuda" and dtype == torch.float32:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-    return tf32
+def apply_matmul_precision(precision: Optional[str], dtype: torch.dtype) -> bool:
+    """Whether a float32 pipeline allows TF32 under ``--matmul_precision``
+    (:data:`MATMUL_TF32`): the pipeline's ``allow_tf32``, which it sets
+    around its own calls only (``TwoStagePipeline.precision``; the flags
+    act on the card), never for the process.  False for a bf16 pipeline."""
+    return dtype == torch.float32 and MATMUL_TF32[precision]
 
 
 def _probe_ncnn(args, sizes):
@@ -347,9 +344,9 @@ def _load_classifier(args):
 
 def build_pipeline(args: argparse.Namespace):
     """The pipeline that :func:`main` evaluates with, from parsed ``args``
-    (completed in place: ``detector_variant``, ``num_classes``), with the
-    TF32 flags of ``--matmul_precision`` set; a message (str) where a flag
-    or an artifact is refused."""
+    (completed in place: ``detector_variant``, ``num_classes``), allowing
+    TF32 around its calls as ``--matmul_precision`` says; a message (str)
+    where a flag or an artifact is refused."""
     # infer the variant from a deployed graph's topology, so that
     # --detector_variant can stay unset (the reference CLI has no such flag)
     probe = None
@@ -449,9 +446,9 @@ def build_pipeline(args: argparse.Namespace):
     else:
         cls_state = jax_to_state_dict(cls_vars)
 
-    pipe = TwoStagePipeline(cfg, det_state, cls_state, dtype, device, **zoo)
-    apply_matmul_precision(args.matmul_precision, dtype, device)
-    return pipe
+    return TwoStagePipeline(
+        cfg, det_state, cls_state, dtype, device, **zoo,
+        allow_tf32=apply_matmul_precision(args.matmul_precision, dtype))
 
 
 def main(argv=None) -> int:

@@ -16,9 +16,9 @@ validation mAP@0.5 through ``bench/detector_bench.py::evaluate_detector``
 and ``results.json`` with the JAX CLI's keys.
 
 It runs on the card (``--device cuda``, the default; it raises without
-one) or with ``--device cpu``.  On the card the RPN's NMS is the NMS kernel,
-whose bound is ``MAX_K`` = 1,024 candidates: a larger ``--pre_nms_topk``
-exits with rc 2 there (the CPU takes it, as JAX does).  Data-parallel
+one) or with ``--device cpu``.  On the card the RPN's NMS is the NMS kernel
+at K = ``--pre_nms_topk`` (any value, as in JAX: torchvision trains this
+baseline at 2,000).  Data-parallel
 training (``--data_parallel`` > 1) waits for ROADMAP M11 and exits with
 rc 2.
 
@@ -78,14 +78,6 @@ def main(argv=None) -> int:
         return 2
     if args.arch == "ssd300" and args.imgsz not in (None, 300):
         print("error: ssd300 input is fixed at 300 (default-box grid)", file=sys.stderr)
-        return 2
-
-    from litepi_tpu_torch.kernels.nms import MAX_K
-
-    if args.arch == "faster_rcnn" and args.device == "cuda" and args.pre_nms_topk > MAX_K:
-        print(f"error: --pre_nms_topk {args.pre_nms_topk}: the RPN's NMS runs the NMS "
-              f"kernel on the card, which takes at most MAX_K={MAX_K} candidates "
-              "(ROADMAP queue 2); use --device cpu for more", file=sys.stderr)
         return 2
 
     import numpy as np

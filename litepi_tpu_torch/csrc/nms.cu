@@ -5,7 +5,8 @@
 // Plain version: litepi_tpu_torch/ops/nms.py::suppress_sorted.
 //
 // Contract: boxes (B, K, 4) float32 xyxy, cls (B, K) int32, valid (B, K)
-// uint8 (torch.bool) -> keep (B, K) uint8, K <= 1024.  Candidate j
+// uint8 (torch.bool) -> keep (B, K) uint8, any K (the scratch buffer,
+// B*W*(64W + 1) words, is what bounds it).  Candidate j
 // suppresses i when j < i, cls[j] == cls[i] and IoU(j, i) > thr, IoU
 // computed exactly as the Pallas kernel does: areas clamped at 0, union =
 // area_j + area_i - inter + 1e-6, one IEEE division.  keep[i] = valid[i]
@@ -45,6 +46,18 @@
 //   chain, in registers, with the row words loaded ahead of it from shared
 //   memory), then ORs the kept rows' later words into the removed set
 //   across the lanes (__reduce_or_sync).
+// * K > 1024 (W > 16 words): one image's triangle outgrows shared memory
+//   (227 KB per block from K ~ 1,345) and the removed set a warp's lanes.
+//   nms_mask_strided_kernel computes the same tiles as nms_mask_kernel
+//   (mask_tile, shared by both) but walks them with a grid-stride loop,
+//   so that the grid's 65,535 limit on blockIdx.y does not bound K.
+//   nms_greedy_large_kernel, one block of kLargeWarps warps per image,
+//   keeps the removed set in shared memory (one word per 64 candidates)
+//   and reads the row words from global memory (L2): warp 0 decides the
+//   64 candidates of word w (greedy_word, its row words loaded from the
+//   diagonal tile), then every warp ORs the kept rows' words of a share
+//   of the later columns into the removed set, the part that grows as
+//   K^2 / 64 per image.
 //
 // The keep mask goes out one byte per lane, 32 bytes per store.  The TPU
 // kernel's matvec fixpoint and its 8-images-per-instance blocking were TPU
@@ -57,9 +70,11 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kMaxWords = 16;  // K <= 1024
+constexpr int kSharedMaxWords = 16;  // K <= 1024: the greedy pass in shared memory
 constexpr int kSmallMaxK = 64;  // K up to one word takes nms_small_kernel
 constexpr int kSmallWarps = 4;  // warps per image in nms_small_kernel
+constexpr int kLargeWarps = 16;  // warps per image in nms_greedy_large_kernel
+constexpr int kMaxGridY = 65535;
 
 __device__ __forceinline__ float box_area(float4 b) {
   return fmaxf(b.z - b.x, 0.f) * fmaxf(b.w - b.y, 0.f);
@@ -208,27 +223,19 @@ __global__ void __launch_bounds__(32 * NW) nms_small_kernel(
   if (q1 < K) keep[img + q1] = (kept >> q1) & 1ull;
 }
 
-// One 64 x 64 tile (row block rb, column block cb >= rb) of one image, in
-// 128 threads: thread t computes row 64*rb + t % 64 against the tile's
+// One 64 x 64 tile (row block rb, column block cb >= rb) of image ``image``,
+// in 128 threads: thread t computes row 64*rb + t % 64 against the tile's
 // columns 32*h .. 32*h + 31, h = t / 64, and writes those 32 bits of the
 // row's word cb (its low half for h = 0) into mask[image][cb][row].  Two
 // threads of 32 pairs per row rather than one of 64: the last blocks on
 // the card finish sooner (measured: 1 and 4 parts were slower).
-__global__ void __launch_bounds__(128) nms_mask_kernel(
+__device__ __forceinline__ void mask_tile(
     const float4* __restrict__ boxes, const int* __restrict__ cls,
     const uint8_t* __restrict__ valid, u64* __restrict__ mask,
-    u64* __restrict__ valid_words, int K, int W, float thr) {
-  __shared__ float4 s_box[64];
-  __shared__ float2 s_ac[64];
-  __shared__ unsigned s_cols[2];  // valid bits of the tile's columns
-  int cb = blockIdx.y, rb = 0;  // tile index -> (rb, cb), cb >= rb
-  while (cb >= W - rb) {
-    cb -= W - rb;
-    ++rb;
-  }
-  cb += rb;
+    u64* __restrict__ valid_words, int K, int W, float thr, int image, int rb, int cb,
+    float4* s_box, float2* s_ac, unsigned* s_cols) {
   const int tid = threadIdx.x, r = tid & 63, h = tid >> 6;
-  const size_t img = (size_t)blockIdx.x * K;
+  const size_t img = (size_t)image * K;
   const int j = rb * 64 + r;
   const bool vj = j < K && valid[img + j];
   if (h == 0) {  // warps 0 and 1 stage the tile's columns
@@ -248,7 +255,7 @@ __global__ void __launch_bounds__(128) nms_mask_kernel(
     if (cb == rb) {  // the diagonal tile also writes the row block's valid bits
       const unsigned rows = __ballot_sync(0xffffffffu, vj);
       if ((tid & 31) == 0)
-        reinterpret_cast<unsigned*>(valid_words + (size_t)blockIdx.x * W + rb)[tid >> 5] = rows;
+        reinterpret_cast<unsigned*>(valid_words + (size_t)image * W + rb)[tid >> 5] = rows;
     }
   }
   __syncthreads();
@@ -274,7 +281,53 @@ __global__ void __launch_bounds__(128) nms_mask_kernel(
   }
   const int first = r + 1 - 32 * h;  // on the diagonal, i > j only
   if (cb == rb && first > 0) bits &= first >= 32 ? 0u : ~0u << first;
-  reinterpret_cast<unsigned*>(mask + ((size_t)blockIdx.x * W + cb) * (64 * W) + j)[h] = bits;
+  reinterpret_cast<unsigned*>(mask + ((size_t)image * W + cb) * (64 * (size_t)W) + j)[h] = bits;
+}
+
+// K <= 1024: one block per tile, tile blockIdx.y of image blockIdx.x.
+__global__ void __launch_bounds__(128) nms_mask_kernel(
+    const float4* __restrict__ boxes, const int* __restrict__ cls,
+    const uint8_t* __restrict__ valid, u64* __restrict__ mask,
+    u64* __restrict__ valid_words, int K, int W, float thr) {
+  __shared__ float4 s_box[64];
+  __shared__ float2 s_ac[64];
+  __shared__ unsigned s_cols[2];  // valid bits of the tile's columns
+  int cb = blockIdx.y, rb = 0;  // tile index -> (rb, cb), cb >= rb
+  while (cb >= W - rb) {
+    cb -= W - rb;
+    ++rb;
+  }
+  cb += rb;
+  mask_tile(boxes, cls, valid, mask, valid_words, K, W, thr, blockIdx.x, rb, cb, s_box, s_ac,
+            s_cols);
+}
+
+// Tiles before row block r: r*W - r*(r - 1)/2.
+__device__ __forceinline__ long long tiles_before(long long r, int W) {
+  return r * W - r * (r - 1) / 2;
+}
+
+// K > 1024: tiles t = blockIdx.y, blockIdx.y + gridDim.y, ... of image
+// blockIdx.x, t -> (rb, cb) in the order of nms_mask_kernel's loop,
+// solved in closed form (rb is the largest r with tiles_before(r) <= t).
+__global__ void __launch_bounds__(128) nms_mask_strided_kernel(
+    const float4* __restrict__ boxes, const int* __restrict__ cls,
+    const uint8_t* __restrict__ valid, u64* __restrict__ mask,
+    u64* __restrict__ valid_words, int K, int W, float thr) {
+  __shared__ float4 s_box[64];
+  __shared__ float2 s_ac[64];
+  __shared__ unsigned s_cols[2];
+  const long long n_tiles = (long long)W * (W + 1) / 2;
+  const double b = 2.0 * W + 1.0;
+  for (long long t = blockIdx.y; t < n_tiles; t += gridDim.y) {
+    long long rb = static_cast<long long>((b - sqrt(b * b - 8.0 * (double)t)) * 0.5);
+    while (rb > 0 && tiles_before(rb, W) > t) --rb;
+    while (tiles_before(rb + 1, W) <= t) ++rb;
+    const int cb = static_cast<int>(rb + (t - tiles_before(rb, W)));
+    mask_tile(boxes, cls, valid, mask, valid_words, K, W, thr, blockIdx.x,
+              static_cast<int>(rb), cb, s_box, s_ac, s_cols);
+    if (t + gridDim.y < n_tiles) __syncthreads();  // the next tile restages s_box
+  }
 }
 
 // The greedy pass of one image over the tiles of nms_mask_kernel: lane c <
@@ -320,6 +373,54 @@ __global__ void __launch_bounds__(32) nms_greedy_kernel(
   }
 }
 
+// The greedy pass of one image for W > 16, in kLargeWarps warps: the
+// removed set in shared memory (``s_removed[c]``: word c, the invalid
+// candidates set from the start), the row words read from global memory.
+// For each word w, warp 0 decides its 64 candidates (greedy_word on the
+// diagonal tile's row words); then warp v ORs the kept rows' words of
+// columns w + 1 + v, w + 1 + v + kLargeWarps, ... into the removed set,
+// lane l holding rows 64w + l and 64w + 32 + l, whose loads are skipped
+// for a row not kept (only a kept row's words are read, and those the
+// mask kernel wrote).
+__global__ void __launch_bounds__(32 * kLargeWarps) nms_greedy_large_kernel(
+    const u64* __restrict__ mask, const u64* __restrict__ valid_words,
+    uint8_t* __restrict__ keep, int K, int W) {
+  extern __shared__ u64 s_removed[];  // [W]
+  __shared__ u64 s_kept;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t kp = 64 * (size_t)W;
+  const u64* m = mask + (size_t)blockIdx.x * W * kp;
+  for (int c = threadIdx.x; c < W; c += 32 * kLargeWarps)
+    s_removed[c] = ~valid_words[(size_t)blockIdx.x * W + c];
+  __syncthreads();
+  const size_t img = (size_t)blockIdx.x * K;
+  for (int w = 0; w < W; ++w) {
+    if (warp == 0) {
+      const u64 kept = greedy_word(m + w * kp + 64 * w, s_removed[w]);
+      const int q0 = 64 * w + lane, q1 = q0 + 32;
+      if (q0 < K) keep[img + q0] = (kept >> lane) & 1ull;
+      if (q1 < K) keep[img + q1] = (kept >> (lane + 32)) & 1ull;
+      if (lane == 0) s_kept = kept;
+    }
+    __syncthreads();
+    const u64 kept = s_kept;
+    const bool k0 = (kept >> lane) & 1ull, k1 = (kept >> (lane + 32)) & 1ull;
+    if (kept != 0ull) {
+      const u64* rows = m + 64 * (size_t)w + lane;
+#pragma unroll 4
+      for (int c = w + 1 + warp; c < W; c += kLargeWarps) {
+        u64 x = 0ull;
+        if (k0) x = rows[c * kp];
+        if (k1) x |= rows[c * kp + 32];
+        const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x));
+        const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x >> 32));
+        if (lane == 0) s_removed[c] |= (static_cast<u64>(hi) << 32) | lo;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Bytes of device scratch litepi_nms_suppress needs for (B, K): 0 where
@@ -334,8 +435,8 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
                                    const void* valid, void* keep,
                                    void* scratch, int B, int K, float thr,
                                    void* stream) {
+  if (B <= 0 || K <= 0) return cudaErrorInvalidValue;
   const int W = (K + 63) / 64;
-  if (B <= 0 || K <= 0 || W > kMaxWords) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* b = static_cast<const float4*>(boxes);
   const int* c = static_cast<const int*>(cls);
@@ -349,16 +450,33 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
   if (scratch == nullptr) return cudaErrorInvalidValue;
   u64* mask = static_cast<u64*>(scratch);
   u64* valid_words = mask + (size_t)B * W * 64 * W;
-  nms_mask_kernel<<<dim3(B, W * (W + 1) / 2), 128, 0, s>>>(b, c, v, mask, valid_words,
-                                                           K, W, thr);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e;
+  if (W <= kSharedMaxWords) {
+    nms_mask_kernel<<<dim3(B, W * (W + 1) / 2), 128, 0, s>>>(b, c, v, mask, valid_words,
+                                                             K, W, thr);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t smem = (size_t)W * 64 * W * sizeof(u64);
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(nms_greedy_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    nms_greedy_kernel<<<B, 32, smem, s>>>(mask, valid_words, out, K, W);
+    return cudaGetLastError();
+  }
+  const long long n_tiles = (long long)W * (W + 1) / 2;
+  const unsigned grid_y = static_cast<unsigned>(n_tiles < kMaxGridY ? n_tiles : kMaxGridY);
+  nms_mask_strided_kernel<<<dim3(B, grid_y), 128, 0, s>>>(b, c, v, mask, valid_words, K, W,
+                                                          thr);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)W * 64 * W * sizeof(u64);
+  const size_t smem = (size_t)W * sizeof(u64);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(nms_greedy_kernel,
+    e = cudaFuncSetAttribute(nms_greedy_large_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  nms_greedy_kernel<<<B, 32, smem, s>>>(mask, valid_words, out, K, W);
+  nms_greedy_large_kernel<<<B, 32 * kLargeWarps, smem, s>>>(mask, valid_words, out, K, W);
   return cudaGetLastError();
 }

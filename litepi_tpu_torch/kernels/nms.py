@@ -13,10 +13,6 @@ import torch
 from litepi_tpu_torch.kernels import LAUNCHES
 from litepi_tpu_torch.kernels.build import check, load
 
-# the greedy pass keeps one image's suppression words in shared memory:
-# ceil(K / 64)^2 * 512 bytes, 128 KB at this bound
-MAX_K = 1024
-
 
 def _lib() -> ctypes.CDLL:
     lib = load("nms")
@@ -43,11 +39,12 @@ def nms_suppress_cuda(
 ) -> torch.Tensor:
     """Greedy per-class keep mask (B, K) bool over score-descending
     candidates: boxes (B, K, 4) float32 xyxy, cls (B, K) int32, valid (B, K)
-    bool, all contiguous on one CUDA device.
+    bool, all contiguous on one CUDA device; any K.
 
     Above K = 64 the kernel takes a scratch buffer for its suppression
-    words, allocated here from PyTorch's caching allocator on the same
-    stream (no synchronisation)."""
+    words (B * W * (64 W + 1) * 8 bytes, W = ceil(K / 64): 8.9 MB per image
+    at K = 8,400), allocated here from PyTorch's caching allocator on the
+    same stream (no synchronisation)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k = boxes.shape[0], boxes.shape[1]
@@ -64,8 +61,6 @@ def nms_suppress_cuda(
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k > MAX_K:
-        raise ValueError(f"K={k} candidates exceed the kernel's MAX_K={MAX_K}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep

@@ -8,8 +8,9 @@ shapes throughout:
   are the top ``pre_nms_topk`` objectness scores (ties to the lower index,
   as ``jax.lax.top_k``), decoded, clipped, freed of boxes of side <= 1 and
   suppressed at IoU 0.7 by :func:`~litepi_tpu_torch.ops.nms.suppress` —
-  the NMS kernel on the card (one class, K = ``pre_nms_topk`` <= its
-  ``MAX_K`` of 1,024), ``suppress_sorted`` on the CPU, which JAX runs here
+  the NMS kernel on the card (one class, K = ``pre_nms_topk``: 1,024 by
+  default, torchvision's 2,000 for training), ``suppress_sorted`` on the
+  CPU, which JAX runs here
   and the kernel equals bit for bit — then the top ``post_nms_topk``
   survivors,
 * RoIAlign from a zero-padded P2..P5 pyramid, one batched gather over

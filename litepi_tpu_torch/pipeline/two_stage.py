@@ -28,7 +28,9 @@ versions run.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -56,6 +58,7 @@ from litepi_tpu_torch.weights.fold_bn import (
     fold_stem_input,
     stem_kernel_hwio,
 )
+from litepi_tpu_torch.weights.graph_ops import tf32_allowed
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 from litepi_tpu_torch.weights.seeded import seeded_state
 
@@ -66,6 +69,18 @@ CandidateDecoder = Callable[
 ]
 
 
+def _in_precision(method):
+    """Runs the entry point ``method`` inside its pipeline's
+    :meth:`~TwoStagePipeline.precision` scope."""
+
+    @functools.wraps(method)
+    def scoped(self, *args, **kwargs):
+        with self.precision():
+            return method(self, *args, **kwargs)
+
+    return scoped
+
+
 class TwoStagePipeline:
     """Holds the deploy-form models and runs the fused program.
 
@@ -74,9 +89,12 @@ class TwoStagePipeline:
     the classifier, with BatchNorm (folded here: eps 1e-3 / 1e-5, the
     injected detector's kept) or already deploy-form.
     ``dtype`` is float32 or bfloat16: weights and activations take it,
-    decode and softmax run in float32.  A float32 pipeline on the card
-    turns TF32 off for cuDNN convs and matmuls (process-wide), because
-    float32 here means float32, as on the JAX side.
+    decode and softmax run in float32.  A float32 pipeline runs each
+    entry point (``run_fused``, ``detect``,
+    ``detect_candidates``, ``classify``) with TF32 for cuDNN convs and
+    matmuls set to ``allow_tf32`` (off by default: float32 here means
+    float32, as on the JAX side) and gives the caller's flags back after
+    it (:meth:`precision`).
     """
 
     def __init__(
@@ -89,6 +107,7 @@ class TwoStagePipeline:
         det_model: Optional[nn.Module] = None,
         candidate_decoder: Optional[CandidateDecoder] = None,
         candidate_capacity: Optional[int] = None,
+        allow_tf32: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
@@ -97,9 +116,7 @@ class TwoStagePipeline:
             raise ValueError(f"unknown roi_impl {cfg.roi_impl!r}")
         self.cfg = cfg
         self.dtype = dtype
-        if dtype == torch.float32 and self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.allow_tf32 = allow_tf32
 
         # any detector with the {reg, cls} output contract plugs in
         # (YoloV11, anchor-free YoloV5, ...); a detector with another head
@@ -180,6 +197,15 @@ class TwoStagePipeline:
                 m.float()
         model.load_state_dict(state)
         return model
+
+    def precision(self) -> contextlib.AbstractContextManager:
+        """The TF32 scope of this pipeline's work: a float32 pipeline sets
+        cuDNN's and matmul's TF32 flags to ``allow_tf32`` and restores the
+        caller's on exit (the flags act on the card only); a bf16 pipeline
+        changes nothing."""
+        if self.dtype == torch.float32:
+            return tf32_allowed(self.allow_tf32)
+        return contextlib.nullcontext()
 
     # ------------------------------------------------------------------ #
     # construction helpers                                                #
@@ -388,6 +414,7 @@ class TwoStagePipeline:
         )
         return probs.reshape(n, d, -1), valid & kept.reshape(n, d)
 
+    @_in_precision
     @torch.inference_mode()
     def run_fused(
         self,
@@ -443,6 +470,7 @@ class TwoStagePipeline:
             x = x.flip(-1)  # the detector computes in RGB
         return self._candidates(self.det_model(x.permute(0, 3, 1, 2)), k)
 
+    @_in_precision
     @torch.inference_mode()
     def detect(self, canvas01, conf_threshold: Optional[float] = None) -> Dict[str, torch.Tensor]:
         """Detector stage on pre-letterboxed [0, 1] canvases (B, S, S, 3):
@@ -459,6 +487,7 @@ class TwoStagePipeline:
         )
         return {"boxes": b, "scores": s, "class_ids": c, "valid": v}
 
+    @_in_precision
     def detect_candidates(self, canvas01, max_candidates: Optional[int] = None):
         """Decoded score-descending candidates without suppression, for a
         host-NMS evaluation pass: (boxes (B, K, 4) letterbox-space xyxy,
@@ -470,6 +499,7 @@ class TwoStagePipeline:
         cap = self._candidate_capacity
         return self._detect_top(canvas01, min(k, cap) if k else cap)
 
+    @_in_precision
     @torch.inference_mode()
     def classify(self, crops01) -> torch.Tensor:
         """Classifier stage: (N, c, c, 3) crops in [0, 1], host colour order

@@ -9,8 +9,9 @@ checkout's wrapper (``kernels/nms.py``); one that does not is called with
 the single-kernel entry point of the first design,
 ``litepi_nms_suppress(boxes, cls, valid, keep, B, K, thr, stream)``.  The
 cases, on ``chip_smoke.py``'s NMS inputs (:func:`nms_inputs`, seed 0) with
-1 class (the serving detector's): B=128 at K=64 (the serving budget) and
-at K=512 (``NMSConfig``'s default, the staged ``detect``).  The versions
+1 class (the serving detector's): B=128 at K=64 (the serving budget), at
+K=512 (``NMSConfig``'s default, the staged ``detect``), and B=8 at
+K=1,024 (the Faster R-CNN RPN's default budget).  The versions
 take turns, the others, this one, this one, the others in reverse, and
 each reading is the device time per call from ``torch.profiler`` over 200
 calls (the sum over the call's kernels, each also given apart;
@@ -37,7 +38,7 @@ from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.tools.stage_split import kernel_device_times
 
-BATCH, KS, THR = 128, (64, 512), 0.45
+CASES, THR = ((128, 64), (128, 512), (8, 1024)), 0.45  # (B, K)
 ITERS = 200
 
 
@@ -91,10 +92,10 @@ def measure(dev, others) -> dict:
     calls = {"this": caller(this)}
     calls.update((str(p), caller(build_other(Path(p)))) for p in others)
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [nms_inputs(gen, BATCH, k, 1, dev) for k in KS]
+    cases = [nms_inputs(gen, b, k, 1, dev) for b, k in CASES]
     order = [*others, "this", "this", *reversed(others)]
-    readings = {name: [[] for _ in KS] for name in calls}
-    split = {name: [{} for _ in KS] for name in calls}
+    readings = {name: [[] for _ in CASES] for name in calls}
+    split = {name: [{} for _ in CASES] for name in calls}
     try:
         for name in order:
             for i, case in enumerate(cases):
@@ -111,11 +112,11 @@ def measure(dev, others) -> dict:
         kbuild._loaded["nms"] = this
     return {
         "cases": [
-            {"shape": f"B={BATCH} K={k}, 1 class", "device_ms": {n: r[i] for n, r in readings.items()},
+            {"shape": f"B={b} K={k}, 1 class", "device_ms": {n: r[i] for n, r in readings.items()},
              "device_ms_by_kernel": {n: s[i] for n, s in split.items()},
              "differing_bits": {n: int((got[i] != outs["this"][i]).sum())
                                 for n, got in outs.items()}}
-            for i, k in enumerate(KS)
+            for i, (b, k) in enumerate(CASES)
         ],
     }
 

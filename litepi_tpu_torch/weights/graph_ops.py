@@ -19,16 +19,22 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def tf32_off() -> Iterator[None]:
-    """TF32 off for cuDNN convolutions and matmuls, the flags restored on
-    exit."""
+def tf32_allowed(allowed: bool) -> Iterator[None]:
+    """TF32 allowed (or not) for cuDNN convolutions and matmuls, the
+    caller's flags restored on exit."""
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = allowed
+    torch.backends.cuda.matmul.allow_tf32 = allowed
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def tf32_off() -> contextlib.AbstractContextManager:
+    """TF32 off for cuDNN convolutions and matmuls, the flags restored on
+    exit."""
+    return tf32_allowed(False)
 
 
 @contextlib.contextmanager

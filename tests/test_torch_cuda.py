@@ -15,7 +15,7 @@ import torch
 from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda, act_bf16_cuda
-from litepi_tpu_torch.kernels.nms import MAX_K, nms_suppress_cuda
+from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
 from litepi_tpu_torch.ops import act
@@ -113,12 +113,13 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, MAX_K])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 512, 1024, 1025, 2048])
 @pytest.mark.parametrize("num_classes", [1, 3, 91])
 @pytest.mark.parametrize("b", [1, 7, 129])
 def test_nms_kernel_bit_equal(cuda, k, num_classes, b):
-    """K on both sides of the one-kernel bound (64) and of a word edge;
-    B=1 (one block or warp) and B=129 (more images than SMs)."""
+    """K on both sides of the one-kernel bound (64), of a word edge and of
+    the shared-memory greedy pass's bound (1,024); B=1 (one block or warp)
+    and B=129 (more images than SMs)."""
     gen = torch.Generator(device=cuda).manual_seed(k * 100 + num_classes + 7 * b)
     boxes, cls, valid = _nms_inputs(gen, b, k, num_classes, cuda)
     before = LAUNCHES["nms_suppress"]
@@ -127,8 +128,9 @@ def test_nms_kernel_bit_equal(cuda, k, num_classes, b):
     want = suppress_sorted(boxes, valid, cls, 0.45)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    if b <= 7:
+    if b <= 7 and k <= 1024:
         # the plain version on the card equals the plain version on the CPU
+        # (above 1,024 its CPU fixpoint takes minutes)
         assert torch.equal(
             want.cpu(), suppress_sorted(boxes.cpu(), valid.cpu(), cls.cpu(), 0.45)
         )
@@ -148,7 +150,7 @@ def test_nms_kernel_all_invalid_at_k512(cuda):
 def test_nms_kernel_long_chain_at_k1024(cuda):
     """1 class, each box overlapping only the next (IoU 0.6 > 0.45): every
     other box is kept, a chain of 1024 decisions that crosses every word."""
-    k = MAX_K
+    k = 1024
     x = torch.arange(k, dtype=torch.float32, device=cuda) * 4.0
     boxes = torch.stack([x, torch.zeros_like(x), x + 16.0, torch.full_like(x, 10.0)], -1)
     # shift by 4 of a 16-wide box: IoU(i, i+1) = 12/20, IoU(i, i+2) = 8/24
@@ -250,10 +252,52 @@ def test_nms_kernel_edges(cuda):
     valid = torch.ones((2, 16), dtype=torch.bool, device=cuda)
     keep = nms_suppress_cuda(boxes, cls, valid, 0.45)
     assert keep[:, 0].all() and not keep[:, 1:].any()
-    with pytest.raises(ValueError, match="MAX_K"):
-        big = torch.zeros((1, MAX_K + 1, 4), device=cuda)
-        nms_suppress_cuda(big, torch.zeros((1, MAX_K + 1), dtype=torch.int32, device=cuda),
-                          torch.ones((1, MAX_K + 1), dtype=torch.bool, device=cuda), 0.45)
+    # above 1,024 candidates (the greedy pass in global memory): the same
+    # edges, and random candidates bit-equal to the plain version
+    big = torch.zeros((2, 1025, 4), device=cuda)
+    big_cls = torch.zeros((2, 1025), dtype=torch.int32, device=cuda)
+    assert not nms_suppress_cuda(big, big_cls, torch.zeros((2, 1025), dtype=torch.bool,
+                                                           device=cuda), 0.45).any()
+    big[..., 2:] = 10.0
+    big_valid = torch.ones((2, 1025), dtype=torch.bool, device=cuda)
+    big_valid[1, :3] = False
+    keep = nms_suppress_cuda(big, big_cls, big_valid, 0.45)
+    assert keep[0, 0] and keep[1, 3] and int(keep.sum()) == 2
+    gen = torch.Generator(device=cuda).manual_seed(1025)
+    boxes, cls, valid = _nms_inputs(gen, 2, 1025, 3, cuda)
+    assert torch.equal(nms_suppress_cuda(boxes, cls, valid, 0.45),
+                       suppress_sorted(boxes, valid, cls, 0.45))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2000, 4096, 8400])
+@pytest.mark.parametrize("num_classes", [1, 91])
+def test_nms_kernel_bit_equal_at_large_k(cuda, k, num_classes):
+    """The RPN's training budget (2,000), a power of two and every anchor
+    of the 640 grid (8,400), at B=8 (the plain version's (B, K, K) tensors
+    bound the batch): bit-equal, and each case keeps and suppresses."""
+    gen = torch.Generator(device=cuda).manual_seed(k + num_classes)
+    boxes, cls, valid = _nms_inputs(gen, 8, k, num_classes, cuda)
+    got = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    want = suppress_sorted(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.gpu
+def test_nms_kernel_long_chain_at_k8400(cuda):
+    """The chain of test_nms_kernel_long_chain_at_k1024 over 8,400
+    candidates: 132 words, each decided on the last one's removed set."""
+    k = 8400
+    x = torch.arange(k, dtype=torch.float32, device=cuda) * 4.0
+    boxes = torch.stack([x, torch.zeros_like(x), x + 16.0, torch.full_like(x, 10.0)], -1)
+    boxes = boxes[None].contiguous()
+    cls = torch.zeros((1, k), dtype=torch.int32, device=cuda)
+    valid = torch.ones((1, k), dtype=torch.bool, device=cuda)
+    keep = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(keep[0], torch.arange(k, device=cuda) % 2 == 0)
 
 
 def _roi_inputs(gen, b, d, h, w, dev):

@@ -289,22 +289,17 @@ def test_checkpoint_round_trip(data, tmp_path):
 @pytest.mark.parametrize("precision,tf32", [(None, False), ("default", False),
                                             ("high", True), ("highest", False)])
 def test_matmul_precision_mapping(precision, tf32):
-    """A float32 pipeline on the card allows TF32 for "high" only (the
-    flags are set; no card is needed to set them); a bf16 pipeline and the
-    CPU leave the flags alone."""
+    """A float32 pipeline allows TF32 for "high" only, a bf16 pipeline
+    never.  The choice is the pipeline's ``allow_tf32``: mapping it writes
+    no process flag."""
     flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
     saved = [f.allow_tf32 for f in flags]
     try:
         for f in flags:
             f.allow_tf32 = not tf32
         assert port_e2e.MATMUL_TF32[precision] is tf32
-        cuda, cpu = torch.device("cuda"), torch.device("cpu")
-        assert port_e2e.apply_matmul_precision(precision, torch.float32, cuda) is tf32
-        assert [f.allow_tf32 for f in flags] == [tf32, tf32]
-        for f in flags:
-            f.allow_tf32 = not tf32
-        assert port_e2e.apply_matmul_precision(precision, torch.bfloat16, cuda) is False
-        port_e2e.apply_matmul_precision(precision, torch.float32, cpu)
+        assert port_e2e.apply_matmul_precision(precision, torch.float32) is tf32
+        assert port_e2e.apply_matmul_precision(precision, torch.bfloat16) is False
         assert [f.allow_tf32 for f in flags] == [not tf32, not tf32]
     finally:
         for f, s in zip(flags, saved):

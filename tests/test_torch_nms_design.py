@@ -15,6 +15,13 @@ The transcription follows the kernel's two designs step by step:
   scratch buffer starts as random bits (what the kernel never writes must
   never decide a bit); then the word-by-word greedy pass with the removed
   set held one word per lane.
+* K > 1024 (nms_mask_strided_kernel + nms_greedy_large_kernel): the same
+  tiles, walked by a grid-stride loop whose tile index is decoded in
+  closed form (every tile once, at any grid); then the greedy pass with
+  the removed set in shared memory: warp 0 decides word w on the diagonal
+  tile's row words, and warp v ORs the kept rows' words of columns
+  w + 1 + v, w + 1 + v + LARGE_WARPS, ... into the removed set, reading
+  only kept rows' words.
 """
 
 import numpy as np
@@ -26,6 +33,9 @@ from litepi_tpu_torch.ops.nms import suppress_sorted
 
 FUSED_MAX_K = 64  # nms.cu's kSmallMaxK
 SMALL_WARPS = 4  # nms.cu's kSmallWarps
+SHARED_MAX_WORDS = 16  # nms.cu's kSharedMaxWords
+LARGE_WARPS = 16  # nms.cu's kLargeWarps
+MAX_GRID_Y = 65535  # nms.cu's kMaxGridY
 ALL = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
@@ -111,27 +121,42 @@ def _small_kernel(boxes, cls, valid, thr):
     return np.array([(kept >> q) & 1 for q in range(k)], bool)
 
 
-def _two_kernels(boxes, cls, valid, thr, rng):
-    k = len(valid)
-    w_count = -(-k // 64)
-    kp = 64 * w_count
-    half = (w_count, kp)
-    mask = (rng.integers(0, 2**32, half, dtype=np.uint64) << np.uint64(32)) | rng.integers(
-        0, 2**32, half, dtype=np.uint64)
-    valid_words = np.zeros(w_count, np.uint64)
-    for rb in range(w_count):
-        rows = np.arange(rb * 64, min(rb * 64 + 64, k))
-        valid_words[rb] = _pack(valid[rows])
-        for cb in range(rb, w_count):
-            cols = np.arange(cb * 64, min(cb * 64 + 64, k))
-            if not valid[cols].any():
-                continue  # the tile returns at once
-            n = int(np.nonzero(valid[cols])[0][-1]) + 1
-            over = _suppresses(boxes[rows], boxes[cols[:n]], cls[rows], cls[cols[:n]], thr)
-            over &= valid[rows][:, None]  # an invalid row computes nothing
-            if cb == rb:
-                over &= rows[:, None] < cols[None, :n]
-            mask[cb, rows] = _pack(over)
+def _tiles_before(r, w_count):
+    return r * w_count - r * (r - 1) // 2
+
+
+def _tile_of(t, w_count):
+    """nms_mask_strided_kernel's tile t -> (rb, cb): the float64 estimate
+    of the largest r with _tiles_before(r) <= t, then the integer fixes."""
+    b = 2.0 * w_count + 1.0
+    rb = int((b - np.sqrt(b * b - 8.0 * float(t))) * 0.5)
+    while rb > 0 and _tiles_before(rb, w_count) > t:
+        rb -= 1
+    while _tiles_before(rb + 1, w_count) <= t:
+        rb += 1
+    return rb, rb + (t - _tiles_before(rb, w_count))
+
+
+def _tile_order(w_count):
+    """The tiles in the order the mask kernels index them: nms_mask_kernel's
+    loop decode for W <= 16; for more words, the grid-stride loop over a
+    grid of min(T, MAX_GRID_Y) blocks per image."""
+    n_tiles = w_count * (w_count + 1) // 2
+    if w_count <= SHARED_MAX_WORDS:
+        order = []
+        for t in range(n_tiles):
+            cb, rb = t, 0
+            while cb >= w_count - rb:
+                cb -= w_count - rb
+                rb += 1
+            order.append((rb, cb + rb))
+        return order
+    grid_y = min(n_tiles, MAX_GRID_Y)
+    return [_tile_of(t, w_count) for y in range(grid_y) for t in range(y, n_tiles, grid_y)]
+
+
+def _greedy_shared(mask, valid_words, w_count, k):
+    """nms_greedy_kernel (W <= 16): lane c holds word c of the removed set."""
     removed = np.zeros(w_count, np.uint64)
     keep = np.zeros(k, bool)
     for w in range(w_count):
@@ -142,6 +167,61 @@ def _two_kernels(boxes, cls, valid, thr, rng):
         for c in range(w + 1, w_count):
             removed[c] |= np.bitwise_or.reduce(mask[c, [64 * w + q for q in qs]]) if qs else 0
     return keep
+
+
+def _greedy_large(mask, valid_words, w_count, k):
+    """nms_greedy_large_kernel (W > 16): the removed set in shared memory,
+    the invalid candidates set from the start; warp 0 decides word w, then
+    each warp ORs its columns' words of the kept rows (lane l: rows 64w + l
+    and 64w + 32 + l, a row's load skipped unless it is kept) across its
+    lanes into the removed set."""
+    s_removed = ~valid_words & ALL
+    keep = np.zeros(k, bool)
+    for w in range(w_count):
+        kept = _greedy_word(mask[w, 64 * w : 64 * w + 64], s_removed[w])
+        for lane in range(32):
+            for q in (lane, lane + 32):
+                if 64 * w + q < k:
+                    keep[64 * w + q] = bool((kept >> q) & 1)
+        if kept == 0:
+            continue
+        for warp in range(LARGE_WARPS):
+            for c in range(w + 1 + warp, w_count, LARGE_WARPS):
+                x = np.uint64(0)
+                for lane in range(32):
+                    for q in (lane, lane + 32):
+                        if (kept >> q) & 1:
+                            x |= mask[c, 64 * w + q]
+                s_removed[c] |= x
+    return keep
+
+
+def _two_kernels(boxes, cls, valid, thr, rng):
+    k = len(valid)
+    w_count = -(-k // 64)
+    kp = 64 * w_count
+    half = (w_count, kp)
+    mask = (rng.integers(0, 2**32, half, dtype=np.uint64) << np.uint64(32)) | rng.integers(
+        0, 2**32, half, dtype=np.uint64)
+    valid_words = (rng.integers(0, 2**32, w_count, dtype=np.uint64) << np.uint64(32)) | \
+        rng.integers(0, 2**32, w_count, dtype=np.uint64)
+    order = _tile_order(w_count)
+    assert sorted(order) == [(rb, cb) for rb in range(w_count) for cb in range(rb, w_count)]
+    for rb, cb in order:
+        rows = np.arange(rb * 64, min(rb * 64 + 64, k))
+        if cb == rb:  # the diagonal tile writes the row block's valid bits
+            valid_words[rb] = _pack(valid[rows])
+        cols = np.arange(cb * 64, min(cb * 64 + 64, k))
+        if not valid[cols].any():
+            continue  # the tile returns at once
+        n = int(np.nonzero(valid[cols])[0][-1]) + 1
+        over = _suppresses(boxes[rows], boxes[cols[:n]], cls[rows], cls[cols[:n]], thr)
+        over &= valid[rows][:, None]  # an invalid row computes nothing
+        if cb == rb:
+            over &= rows[:, None] < cols[None, :n]
+        mask[cb, rows] = _pack(over)
+    greedy = _greedy_shared if w_count <= SHARED_MAX_WORDS else _greedy_large
+    return greedy(mask, valid_words, w_count, k)
 
 
 def transcription(boxes, cls, valid, thr, seed=0):
@@ -179,7 +259,7 @@ def _all_three(boxes, cls, valid, thr):
 
 
 @pytest.mark.parametrize("num_classes", [1, 3, 91])
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 128, 512, 1024])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 128, 512, 1024, 1025, 2048])
 def test_transcription_bit_equal(k, num_classes):
     rng = np.random.default_rng(k * 10 + num_classes)
     boxes, cls, valid = _inputs(rng, 2, k, num_classes, valid_prefix=k % 2 == 0)
@@ -212,7 +292,7 @@ def test_transcription_identical_boxes(k):
         np.testing.assert_array_equal(mask, want)
 
 
-@pytest.mark.parametrize("k", [64, 130, 1024])
+@pytest.mark.parametrize("k", [64, 130, 1024, 1100])
 def test_transcription_long_chain(k):
     """1 class, each box overlapping only the next (IoU 12/20 > 0.45; the
     one after next 8/24): every other box is kept, a chain of k decisions
@@ -222,10 +302,11 @@ def test_transcription_long_chain(k):
     cls = np.zeros((1, k), np.int32)
     valid = np.ones((1, k), bool)
     got = transcription(boxes, cls, valid, 0.45)
-    plain = suppress_sorted(torch.from_numpy(boxes), torch.from_numpy(valid),
-                            torch.from_numpy(cls), 0.45).numpy()
     np.testing.assert_array_equal(got[0], np.arange(k) % 2 == 0)
-    np.testing.assert_array_equal(got, plain)
+    if k <= 1024:  # the plain fixpoint takes k rounds too (25 s at 1,100 here)
+        plain = suppress_sorted(torch.from_numpy(boxes), torch.from_numpy(valid),
+                                torch.from_numpy(cls), 0.45).numpy()
+        np.testing.assert_array_equal(got, plain)
     if k <= 130:  # the Pallas fixpoint takes k rounds of its interpreter here
         pallas = np.asarray(pallas_suppress(
             np.swapaxes(boxes, -1, -2), cls.astype(np.float32)[:, None, :], valid, 0.45, True))
@@ -260,3 +341,18 @@ def test_transcription_at_other_thresholds(thr):
     got, pallas, plain = _all_three(boxes, cls, valid, thr)
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("w_count", [17, 33, 132, 361, 362, 400])
+def test_strided_tile_order_covers_every_tile_once(w_count):
+    """The closed-form decode equals the loop decode at every tile (W = 132
+    is K = 8,400; from W = 362 the tiles outnumber the grid's 65,535
+    blocks, so the grid-stride loop visits some blocks' tiles twice over)."""
+    n_tiles = w_count * (w_count + 1) // 2
+    want = []
+    for rb in range(w_count):
+        want += [(rb, cb) for cb in range(rb, w_count)]
+    got = [_tile_of(t, w_count) for t in range(n_tiles)]
+    assert got == want
+    order = _tile_order(w_count)
+    assert len(order) == n_tiles and sorted(order) == want

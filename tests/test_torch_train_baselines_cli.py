@@ -6,8 +6,9 @@ tiny sizes: a Faster R-CNN run (input 64, ``pre_nms_topk`` 64,
 ``python -m litepi_tpu_torch.bench.detector_bench --checkpoint`` loads
 them and prints a row with the JAX bench's columns; the refusals exit with
 rc 2 and one ``error:`` line (an ssd300 ``--imgsz`` other than 300, as the
-JAX CLI; ``--data_parallel 2``; ``--pre_nms_topk`` above the NMS kernel's
-``MAX_K`` on the card); the default ``--device`` raises without a card."""
+JAX CLI; ``--data_parallel 2``); ``--pre_nms_topk 2000`` (torchvision's
+training default, above 1,024 candidates) runs; the default ``--device``
+raises without a card."""
 
 import json
 import os
@@ -84,14 +85,28 @@ def test_tiny_faster_rcnn_run_feeds_the_bench(data, tmp_path, capsys):
 @pytest.mark.parametrize("case,extra", [
     ("ssd300 imgsz", ["--arch", "ssd300", "--imgsz", "320", "--device", "cpu"]),
     ("data_parallel", ["--arch", "faster_rcnn", "--data_parallel", "2", "--device", "cpu"]),
-    ("pre_nms_topk above MAX_K", ["--arch", "faster_rcnn", "--pre_nms_topk", "2048"]),
 ])
 def test_rc2_paths(data, tmp_path, capsys, case, extra):
     rc = train_baselines.main(_argv(data, tmp_path / "out", *extra))
     err = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error")]
     assert rc == 2 and len(err) == 1, err
-    key = {"ssd300 imgsz": "300", "data_parallel": "M11", "pre_nms_topk above MAX_K": "MAX_K"}
+    key = {"ssd300 imgsz": "300", "data_parallel": "M11"}
     assert key[case] in err[0]
+
+
+def test_pre_nms_topk_2000_runs(data, tmp_path, capsys):
+    """``--pre_nms_topk 2000``, more than 1,024 candidates (the refusal it
+    replaces is gone with the NMS kernel's bound): at input 128 the RPN has
+    4,092 anchors, so its NMS takes K = 2,000, through one step and its
+    validation."""
+    out = tmp_path / "frcnn2000"
+    argv = _argv(data, out, "--arch", "faster_rcnn", "--imgsz", "128", "--pre_nms_topk", "2000",
+                 "--post_nms_topk", "16", "--device", "cpu")
+    argv[argv.index("--epochs") + 1] = "1"
+    assert train_baselines.main(argv) == 0
+    assert "validation" in capsys.readouterr().out
+    res = json.loads((out / "results.json").read_text())
+    assert res["epochs_run"] == 1 and np.isfinite(res["best_score"])
 
 
 def test_default_device_needs_a_card(data, tmp_path, monkeypatch):
