@@ -114,11 +114,11 @@ def _place_yolo(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
 
 
 def _without_tf32(fn: Callable) -> Callable:
-    """``fn`` run with TF32 off (``weights/graph_ops.py::tf32_off``)."""
-    from litepi_tpu_torch.weights.graph_ops import tf32_off
+    """``fn`` run with TF32 off (``weights/graph_ops.py::tf32_allowed``)."""
+    from litepi_tpu_torch.weights.graph_ops import tf32_allowed
 
     def run(x):
-        with tf32_off():
+        with tf32_allowed(False):
             return fn(x)
 
     return run

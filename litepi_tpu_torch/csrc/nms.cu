@@ -34,30 +34,29 @@
 //   memory, and warp 0 runs the greedy pass on them.
 // * K > 64: two kernels.  nms_mask_kernel computes the upper triangle of
 //   64 x 64 tiles across the whole card, one block per tile (B=128, K=512:
-//   4,608 blocks), the tile's 64 suppressee boxes staged in shared memory,
-//   two threads per suppressor row, 32 columns each; a tile stops at its
-//   last valid column, and one with none returns at once.  The words go to a scratch
+//   4,608 blocks) up to 65,535 tiles per image (K = 23,104), beyond that a
+//   grid-stride loop over them, so that memory alone bounds K.  The tile's
+//   64 suppressee boxes are staged in shared memory, two threads per
+//   suppressor row, 32 columns each; a tile stops at its last valid
+//   column, and one with none returns at once.  The words go to a scratch
 //   buffer the wrapper allocates (B*W*(64W + 1) words, W = K/64 rounded
-//   up: 4 MB at B=128, K=512, which stays in L2).  The diagonal tiles also
-//   write each word's valid bits.  nms_greedy_kernel, one warp per image,
-//   copies the image's triangle into shared memory by cp.async, then walks
-//   the words in order: the whole warp decides the 64 candidates of word w
-//   together (greedy_word below: two instructions per candidate on the
-//   chain, in registers, with the row words loaded ahead of it from shared
-//   memory), then ORs the kept rows' later words into the removed set
-//   across the lanes (__reduce_or_sync).
-// * K > 1024 (W > 16 words): one image's triangle outgrows shared memory
-//   (227 KB per block from K ~ 1,345) and the removed set a warp's lanes.
-//   nms_mask_strided_kernel computes the same tiles as nms_mask_kernel
-//   (mask_tile, shared by both) but walks them with a grid-stride loop,
-//   so that the grid's 65,535 limit on blockIdx.y does not bound K.
-//   nms_greedy_large_kernel, one block of kLargeWarps warps per image,
-//   keeps the removed set in shared memory (one word per 64 candidates)
-//   and reads the row words from global memory (L2): warp 0 decides the
-//   64 candidates of word w (greedy_word, its row words loaded from the
-//   diagonal tile), then every warp ORs the kept rows' words of a share
-//   of the later columns into the removed set, the part that grows as
-//   K^2 / 64 per image.
+//   up: 4 MB at B=128, K=512, which stays in L2; 8.9 MB per image at
+//   K = 8,400).  The diagonal tiles also write each word's valid bits.
+//   The greedy pass walks the words in order: the whole warp decides the
+//   64 candidates of word w together (greedy_word below: two instructions
+//   per candidate on the chain, in registers, with the row words loaded
+//   ahead of it), then ORs the kept rows' later words into the removed
+//   set across the lanes (__reduce_or_sync).
+//   - K <= 1024 (W <= 16): nms_greedy_kernel, one warp per image, copies
+//     the image's triangle into shared memory by cp.async and holds word c
+//     of the removed set in lane c.
+//   - K > 1024: the triangle outgrows shared memory (227 KB per block from
+//     K ~ 1,345) and the removed set a warp's lanes.
+//     nms_greedy_large_kernel, one block of kLargeWarps warps per image,
+//     keeps the removed set in shared memory and reads the row words from
+//     global memory (L2): warp 0 decides word w, then every warp ORs the
+//     kept rows' words of a share of the later columns, the part that
+//     grows as K^2 / 64 per image.
 //
 // The keep mask goes out one byte per lane, 32 bytes per store.  The TPU
 // kernel's matvec fixpoint and its 8-images-per-instance blocking were TPU
@@ -284,48 +283,34 @@ __device__ __forceinline__ void mask_tile(
   reinterpret_cast<unsigned*>(mask + ((size_t)image * W + cb) * (64 * (size_t)W) + j)[h] = bits;
 }
 
-// K <= 1024: one block per tile, tile blockIdx.y of image blockIdx.x.
-__global__ void __launch_bounds__(128) nms_mask_kernel(
+// Tiles before row block r: r*W - r*(r - 1)/2.  (int: the scratch, 512 W^2
+// bytes per image, runs out of card memory long before W(W + 1)/2 leaves
+// int's range at W ~ 65,000.)
+__device__ __forceinline__ int tiles_before(int r, int W) {
+  return r * W - (r * (r - 1) >> 1);
+}
+
+// The upper triangle of 64 x 64 tiles of image blockIdx.x, tile t =
+// blockIdx.y, blockIdx.y + gridDim.y, ... (a grid-stride loop, so that the
+// grid's 65,535 limit on blockIdx.y does not bound K; one tile per block up
+// to W = 361, K = 23,104).  t -> (rb, cb) row by row, rb the largest r with
+// tiles_before(r) <= t: a float32 estimate, corrected in integers.  At
+// most 32 registers, so that 16 blocks (2,048 threads) fit on an SM.
+__global__ void __launch_bounds__(128, 16) nms_mask_kernel(
     const float4* __restrict__ boxes, const int* __restrict__ cls,
     const uint8_t* __restrict__ valid, u64* __restrict__ mask,
     u64* __restrict__ valid_words, int K, int W, float thr) {
   __shared__ float4 s_box[64];
   __shared__ float2 s_ac[64];
   __shared__ unsigned s_cols[2];  // valid bits of the tile's columns
-  int cb = blockIdx.y, rb = 0;  // tile index -> (rb, cb), cb >= rb
-  while (cb >= W - rb) {
-    cb -= W - rb;
-    ++rb;
-  }
-  cb += rb;
-  mask_tile(boxes, cls, valid, mask, valid_words, K, W, thr, blockIdx.x, rb, cb, s_box, s_ac,
-            s_cols);
-}
-
-// Tiles before row block r: r*W - r*(r - 1)/2.
-__device__ __forceinline__ long long tiles_before(long long r, int W) {
-  return r * W - r * (r - 1) / 2;
-}
-
-// K > 1024: tiles t = blockIdx.y, blockIdx.y + gridDim.y, ... of image
-// blockIdx.x, t -> (rb, cb) in the order of nms_mask_kernel's loop,
-// solved in closed form (rb is the largest r with tiles_before(r) <= t).
-__global__ void __launch_bounds__(128) nms_mask_strided_kernel(
-    const float4* __restrict__ boxes, const int* __restrict__ cls,
-    const uint8_t* __restrict__ valid, u64* __restrict__ mask,
-    u64* __restrict__ valid_words, int K, int W, float thr) {
-  __shared__ float4 s_box[64];
-  __shared__ float2 s_ac[64];
-  __shared__ unsigned s_cols[2];
-  const long long n_tiles = (long long)W * (W + 1) / 2;
-  const double b = 2.0 * W + 1.0;
-  for (long long t = blockIdx.y; t < n_tiles; t += gridDim.y) {
-    long long rb = static_cast<long long>((b - sqrt(b * b - 8.0 * (double)t)) * 0.5);
+  const int n_tiles = W * (W + 1) / 2;
+  const float b = 2.f * W + 1.f;
+  for (int t = blockIdx.y; t < n_tiles; t += gridDim.y) {
+    int rb = static_cast<int>((b - sqrtf(b * b - 8.f * t)) * 0.5f);
     while (rb > 0 && tiles_before(rb, W) > t) --rb;
     while (tiles_before(rb + 1, W) <= t) ++rb;
-    const int cb = static_cast<int>(rb + (t - tiles_before(rb, W)));
-    mask_tile(boxes, cls, valid, mask, valid_words, K, W, thr, blockIdx.x,
-              static_cast<int>(rb), cb, s_box, s_ac, s_cols);
+    mask_tile(boxes, cls, valid, mask, valid_words, K, W, thr, blockIdx.x, rb,
+              rb + t - tiles_before(rb, W), s_box, s_ac, s_cols);
     if (t + gridDim.y < n_tiles) __syncthreads();  // the next tile restages s_box
   }
 }
@@ -450,12 +435,12 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
   if (scratch == nullptr) return cudaErrorInvalidValue;
   u64* mask = static_cast<u64*>(scratch);
   u64* valid_words = mask + (size_t)B * W * 64 * W;
-  cudaError_t e;
+  const int n_tiles = W * (W + 1) / 2;
+  const unsigned grid_y = n_tiles < kMaxGridY ? n_tiles : kMaxGridY;
+  nms_mask_kernel<<<dim3(B, grid_y), 128, 0, s>>>(b, c, v, mask, valid_words, K, W, thr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   if (W <= kSharedMaxWords) {
-    nms_mask_kernel<<<dim3(B, W * (W + 1) / 2), 128, 0, s>>>(b, c, v, mask, valid_words,
-                                                             K, W, thr);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
     const size_t smem = (size_t)W * 64 * W * sizeof(u64);
     if (smem > 48 * 1024) {
       e = cudaFuncSetAttribute(nms_greedy_kernel,
@@ -465,12 +450,6 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
     nms_greedy_kernel<<<B, 32, smem, s>>>(mask, valid_words, out, K, W);
     return cudaGetLastError();
   }
-  const long long n_tiles = (long long)W * (W + 1) / 2;
-  const unsigned grid_y = static_cast<unsigned>(n_tiles < kMaxGridY ? n_tiles : kMaxGridY);
-  nms_mask_strided_kernel<<<dim3(B, grid_y), 128, 0, s>>>(b, c, v, mask, valid_words, K, W,
-                                                          thr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
   const size_t smem = (size_t)W * sizeof(u64);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(nms_greedy_large_kernel,

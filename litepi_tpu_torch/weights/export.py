@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from litepi_tpu_torch.core.device import resolve_device
-from litepi_tpu_torch.weights.graph_ops import float32_exact, tf32_off
+from litepi_tpu_torch.weights.graph_ops import float32_exact, tf32_allowed
 from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
 
 
@@ -46,7 +46,7 @@ class _NhwcProgram(nn.Module):
 def export_program(module: nn.Module, example_args: Sequence[torch.Tensor]) -> bytes:
     """Export ``module`` (shaped by ``example_args``) with ``torch.export``
     and serialize it with ``torch.export.save``."""
-    with tf32_off(), torch.no_grad():
+    with tf32_allowed(False), torch.no_grad():
         program = torch.export.export(module, tuple(example_args))
     buf = io.BytesIO()
     torch.export.save(program, buf)

@@ -31,16 +31,10 @@ def tf32_allowed(allowed: bool) -> Iterator[None]:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def tf32_off() -> contextlib.AbstractContextManager:
-    """TF32 off for cuDNN convolutions and matmuls, the flags restored on
-    exit."""
-    return tf32_allowed(False)
-
-
 @contextlib.contextmanager
 def float32_exact() -> Iterator[None]:
-    """Inference mode with TF32 off (:func:`tf32_off`)."""
-    with tf32_off(), torch.inference_mode():
+    """Inference mode with TF32 off (:func:`tf32_allowed`)."""
+    with tf32_allowed(False), torch.inference_mode():
         yield
 
 

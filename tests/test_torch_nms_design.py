@@ -7,21 +7,19 @@ The transcription follows the kernel's two designs step by step:
 * K <= 64 (nms_small_kernel): lane l of warp w computes rows l and 63 - l
   over its warp's run of the row pair's 63 pairs; the warps' partial words
   are ORed; the greedy pass runs on the one word.
-* K > 64 (nms_mask_kernel + nms_greedy_kernel): 64 x 64 tiles of the
-  upper triangle, one word per suppressor row (the kernel gives each row
-  two threads of 32 columns, which only divides the work),
+* K > 64 (nms_mask_kernel): 64 x 64 tiles of the upper triangle, walked
+  by a grid-stride loop whose tile index is decoded in closed form (every
+  tile once, at any grid), one word per suppressor row (the kernel gives
+  each row two threads of 32 columns, which only divides the work),
   computed only for valid rows and up to the tile's last valid column,
   tiles with no valid column skipped, rows past K not written; the
   scratch buffer starts as random bits (what the kernel never writes must
-  never decide a bit); then the word-by-word greedy pass with the removed
-  set held one word per lane.
-* K > 1024 (nms_mask_strided_kernel + nms_greedy_large_kernel): the same
-  tiles, walked by a grid-stride loop whose tile index is decoded in
-  closed form (every tile once, at any grid); then the greedy pass with
-  the removed set in shared memory: warp 0 decides word w on the diagonal
-  tile's row words, and warp v ORs the kept rows' words of columns
-  w + 1 + v, w + 1 + v + LARGE_WARPS, ... into the removed set, reading
-  only kept rows' words.
+  never decide a bit).  Then the word-by-word greedy pass:
+  - K <= 1024 (nms_greedy_kernel): the removed set held one word per lane;
+  - K > 1024 (nms_greedy_large_kernel): the removed set in shared memory:
+    warp 0 decides word w on the diagonal tile's row words, and warp v ORs
+    the kept rows' words of columns w + 1 + v, w + 1 + v + LARGE_WARPS, ...
+    into the removed set, reading only kept rows' words.
 """
 
 import numpy as np
@@ -126,10 +124,11 @@ def _tiles_before(r, w_count):
 
 
 def _tile_of(t, w_count):
-    """nms_mask_strided_kernel's tile t -> (rb, cb): the float64 estimate
-    of the largest r with _tiles_before(r) <= t, then the integer fixes."""
-    b = 2.0 * w_count + 1.0
-    rb = int((b - np.sqrt(b * b - 8.0 * float(t))) * 0.5)
+    """nms_mask_kernel's tile t -> (rb, cb): the float32 estimate of the
+    largest r with _tiles_before(r) <= t, then the integer fixes."""
+    b = np.float32(2 * w_count + 1)
+    arg = b * b - np.float32(8) * np.float32(t)
+    rb = int((b - np.sqrt(arg)) * np.float32(0.5))
     while rb > 0 and _tiles_before(rb, w_count) > t:
         rb -= 1
     while _tiles_before(rb + 1, w_count) <= t:
@@ -138,19 +137,9 @@ def _tile_of(t, w_count):
 
 
 def _tile_order(w_count):
-    """The tiles in the order the mask kernels index them: nms_mask_kernel's
-    loop decode for W <= 16; for more words, the grid-stride loop over a
-    grid of min(T, MAX_GRID_Y) blocks per image."""
+    """The tiles in the order nms_mask_kernel visits them: the grid-stride
+    loop over a grid of min(T, MAX_GRID_Y) blocks per image."""
     n_tiles = w_count * (w_count + 1) // 2
-    if w_count <= SHARED_MAX_WORDS:
-        order = []
-        for t in range(n_tiles):
-            cb, rb = t, 0
-            while cb >= w_count - rb:
-                cb -= w_count - rb
-                rb += 1
-            order.append((rb, cb + rb))
-        return order
     grid_y = min(n_tiles, MAX_GRID_Y)
     return [_tile_of(t, w_count) for y in range(grid_y) for t in range(y, n_tiles, grid_y)]
 
@@ -343,10 +332,10 @@ def test_transcription_at_other_thresholds(thr):
     np.testing.assert_array_equal(got, plain)
 
 
-@pytest.mark.parametrize("w_count", [17, 33, 132, 361, 362, 400])
+@pytest.mark.parametrize("w_count", [2, 16, 17, 33, 132, 361, 362, 400])
 def test_strided_tile_order_covers_every_tile_once(w_count):
-    """The closed-form decode equals the loop decode at every tile (W = 132
-    is K = 8,400; from W = 362 the tiles outnumber the grid's 65,535
+    """The closed-form decode equals the loop decode at every tile (W = 16
+    is K = 1,024, W = 132 is K = 8,400; from W = 362 the tiles outnumber the grid's 65,535
     blocks, so the grid-stride loop visits some blocks' tiles twice over)."""
     n_tiles = w_count * (w_count + 1) // 2
     want = []
