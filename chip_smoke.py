@@ -216,7 +216,26 @@ source, in parallel), then:
    training CLI with ``--pre_nms_topk 2000`` (2 epochs of 3 steps; K1's
    launches counted by K).  The timed steps, the
    bf16 inference, the CLIs and the benches run under the TF32 flags of a
-   fresh process (FRESH_TF32), as a user's process does.
+   fresh process (FRESH_TF32), as a user's process does;
+14. data parallelism (``parallel/``, ``pipeline/serving.py``,
+   ``data/distributed.py``): in this process one NCCL rank (a group of
+   one) runs ``MeshServer.serve`` at the serving configuration (B=128
+   640x640 device frames, bf16) under ``set_sync_debug_mode("error")``,
+   its launch counts zeroed just before and read just after (K1, K2 dense
+   and K3 once each), bit-equal to ``run_fused`` on the same frames and
+   timed beside it (ms per batch, the median of 5 windows);
+   ``StreamingRunner(server=...)`` over 4 such batches of canvases equal
+   to the direct run + host unmap; the bf16 detector train step at full
+   width (640, B=16) with the mesh, its first loss bit-equal to the step
+   without one, the act kernel launched both ways.  Then
+   ``parallel/multiprocess.py``'s flow at 1 and at 2 gloo ranks sharing
+   the card (a correctness check, never a throughput number): float32
+   served outputs' discrete values equal, floats within the float32
+   tolerances, the train loss and parameter checksum within 1e-6
+   relative.  Then the training CLI's launcher: ``--data_parallel 1`` on
+   the card (validation's K1 at K=512 counted), ``--data_parallel`` beyond
+   the visible cards exiting with rc 2, and 2 CPU ranks against 1, one
+   step in the CLI's bf16 (the loss within one bf16 ulp).
 
 Prints the build's resource report (``-Xptxas -v``: registers and spills
 per kernel) and the card's ``nvidia-smi`` name and power limit before the
@@ -239,10 +258,11 @@ split by K in ``baseline_launches_by_k``, and rows at (8, 256) (the
 stream app), (8, 2,000) (the baseline CLI at ``--pre_nms_topk 2000``),
 (8, 8,400) (the e2e CLI at ``--max_candidates 8400``) and (128, 2,048)
 (a timing shape); ``stream_launches``, ``ladder_launches`` and
-``ablation_launches`` are those paths' counts on the row of their shape), an
+``ablation_launches`` are those paths' counts on the row of their shape,
+``data_parallel_launches`` the data-parallel phase's), an
 ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
 "training": ..., "baselines": ..., "stream": ..., "ladder": ...,
-"ablation": ...}`` JSON line, and
+"ablation": ..., "data_parallel": ...}`` JSON line, and
 last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Exits non-zero without a result when no CUDA device is present.
@@ -255,6 +275,7 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -440,7 +461,7 @@ GRAPH_TOL, ROW_TOL, PROGRAM_TOL = 1e-4, 1e-6, 1e-5
 # the training phase: the act kernel's backward at a bf16 SiLU input of a
 # B=16 training batch; the float32 step card vs CPU on a narrow ablation
 # detector; the detector CLI at the reference's imgsz=640, batch=16 on
-# synthetic JPEG frames (TRAIN_FRAME) with YOLO labels, 2 epochs of 4 steps
+# synthetic 640x480 JPEG frames with YOLO labels, 2 epochs of 4 steps
 # plus validation; the classifier CLI on 91 classes of 64x64 crops at
 # batch 128; each train step timed over TRAIN_TIMED_STEPS steps a window
 ACT_BWD_SHAPE = (16, 32, 320, 320)
@@ -448,7 +469,7 @@ TRAIN_SMALL = dataclasses.replace(
     ablation_configs(width_scales=(0.25,), extra=(), num_classes=3)[0], input_size=128)
 TRAIN_DET_SIZE, TRAIN_DET_BATCH, TRAIN_MAX_GT = 640, 16, 64
 TRAIN_DET_EPOCHS, TRAIN_DET_STEPS = 2, 4
-TRAIN_DET_IMAGES, TRAIN_DET_VAL_IMAGES, TRAIN_FRAME = 64, 32, (480, 640)
+TRAIN_DET_IMAGES, TRAIN_DET_VAL_IMAGES = 64, 32
 TRAIN_CLS_BATCH, TRAIN_CLS_STEPS, TRAIN_CLS_CROPS = 128, 3, 3
 TRAIN_TIMED_STEPS = 5
 # the baselines phase: Faster R-CNN-ResNet50-FPN at the reference recipe
@@ -479,6 +500,11 @@ STREAM_F32_TOL = {"boxes": 1e-2, "det_scores": 1e-5, "cls_scores": 1e-4}
 # --train run on ABLATION_IMAGES frames
 LADDER_FRAMES, LADDER_ITERATIONS = 16, 3
 ABLATION_IMAGES = 16
+# the data-parallel phase: MeshServer on one NCCL rank at the serving batch,
+# a stream of that many batches through it, the bf16 train steps with the
+# mesh; the 2-gloo-rank flow's limit (it spawns 1 and then 2 ranks)
+DP_SERVE_BATCH, DP_STREAM_BATCHES, DP_TRAIN_STEPS = 128, 4, 2
+DP_FLOW_TIMEOUT = 300.0
 # PyTorch's TF32 flags (cuDNN, matmul) as a fresh process has them, read
 # before any phase sets them: the baselines' timed train steps, CLIs and
 # benches run under them, as a user's process does
@@ -2278,27 +2304,11 @@ def time_train_steps(dev) -> dict:
 
 
 def write_detection_set(root: str, n: int, rng) -> tuple:
-    """``n`` JPEG frames (TRAIN_FRAME) with 1 to 3 bright boxes each and
-    their YOLO labels (class 0) under ``root``/images and ``root``/labels."""
-    import cv2
+    """``n`` 640x480 JPEG frames with 1 to 3 bright boxes each and their
+    YOLO labels (class 0) under ``root``/images and ``root``/labels."""
+    from litepi_tpu_torch.tools.dp_cards import write_images
 
-    img_dir, lbl_dir = os.path.join(root, "images"), os.path.join(root, "labels")
-    os.makedirs(img_dir)
-    os.makedirs(lbl_dir)
-    h, w = TRAIN_FRAME
-    for i in range(n):
-        img = rng.integers(0, 120, (h, w, 3), dtype=np.uint8)
-        lines = []
-        for _ in range(int(rng.integers(1, 4))):
-            bw, bh = (int(v) for v in rng.integers(24, 96, 2))
-            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
-            img[y : y + bh, x : x + bw] = rng.integers(180, 256, 3, dtype=np.uint8)
-            lines.append(f"0 {(x + bw / 2) / w:.6f} {(y + bh / 2) / h:.6f} {bw / w:.6f} "
-                         f"{bh / h:.6f}\n")
-        cv2.imwrite(os.path.join(img_dir, f"f{i:03d}.jpg"), img)
-        with open(os.path.join(lbl_dir, f"f{i:03d}.txt"), "w") as f:
-            f.writelines(lines)
-    return img_dir, lbl_dir
+    return write_images(root, n, rng)
 
 
 def write_crop_set(root: str, rng) -> str:
@@ -3302,6 +3312,252 @@ def report_phase(root: str, eval_dir: str) -> dict:
     return dict(files=files)
 
 
+
+# --------------------------------------------------------------------- #
+# data parallelism: the mesh, MeshServer, the multi-rank flow            #
+# --------------------------------------------------------------------- #
+
+def dp_nccl_mesh_checks(dev, smi: str) -> dict:
+    """In this process, one NCCL rank on ``dev`` (a 1-rank group of its own):
+    ``MeshServer.serve`` at the serving configuration (B=DP_SERVE_BATCH
+    640x640 device frames, bf16) issued under ``set_sync_debug_mode("error")``
+    with the launch counts zeroed just before and read just after (K1, K2
+    dense and K3 once each), bit-equal to ``pipe.run_fused`` on the same
+    frames, both timed (ms per batch, the median of WINDOWS windows); a
+    ``StreamingRunner(server=...)`` over DP_STREAM_BATCHES batches of
+    canvases against the direct run + host unmap (discrete outputs equal,
+    floats within 1e-5, the streaming check's bounds); and the bf16
+    detector train step at full width (yolo_plus_v2, 640, B=16) with the
+    mesh, its launches counted (the act kernel both ways), its first loss
+    bit-equal to the step without a mesh from the same weights."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from litepi_tpu_torch.parallel.mesh import make_mesh
+    from litepi_tpu_torch.pipeline.serving import MeshServer
+
+    result, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+                                device_id=dev)
+        try:
+            mesh = make_mesh(backend="cuda")
+            if mesh.shape != {"data": 1, "model": 1} or mesh.device != dev:
+                fail(f"1-rank NCCL mesh: {mesh.shape} on {mesh.device}")
+            b = DP_SERVE_BATCH
+            cfg = dataclasses.replace(SERVING, cls_crop_budget=4 * b)
+            pipe = TwoStagePipeline.initialize(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+            server = MeshServer(pipe, mesh)
+            gen = torch.Generator(device=dev).manual_seed(31)
+            frames = torch.randint(0, 256, (b, 640, 640, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8)
+            area = torch.ones(b, device=dev)
+            server.serve(frames, area_scale=area)  # warm-up
+            torch.cuda.synchronize()
+            out, counts = issue_sync_free(lambda: server.serve(frames, area_scale=area),
+                                          f"MeshServer.serve b={b} (1 NCCL rank)")
+            for name in ("nms_suppress", "roi_crop_dense", "stem"):
+                if counts[name] != 1:
+                    fail(f"MeshServer.serve launched {name} {counts[name]} times, not once")
+            launches["serve"] = counts
+            want = pipe.run_fused(frames, area_scale=area)
+            check_outputs(out, b, cfg.crop_det_budget, 640, 640, cfg.num_classifier_classes,
+                          "MeshServer.serve")
+            for k, v in want.items():
+                if not torch.equal(out[k], v):
+                    fail(f"MeshServer.serve (1 rank): {k} is not bit-equal to run_fused")
+            serve_ms, serve_windows = median_ms(lambda: server.serve(frames, area_scale=area), 20, 2)
+            fused_ms, fused_windows = median_ms(lambda: pipe.run_fused(frames, area_scale=area),
+                                                20, 2)
+            result["serve"] = dict(batch=b, ms_per_batch=serve_ms, windows_ms=serve_windows,
+                                   run_fused_ms_per_batch=fused_ms,
+                                   run_fused_windows_ms=fused_windows, bit_equal=True,
+                                   sync_free=True, valid=int(out["valid"].sum()), card=smi)
+            print(f"MeshServer.serve, 1 NCCL rank, b={b} 640x640 bf16: sync-free, bit-equal "
+                  f"to run_fused; {serve_ms:.3f} ms/batch (windows {serve_windows}) beside "
+                  f"run_fused {fused_ms:.3f} (windows {fused_windows}); {smi}")
+
+            result["stream"], launches["stream"] = dp_stream_check(dev, pipe, server)
+            del pipe, server, frames, out, want
+            result["train_step"], launches["train_step"] = dp_train_step(dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    return {"nccl_1_rank": result, "launches": launches}
+
+
+def dp_stream_check(dev, pipe, server):
+    """DP_STREAM_BATCHES batches of B=DP_SERVE_BATCH canvases of a
+    STREAM_SOURCE frame through ``StreamingRunner(server=server)`` against
+    ``pipe.run_fused`` + the host unmap of the same canvases."""
+    b, s = DP_SERVE_BATCH, pipe.cfg.det_input_size
+    src_h, src_w = STREAM_SOURCE
+    ratio, dw, dh, (new_w, new_h), (top, _, left, _) = letterbox_params(src_h, src_w, s)
+    geoms = np.tile(np.array([ratio, dw, dh, src_w, src_h], np.float32), (b, 1))
+    rng = np.random.default_rng(8)
+    canvases = []
+    for _ in range(2):
+        c = np.full((b, s, s, 3), 114, np.uint8)
+        c[:, top : top + new_h, left : left + new_w] = rng.integers(
+            0, 256, (b, new_h, new_w, 3), dtype=np.uint8)
+        canvases.append(c)
+    area = torch.from_numpy(area_scale_of(geoms)).to(dev)
+    refs = []
+    for c in canvases:
+        out = {k: v.cpu().numpy() for k, v in
+               pipe.run_fused(torch.from_numpy(c).to(dev), area_scale=area).items()}
+        out["boxes"] = unmap_boxes(out["boxes"], geoms)
+        refs.append(out)
+    runner = RamStreamingRunner(pipe, canvases, geoms, batch_size=b, inflight=2, server=server)
+    paths = [f"ram://{i}" for i in range(DP_STREAM_BATCHES * b)]
+    reset_launch_counts()
+    results = list(runner.run(paths))
+    counts = launch_counts()
+    runner.close()
+    if len(results) != DP_STREAM_BATCHES or counts["stem"] != DP_STREAM_BATCHES:
+        fail(f"stream through MeshServer: {len(results)} batches, stem {counts['stem']} times")
+    for i, (_, out) in enumerate(results):
+        for k, v in refs[i % 2].items():
+            if k in ("valid", "det_class_ids", "cls_labels"):
+                if not np.array_equal(out[k], v):
+                    fail(f"stream through MeshServer, batch {i}: {k} differs from run_fused")
+            elif not float(np.abs(out[k].astype(np.float64) - v).max()) <= 1e-5:
+                fail(f"stream through MeshServer, batch {i}: {k} differs by more than 1e-5")
+    print(f"StreamingRunner(server=MeshServer): {DP_STREAM_BATCHES} batches of {b} equal to "
+          f"run_fused + host unmap; launches {counts}")
+    return dict(batches=DP_STREAM_BATCHES, batch=b, equal=True), counts
+
+
+def dp_train_step(dev, mesh):
+    """The bf16 detector step at full width with the 1-rank mesh: launches
+    counted over DP_TRAIN_STEPS steps, the first loss bit-equal to the step
+    without a mesh from the same weights and batch."""
+    cfg = dataclasses.replace(YOLO_PLUS_V2, input_size=TRAIN_DET_SIZE)
+    batch = detector_batch(dev, TRAIN_DET_BATCH, TRAIN_DET_SIZE,
+                           torch.Generator(device=dev).manual_seed(23))
+    losses = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        model, state, tx = create_detector_train_state(cfg, seed=0, total_steps=100,
+                                                        warmup_steps=10, device=dev)
+        reset_launch_counts()
+        steps = []
+        for _ in range(DP_TRAIN_STEPS):
+            state, metrics = detector_train_step(model, tx, state, batch, cfg=cfg, mesh=m)
+            steps.append(metrics["loss"])
+        counts = launch_counts()
+        losses[tag] = [float(v) for v in steps]
+        del model, state
+    if losses["mesh"][0] != losses["plain"][0] or not np.isfinite(losses["mesh"]).all():
+        fail(f"bf16 train step with the 1-rank mesh: losses {losses}")
+    if counts["silu_bf16"] < 1 or counts["silu_bf16_bwd"] < 1:
+        fail(f"bf16 train step with the mesh launched no act kernel: {counts}")
+    print(f"bf16 detector step with the 1-rank mesh ({TRAIN_DET_SIZE}x{TRAIN_DET_SIZE}, "
+          f"B={TRAIN_DET_BATCH}): losses {losses['mesh']} (first bit-equal to the step "
+          f"without a mesh: {losses['plain']}); launches {counts}")
+    return dict(losses=losses, steps=DP_TRAIN_STEPS), counts
+
+
+def dp_gloo_flow(dev) -> tuple:
+    """``parallel/multiprocess.py``'s flow on the card: 1 and 2 gloo ranks
+    sharing it (a correctness check, never a throughput number): the
+    float32 served outputs' discrete values equal, floats within the
+    float32 tolerances, the train loss and parameter checksum within 1e-6
+    relative.  Returns the runs' scalars and the ranks' launch counts."""
+    from litepi_tpu_torch.parallel.multiprocess import run_multiprocess_dryrun
+
+    t0 = time.perf_counter()
+    res = run_multiprocess_dryrun(2, device="cuda", backend="gloo", timeout=DP_FLOW_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    single, multi = res["single"], res["multi"]
+    launches = {k: single["launches"][k] + multi["launches"][k] for k in single["launches"]}
+    for name in ("nms_suppress", "roi_crop_dense", "stem"):
+        if single["launches"][name] < 1 or multi["launches"][name] < 1:
+            fail(f"the 2-rank flow on the card did not launch {name}: {launches}")
+    served = multi["served"]
+    r = dict(seconds=seconds, loss_1_rank=single["loss"], loss_2_ranks=multi["loss"],
+             param_sum_1_rank=single["param_sum"], param_sum_2_ranks=multi["param_sum"],
+             valid=int(served["valid"].sum()),
+             max_abs_diff={k: float(np.abs(single["served"][k].astype(np.float64)
+                                           - served[k]).max())
+                           for k in ("boxes", "det_scores", "cls_probs", "cls_scores")},
+             rank0_launches_1_rank=single["launches"], rank0_launches_2_ranks=multi["launches"])
+    print(f"2 gloo ranks sharing the card vs 1 rank (float32, TF32 off): {json.dumps(r)}")
+    return r, launches
+
+
+def dp_cli_checks(dev, root: str) -> dict:
+    """The training CLI's launcher: ``--data_parallel 1`` on the card (its
+    launches counted, validation's K1 at K=512 among them),
+    ``--data_parallel 2 --device cuda`` on a one-card machine (rc 2, no
+    training), and 2 CPU ranks (gloo) against 1, one step in the CLI's
+    bf16: the loss within one bf16 ulp (the ranks reduce in another order,
+    and the CPU's bf16 convolutions may round a batch of 2 otherwise than
+    one of 4); the weights' largest difference after the update is
+    recorded in bf16 ulps of each tensor's largest magnitude."""
+    import contextlib
+    import io
+
+    from litepi_tpu_torch.apps import train_detector
+
+    rng = np.random.default_rng(41)
+    img_dir, lbl_dir = write_detection_set(os.path.join(root, "dp_train"), 8, rng)
+    base = ["--images", img_dir, "--labels", lbl_dir, "--imgsz", "160", "--batch", "4",
+            "--epochs", "1", "--patience", "99", "--max_gt", "8"]
+    reset_launch_counts()
+    run_cli(train_detector.main, base + ["--val_images", img_dir, "--val_labels", lbl_dir,
+                                         "--output", os.path.join(root, "dp1_cuda"),
+                                         "--data_parallel", "1"],
+            "train_detector --data_parallel 1 (card)")
+    counts = launch_counts()
+    if counts["silu_bf16_bwd"] < 1 or counts["nms_suppress"] < 1:
+        fail(f"train_detector --data_parallel 1 on the card: launches {counts}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = train_detector.main(base + ["--output", os.path.join(root, "dp2_refused"),
+                                         "--data_parallel", str(torch.cuda.device_count() + 1)])
+    if rc != 2 or "visible" not in err.getvalue():
+        fail(f"--data_parallel beyond the cards: rc {rc}, {err.getvalue()!r}")
+    losses, weights = {}, {}
+    for n in (1, 2):
+        out = os.path.join(root, f"dp{n}_cpu")
+        run_cli(train_detector.main, base + ["--output", out, "--device", "cpu",
+                                             "--steps_per_epoch", "1", "--data_parallel", str(n)],
+                f"train_detector --data_parallel {n} --device cpu")
+        saved = torch.load(os.path.join(out, "resume", "variables.pt"), weights_only=True)
+        losses[n], weights[n] = -saved["meta"]["best_score"], saved["model"]
+    if not abs(losses[2] - losses[1]) <= math.ldexp(1.0, math.frexp(losses[1])[1] - 8):
+        fail(f"train_detector on 2 CPU ranks vs 1: losses {losses} more than one bf16 ulp apart")
+    # recorded, not held: the weights after the update, in bf16 ulps of each
+    # tensor's largest magnitude (whole ulps apart where the CPU's bf16
+    # convolutions round the two batch sizes otherwise)
+    weight_ulps = max(
+        ((weights[2][k].double() - v.double()).abs().max()
+         / math.ldexp(1.0, math.frexp(max(v.double().abs().max().item(),
+                                          weights[2][k].double().abs().max().item()))[1] - 8)
+         ).item() for k, v in weights[1].items())
+    r = dict(card_launches=counts, refused_rc=rc, cpu_losses=losses,
+             cpu_weights_bf16_ulps=weight_ulps)
+    print(f"train_detector launcher: {json.dumps(r)}")
+    return r, counts
+
+
+def data_parallel_phase(dev, root: str, smi: str) -> dict:
+    """Data-parallel serving and training (``parallel/``, ``pipeline/
+    serving.py``, ``data/distributed.py``); see step 14 of the module
+    docstring.  Returns the results and the phase's launch counts by run."""
+    t0 = time.perf_counter()
+    nccl = dp_nccl_mesh_checks(dev, smi)
+    flow, flow_launches = dp_gloo_flow(dev)
+    cli, cli_launches = dp_cli_checks(dev, root)
+    runs = {**nccl["launches"], "gloo_flow": flow_launches, "train_cli": cli_launches}
+    total = {k: sum(c[k] for c in runs.values()) for k in flow_launches}
+    seconds = time.perf_counter() - t0
+    print(f"data-parallel phase: {seconds:.1f} s; launches {total}")
+    return dict(nccl_1_rank=nccl["nccl_1_rank"], gloo_2_ranks=flow, train_cli=cli,
+                launches=total, launches_by_run=runs, seconds=seconds)
+
+
 def stream_counts(stream: dict) -> dict:
     """The stream phase's card launches, video and folder summed."""
     runs = stream["launches"].values()
@@ -3361,6 +3617,7 @@ def run(dev) -> None:
         training = training_phase(dev, root)
         ablation = ablation_phase(dev, root)
         baselines = baselines_phase(dev, root, smi)
+        data_parallel = data_parallel_phase(dev, root, smi)
     eval_counts = evaluation["full"]["launches"]
     eval_checks = evaluation["full"]["kernel_checks"]
     smi_after = nvidia_smi()
@@ -3565,6 +3822,18 @@ def run(dev) -> None:
         for column in ("eval_launches", "e2e_cli_launches", "convert_launches", "train_launches",
                        "baseline_launches"):
             k.setdefault(column, 0)
+    # the data-parallel phase (each run zeroed before and summed): MeshServer,
+    # its stream, the flow's served batches and the train steps at K=64 on
+    # the serving rows; the training CLI's validation at K=512 and on its
+    # own frames
+    dp_runs = dict(data_parallel["launches_by_run"])
+    dp_cli = dp_runs.pop("train_cli")
+    dp_rows = by_row({k: sum(c[k] for c in dp_runs.values()) for k in dp_cli},
+                     "nms_suppress", "roi_crop_dense")
+    for name, n in by_row(dp_cli, "nms_suppress_k512", "roi_crop_dense_b8").items():
+        dp_rows[name] = dp_rows.get(name, 0) + n
+    for k in kernels:
+        k["data_parallel_launches"] = dp_rows.get(k["name"], 0)
     row = {k["name"]: k for k in kernels}
     row["roi_crop_dense_b8"]["stream_max_abs_err"] = stream["kernel_checks"]["roi_max_abs_err"]
     row["roi_crop_dense"]["ladder_max_abs_err"] = ladder["kernel_checks"]["roi_max_abs_err"]
@@ -3575,7 +3844,8 @@ def run(dev) -> None:
                       "eval": evaluation, "e2e_cli": cli, "convert": convert,
                       "training": training, "baselines": baselines, "nms_large": nms_large,
                       "tf32": tf32, "stream": stream, "ladder": ladder, "ablation": ablation,
-                      "report": report, "power": smi_after}))
+                      "report": report, "data_parallel": data_parallel,
+                      "power": smi_after}))
     print(smi_after)
 
 

@@ -18,9 +18,13 @@ and ``results.json`` with the JAX CLI's keys.
 It runs on the card (``--device cuda``, the default; it raises without
 one) or with ``--device cpu``.  On the card the RPN's NMS is the NMS kernel
 at K = ``--pre_nms_topk`` (any value, as in JAX: torchvision trains this
-baseline at 2,000).  Data-parallel
-training (``--data_parallel`` > 1) waits for ROADMAP M11 and exits with
-rc 2.
+baseline at 2,000).  ``--data_parallel N`` trains on N ranks that the CLI
+starts itself, as ``apps/train_detector.py`` does (one card each over
+NCCL, N visible cards needed, else rc 2; gloo CPU ranks with ``--device
+cpu``): ``--batch`` is the global batch, every rank reads the same batches
+and trains on its own rows, and the step is the global batch's
+(``train/baselines.py::baseline_train_step``'s ``mesh``).  Only rank 0
+prints, validates and writes.
 
 Usage:
     python -m litepi_tpu_torch.apps.train_baselines --arch faster_rcnn \\
@@ -62,7 +66,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="devices to train on; more than 1 waits for ROADMAP M11")
+                   help="ranks (one device each) to train on, over torch.distributed")
     # the Faster R-CNN proposal budgets (shrunk for tiny runs)
     p.add_argument("--pre_nms_topk", type=int, default=1024)
     p.add_argument("--post_nms_topk", type=int, default=256)
@@ -70,22 +74,44 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_arg_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        print(f"error: --data_parallel {args.data_parallel}: data-parallel training waits "
-              "for ROADMAP M11 (torch.distributed); the port trains on one device",
-              file=sys.stderr)
-        return 2
     if args.arch == "ssd300" and args.imgsz not in (None, 300):
         print("error: ssd300 input is fixed at 300 (default-box grid)", file=sys.stderr)
         return 2
+    if args.data_parallel > 1:
+        from litepi_tpu_torch.parallel.multiprocess import rank_count_error, spawn_ranks
 
+        error = rank_count_error(args.device, args.data_parallel)
+        if error:
+            print(f"error: {error}", file=sys.stderr)
+            return 2
+        spawn_ranks("litepi_tpu_torch.apps.train_baselines:rank_main", args.data_parallel,
+                    {"argv": argv}, device=args.device, rank0_output=True)
+        return 0
+    return train(args)
+
+
+def rank_main(argv) -> int:
+    """One rank of a ``--data_parallel`` run started by :func:`main`."""
+    return train(build_arg_parser().parse_args(argv))
+
+
+def train(args) -> int:
     import numpy as np
     import torch
 
     from litepi_tpu_torch.core.device import resolve_device
+    from litepi_tpu_torch.parallel.mesh import batch_sharding, from_rank0, make_mesh
 
-    device = resolve_device(args.device)  # raises without a card
+    mesh = None
+    if args.data_parallel > 1:
+        mesh = make_mesh(args.data_parallel, backend=args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)  # raises without a card
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
 
     from litepi_tpu_torch.data.dataset import DetectionDataset, Prefetcher
     from litepi_tpu_torch.train.baselines import baseline_train_step, create_baseline_train_state
@@ -97,12 +123,17 @@ def main(argv=None) -> int:
     dataset = DetectionDataset(args.images, args.labels, input_size=imgsz,
                                max_gt=args.max_gt, seed=args.seed)
     steps = args.steps_per_epoch or max(len(dataset) // args.batch, 1)
-    print(f"dataset: {len(dataset)} images, {steps} steps/epoch")
+    say(f"dataset: {len(dataset)} images, {steps} steps/epoch")
+    if mesh is not None:
+        say(f"mesh: {mesh.shape}")
+    # every rank reads the global batch and trains on its own rows
+    rows = batch_sharding(mesh).shard if mesh is not None else None
     state, tx = create_baseline_train_state(
         args.arch, args.num_classes, imgsz, seed=args.seed, lr=args.lr, epochs=args.epochs,
         steps_per_epoch=steps, pre_nms_topk=args.pre_nms_topk,
         post_nms_topk=args.post_nms_topk, dtype=torch.bfloat16, device=device)
-    # the Faster R-CNN loss's sampling draws (JAX: jax.random keys per step)
+    # the Faster R-CNN loss's sampling draws (JAX: jax.random keys per step),
+    # seeded alike on every rank: each takes its rows of the global draws
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     def current_vars():
@@ -126,23 +157,28 @@ def main(argv=None) -> int:
         dataset.seed_epoch(epoch)
         losses = []
         for batch in Prefetcher(dataset.batches(args.batch, steps)):
+            if rows is not None:
+                batch = {k: rows(v) for k, v in batch.items()}
             state, metrics = baseline_train_step(state, tx, to_device_batch(batch, device),
-                                                 draws=gen)
+                                                 draws=gen, mesh=mesh)
             losses.append(metrics["loss"])
         mean_loss = float(np.mean([float(l) for l in losses]))  # waits for the steps
         t1 = time.perf_counter()
-        val_map = validate()
+        val_map = from_rank0(mesh, validate() if lead else 0.0)
         dt, val_dt = time.perf_counter() - t0, time.perf_counter() - t1
-        print(f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
-              f"val mAP50 {val_map:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)")
+        say(f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
+            f"val mAP50 {val_map:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)")
         score = val_map if val_map == val_map else -mean_loss  # NaN -> loss
         if score > best_score:
             best_score, best_epoch = score, epoch
-            save_checkpoint(os.path.join(args.output, "best"), current_vars())
+            if lead:
+                save_checkpoint(os.path.join(args.output, "best"), current_vars())
         if epoch - best_epoch >= args.patience:
-            print(f"early stop: no improvement for {args.patience} epochs")
+            say(f"early stop: no improvement for {args.patience} epochs")
             break
 
+    if not lead:
+        return 0
     save_checkpoint(os.path.join(args.output, "last"), current_vars())
     with open(os.path.join(args.output, "results.json"), "w") as f:
         json.dump({

@@ -14,8 +14,19 @@ early-stopping patience, ``best`` / ``last`` checkpoints (Flax-named trees,
 ``--stop_after``) and ``results.json`` with the JAX CLI's keys.
 
 It runs on the card (``--device cuda``, the default; it raises without
-one) or with ``--device cpu``.  Data-parallel training
-(``--data_parallel`` > 1) waits for ROADMAP M11 and exits with rc 2.
+one) or with ``--device cpu``.  ``--data_parallel N`` trains on N ranks of
+a ``torch.distributed`` group that the CLI starts itself
+(``parallel/multiprocess.py::spawn_ranks``): one card each over NCCL (N
+visible cards needed; fewer exit with rc 2), or N CPU processes over gloo
+with ``--device cpu``.  As in the JAX package's single-host mesh,
+``--batch`` is then the global batch: every rank reads the same batches
+and trains on its own contiguous rows, and the step is the global batch's
+(``train/detector.py::detector_train_step``'s ``mesh``).  Under
+``torchrun`` (``WORLD_SIZE`` set) each process is one rank, as in JAX's
+multi-process contract: ``--batch`` is per process and each reads its own
+shard of the images (``data/distributed.py``).  Steps per epoch come from
+the global image count; only rank 0 prints, validates and writes, and on
+``--resume`` the ranks must agree on the resume epoch or the run aborts.
 
 Usage:
     python -m litepi_tpu_torch.apps.train_detector --images train/images \\
@@ -69,7 +80,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument(
         "--data_parallel", type=int, default=1,
-        help="devices to train on; more than 1 waits for ROADMAP M11",
+        help="ranks (one device each) to train on, over torch.distributed",
     )
     # validate + checkpoint the EMA weights (the Ultralytics default); raw
     # weights with --no_ema
@@ -196,24 +207,46 @@ def validate(args, cfg, model, state, custom_model, device) -> float:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_arg_parser().parse_args(argv)
-    if args.data_parallel > 1:
-        print(
-            f"error: --data_parallel {args.data_parallel}: data-parallel training "
-            "waits for ROADMAP M11 (torch.distributed); the port trains on one device",
-            file=sys.stderr,
-        )
-        return 2
     cfg, error = detector_config(args)
     if error:
         print(f"error: {error}", file=sys.stderr)
         return 2
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1  # a rank of torchrun
+    if args.data_parallel > 1 and not launched:
+        from litepi_tpu_torch.parallel.multiprocess import rank_count_error, spawn_ranks
 
+        error = rank_count_error(args.device, args.data_parallel)
+        if error:
+            print(f"error: {error}", file=sys.stderr)
+            return 2
+        spawn_ranks("litepi_tpu_torch.apps.train_detector:rank_main", args.data_parallel,
+                    {"argv": argv}, device=args.device, rank0_output=True)
+        return 0
+    return train(args, cfg, per_process=launched)
+
+
+def rank_main(argv) -> int:
+    """One rank of a ``--data_parallel`` run started by :func:`main`."""
+    args = build_arg_parser().parse_args(argv)
+    cfg, _ = detector_config(args)
+    return train(args, cfg, per_process=False)
+
+
+def train(args, cfg, per_process: bool) -> int:
     import numpy as np
     import torch
 
     from litepi_tpu_torch.core.device import resolve_device
     from litepi_tpu_torch.data.dataset import DetectionDataset, Prefetcher
+    from litepi_tpu_torch.data.distributed import shard_paths
+    from litepi_tpu_torch.parallel.mesh import (
+        batch_sharding,
+        from_rank0,
+        make_mesh,
+        require_agreement,
+    )
     from litepi_tpu_torch.train.detector import (
         create_detector_train_state,
         detector_train_step,
@@ -226,14 +259,34 @@ def main(argv=None) -> int:
     )
     from litepi_tpu_torch.weights.jax_bridge import state_dict_to_jax
 
-    device = resolve_device(args.device)  # raises without a card
+    mesh = None
+    if args.data_parallel > 1 or per_process:
+        mesh = make_mesh(args.data_parallel, backend=args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)  # raises without a card
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     custom_model = custom_detector(args.variant, args.num_classes)
     dataset = DetectionDataset(
         args.images, args.labels, input_size=args.imgsz, max_gt=args.max_gt,
         mosaic_p=args.mosaic, scale=args.scale, seed=args.seed,
     )
-    steps = args.steps_per_epoch or max(len(dataset.pairs) // args.batch, 1)
-    print(f"dataset: {len(dataset)} images, {steps} steps/epoch")
+    global_images = len(dataset.pairs)
+    processes = mesh.size if per_process else 1
+    if per_process:
+        # one rank per process: each decodes a disjoint shard and --batch is
+        # the per-process size (global batch = batch * processes)
+        dataset.pairs = shard_paths(dataset.pairs)
+    # steps/epoch from the GLOBAL image count: a per-rank count could differ
+    # across ranks and desynchronise the collectives and the schedule
+    steps = args.steps_per_epoch or max(global_images // (args.batch * processes), 1)
+    say(f"dataset: {len(dataset)} images, {steps} steps/epoch")
+    if mesh is not None:
+        say(f"mesh: {mesh.shape}")
+    # every rank reads the global batch and trains on its rows; a torchrun
+    # rank's batch is its shard already
+    rows = batch_sharding(mesh).shard if mesh is not None and not per_process else None
 
     # Ultralytics one-cycle lr: 3-epoch linear warmup, cosine to lr*0.01
     model, state, tx = create_detector_train_state(
@@ -250,17 +303,21 @@ def main(argv=None) -> int:
     best_map, best_epoch, start_epoch = float("-inf"), -1, 0
     os.makedirs(args.output, exist_ok=True)
     resume_dir = os.path.join(args.output, "resume")
-    if args.resume and (os.path.isdir(resume_dir) or os.path.isdir(resume_dir + ".old")):
+    found = os.path.isdir(resume_dir) or os.path.isdir(resume_dir + ".old")
+    if args.resume:
+        require_agreement(mesh, int(found), "--resume: whether a resume point exists")
+    if args.resume and found:
         state, meta = load_train_checkpoint(
             resume_dir, state,
             meta_template={"next_epoch": 0, "best_score": 0.0, "best_epoch": 0},
         )
         start_epoch = int(meta["next_epoch"])
         best_map, best_epoch = float(meta["best_score"]), int(meta["best_epoch"])
-        print(f"resumed from {resume_dir}: epoch {start_epoch}, step {state.step}, "
-              f"best {best_map:.4f}")
+        require_agreement(mesh, start_epoch, "--resume: the resume epoch")
+        say(f"resumed from {resume_dir}: epoch {start_epoch}, step {state.step}, "
+            f"best {best_map:.4f}")
     elif args.resume:
-        print(f"--resume: no checkpoint at {resume_dir}, starting fresh")
+        say(f"--resume: no checkpoint at {resume_dir}, starting fresh")
     epoch = start_epoch - 1  # keeps results.json sane when the loop is empty
     for epoch in range(start_epoch, args.epochs):
         t0 = time.perf_counter()
@@ -269,31 +326,37 @@ def main(argv=None) -> int:
         dataset.seed_epoch(epoch)
         losses = []
         for batch in Prefetcher(dataset.batches(args.batch, steps)):
+            if rows is not None:
+                batch = {k: rows(v) for k, v in batch.items()}
             state, metrics = detector_train_step(
-                model, tx, state, to_device_batch(batch, device), cfg=cfg
+                model, tx, state, to_device_batch(batch, device), cfg=cfg, mesh=mesh
             )
             losses.append(metrics["loss"])
         mean_loss = float(np.mean([float(l) for l in losses]))  # waits for the steps
         t1 = time.perf_counter()
-        val_map = validate(args, cfg, model, state, custom_model, device)
+        val_map = validate(args, cfg, model, state, custom_model, device) if lead else 0.0
+        val_map = from_rank0(mesh, val_map)
         dt, val_dt = time.perf_counter() - t0, time.perf_counter() - t1
-        print(f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
-              f"val mAP50 {val_map:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)")
+        say(f"epoch {epoch + 1}/{args.epochs}  loss {mean_loss:.4f}  "
+            f"val mAP50 {val_map:.4f}  ({dt:.1f}s, validation {val_dt:.2f}s)")
         score = val_map if val_map == val_map else -mean_loss  # NaN -> loss
         if score > best_map:
             best_map, best_epoch = score, epoch
-            save_checkpoint(os.path.join(args.output, "best"), weights_tree())
+            if lead:
+                save_checkpoint(os.path.join(args.output, "best"), weights_tree())
         save_train_checkpoint(
             resume_dir, state,
             {"next_epoch": epoch + 1, "best_score": best_map, "best_epoch": best_epoch},
         )
         if epoch - best_epoch >= args.patience:
-            print(f"early stop: no improvement for {args.patience} epochs")
+            say(f"early stop: no improvement for {args.patience} epochs")
             break
         if args.stop_after and epoch + 1 - start_epoch >= args.stop_after:
-            print(f"stopping after {args.stop_after} epochs (resume with --resume)")
+            say(f"stopping after {args.stop_after} epochs (resume with --resume)")
             break
 
+    if not lead:
+        return 0
     save_checkpoint(os.path.join(args.output, "last"), weights_tree())
     with open(os.path.join(args.output, "results.json"), "w") as f:
         json.dump(

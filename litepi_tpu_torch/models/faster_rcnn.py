@@ -269,8 +269,12 @@ class FasterRCNN(nn.Module):
         anchors = self.anchors.float()  # float32 in any dtype, as JAX's numpy constant
 
         top_obj, idx = topk_stable(obj, min(self.pre_nms_topk, obj.shape[1]))
+        # the anchors with the indices clamped, as XLA's gather clamps them:
+        # at an input size that is not a multiple of 64 the levels hold
+        # fewer anchors (cells rounded down) than the RPN scores (P6's conv
+        # rounds up), and JAX's ``anchors[idx]`` gives the last anchor
         cand = decode_deltas(torch.gather(deltas, 1, idx[..., None].expand(-1, -1, 4)),
-                             anchors[idx])
+                             anchors[idx.clamp(0, anchors.shape[0] - 1)])
         cand = clip_boxes(cand, self.input_size, self.input_size)
         ok = (cand[..., 2] - cand[..., 0] > 1) & (cand[..., 3] - cand[..., 1] > 1)
         keep = suppress(cand.detach().float().contiguous(), ok,

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from litepi_tpu_torch.ops.act import silu
+from litepi_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 
 # all four reference classifiers use torchvision's BatchNorm2d epsilon and
@@ -39,10 +40,26 @@ def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     mean) * (rsqrt(var + eps) * weight) + bias`` in that precision, cast
     to the input's dtype.  The running statistics move as ``f * running +
     (1 - f) * batch`` with flax's momentum ``f = 1 - bn.momentum``.  Eval
-    mode calls ``bn`` itself, so serving is torch's BatchNorm."""
+    mode calls ``bn`` itself, so serving is torch's BatchNorm.
+
+    Inside ``parallel/mesh.py::global_batch`` over several data ranks the
+    moments are the global batch's, as under the JAX package's
+    data-sharded ``jit``: one all-reduce of the per-rank sums of x and x^2
+    and the element count (differentiable: its backward is one all-reduce
+    too), so the running statistics move identically on every rank."""
     xf = at_least_float32(x)
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    group = batch_group()
+    if group is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    else:
+        c = xf.shape[1]
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+            xf.new_full((1,), xf.numel() // c),
+        ]), group)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
     with torch.no_grad():
         f = 1.0 - bn.momentum
         bn.running_mean.copy_(f * bn.running_mean + (1.0 - f) * mean)

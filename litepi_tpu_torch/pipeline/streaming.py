@@ -18,8 +18,9 @@ A pinned buffer is written again only after the copy that read it has
 completed.  On a CPU pipeline there is no pinning and no stream: batches
 run one after another, which is the CPU path the caller asked for.
 
-The JAX package's ``server=`` option (multi-chip ``MeshServer``) is not
-ported here.
+With ``server=`` (a ``pipeline/serving.py::MeshServer``) each batch goes
+through ``server.serve``: the batch sharded over the mesh's data ranks, as
+the JAX package's ``server=`` option shards it over the chips.
 """
 
 from __future__ import annotations
@@ -27,13 +28,16 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.pipeline.two_stage import TwoStagePipeline
+
+if TYPE_CHECKING:
+    from litepi_tpu_torch.pipeline.serving import MeshServer
 
 Outputs = Dict[str, np.ndarray]
 
@@ -128,12 +132,24 @@ class StreamingRunner:
         decode_threads: int = 8,
         use_native_loader: Optional[bool] = None,
         scaled_decode: bool = True,
+        server: Optional["MeshServer"] = None,
     ) -> None:
         """``scaled_decode`` (native loader only): libjpeg's DCT-domain
         scaled decode at the smallest fast scale covering the letterbox
         target, a throughput option whose pixels differ slightly from a
-        full decode (box geometry does not change)."""
+        full decode (box geometry does not change).
+
+        ``server`` composes the window with data-parallel serving: batches
+        dispatch through ``MeshServer.serve`` (the batch sharded over the
+        mesh's data ranks, each rank returning the whole batch's outputs)
+        instead of ``pipe.run_fused``.  Every rank runs the same stream;
+        ``batch_size`` must be divisible by the mesh's data parallelism."""
+        if server is not None and batch_size % server.data_parallelism:
+            raise ValueError(
+                f"batch {batch_size} not divisible by data axis {server.data_parallelism}"
+            )
         self.pipe = pipe
+        self.server = server
         self.device = resolve_device(pipe.device)
         self.batch_size = batch_size
         self.inflight = inflight
@@ -209,7 +225,8 @@ class StreamingRunner:
 
     @torch.inference_mode()
     def _dispatch(self, frames, conf_threshold, area) -> _Pending:
-        out = self.pipe.run_fused(frames, conf_threshold, area_scale=area)
+        run = self.pipe.run_fused if self.server is None else self.server.serve
+        out = run(frames, conf_threshold, area_scale=area)
         if not self._cuda:
             return _Pending(out)
         host = {}

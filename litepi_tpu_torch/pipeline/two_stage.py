@@ -34,6 +34,7 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from litepi_tpu_torch.core.device import resolve_device
@@ -52,6 +53,7 @@ from litepi_tpu_torch.ops.roi import (
     crop_and_resize_windowed,
 )
 from litepi_tpu_torch.ops.stem import ROW_MULTIPLE, fused_stem
+from litepi_tpu_torch.parallel.mesh import all_gather_rows
 from litepi_tpu_torch.weights.fold_bn import (
     BN_EPS,
     fold_pipeline_state,
@@ -391,26 +393,44 @@ class TwoStagePipeline:
         logits = self.cls_model(x.permute(0, 3, 1, 2))
         return torch.softmax(logits.float(), dim=-1)
 
-    def _classify_budgeted(self, crops, scores, valid):
+    def _classify_budgeted(self, crops, scores, valid, group=None):
         """Classifier under ``cls_crop_budget``: (B, D, classes) probabilities
-        and ``valid`` cleared where a crop went unclassified."""
+        and ``valid`` cleared where a crop went unclassified.
+
+        With ``group`` (the data ranks of a mesh, ``parallel/mesh.py``) the
+        budget is global, over the B·D slots of every rank's frames, as the
+        JAX package's budget is under a batch-sharded ``jit``: the ranks
+        gather their ranking scores (a few KB), each takes the same stable
+        global top-k, and since the slots that the global selection takes
+        on a rank are a prefix of that rank's own stable ranking, each rank
+        classifies its top ``min(budget, B·D)`` crops and clears those past
+        its count, computed on the device (static shapes, no sync)."""
         n, d = crops.shape[0], crops.shape[1]
         flat = crops.reshape(n * d, *crops.shape[2:])
         budget = self.cfg.cls_crop_budget
-        if not budget or budget >= n * d:
+        ranks = 1 if group is None else dist.get_world_size(group)
+        if not budget or budget >= n * d * ranks:
             return self._classify(flat).reshape(n, d, -1), valid
         # global compaction: rank every slot by detection score (invalid
         # slots tie at -1; the stable sort takes the lowest indices, as
         # jax.lax.top_k does), classify the top ``budget`` crops and scatter
         # the probabilities back (device-side scatters: an index assignment
         # of a Python scalar would copy it from the host and synchronise)
-        _, sel = topk_stable(torch.where(valid, scores, -1.0).reshape(n * d), budget)
+        ranking = torch.where(valid, scores, -1.0).reshape(n * d)
+        _, sel = topk_stable(ranking, min(budget, n * d))
         sel_probs = self._classify(flat.index_select(0, sel))
+        taken = torch.ones(sel.shape, dtype=torch.bool, device=self.device)
+        if ranks > 1:
+            _, global_sel = topk_stable(all_gather_rows(ranking, group), budget)
+            first = dist.get_rank(group) * n * d
+            count = ((global_sel >= first) & (global_sel < first + n * d)).sum()
+            taken = torch.arange(sel.shape[0], device=self.device) < count
+            sel_probs = torch.where(taken[:, None], sel_probs, 0.0)
         probs = torch.zeros(
             (n * d, sel_probs.shape[-1]), dtype=sel_probs.dtype, device=self.device
         ).index_copy_(0, sel, sel_probs)
-        kept = torch.zeros(n * d, dtype=torch.bool, device=self.device).index_fill_(
-            0, sel, True
+        kept = torch.zeros(n * d, dtype=torch.bool, device=self.device).index_copy_(
+            0, sel, taken
         )
         return probs.reshape(n, d, -1), valid & kept.reshape(n, d)
 
@@ -421,6 +441,7 @@ class TwoStagePipeline:
         frames,
         conf_threshold: Optional[float] = None,
         area_scale=None,
+        group=None,
     ) -> Dict[str, torch.Tensor]:
         """Full two-stage pipeline on raw same-resolution frames.
 
@@ -433,7 +454,9 @@ class TwoStagePipeline:
         cls_labels (B, D) int32, cls_scores (B, D), with D =
         ``max_detections`` or ``crop_det_budget``.  On frames and an
         ``area_scale`` already on the card it issues its work without
-        synchronising the host.
+        synchronising the host.  ``group``: the data ranks of a mesh whose
+        frames together make the global batch (``pipeline/serving.py``);
+        the classifier budget is then global, the one cross-frame step.
         """
         conf = self.cfg.benchmark_conf if conf_threshold is None else conf_threshold
         frames = torch.as_tensor(frames).to(self.device).contiguous()
@@ -444,7 +467,7 @@ class TwoStagePipeline:
         head = self._detect(self._stem(frames))
         b, s, c, v = self._suppress(*self._candidates(head), conf)
         orig_boxes, v = self._unmap(b, v, h, w, area_scale)
-        probs, v = self._classify_budgeted(self._crop(frames, orig_boxes, v), s, v)
+        probs, v = self._classify_budgeted(self._crop(frames, orig_boxes, v), s, v, group)
         return {
             "boxes": orig_boxes,
             "det_scores": s,

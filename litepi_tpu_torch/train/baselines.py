@@ -30,8 +30,9 @@ from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.models.faster_rcnn import FasterRCNN
 from litepi_tpu_torch.models.ssd import SSD300
 from litepi_tpu_torch.ops.boxes import xywh_to_xyxy
+from litepi_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, global_batch
 from litepi_tpu_torch.train import optim
-from litepi_tpu_torch.train.detector import flax_init_, forward_in
+from litepi_tpu_torch.train.detector import all_reduce_metrics, flax_init_, forward_in
 from litepi_tpu_torch.train.frcnn_loss import Draws, frcnn_loss
 from litepi_tpu_torch.train.ssd_loss import multibox_loss
 
@@ -158,14 +159,25 @@ def baseline_loss(state: BaselineTrainState, batch: Dict[str, torch.Tensor],
 
 
 def baseline_train_step(state: BaselineTrainState, tx, batch: Dict[str, torch.Tensor],
-                        draws: Optional[Draws] = None):
+                        draws: Optional[Draws] = None, mesh: Optional[Mesh] = None):
     """One optimization step in place on ``state``: the loss, its gradient
     with respect to the float32 masters, the optimizer update.  ``draws``
     (Faster R-CNN only): the loss's four uniform tensors or a
-    ``torch.Generator``.  Returns (state, metrics as device tensors)."""
-    loss, aux, _ = baseline_loss(state, batch, draws)
-    params = list(state.model.parameters())
-    grads = torch.autograd.grad(loss, params)
+    ``torch.Generator``.  Returns (state, metrics as device tensors).
+
+    With ``mesh`` over several data ranks, ``batch`` is this rank's rows of
+    the global batch and the step is the global batch's, as in
+    ``train/detector.py::detector_train_step``: global BatchNorm moments,
+    normalisers and sampling draws, gradients and metrics summed over the
+    ranks."""
+    with global_batch(mesh):
+        loss, aux, _ = baseline_loss(state, batch, draws)
+        params = list(state.model.parameters())
+        grads = torch.autograd.grad(loss, params)
+    group = mesh.data_group if mesh is not None else None
+    grads = all_reduce_flat(grads, group)
+    metrics = all_reduce_metrics(
+        {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}, group)
     tx.update_(params, grads, state.opt_state, state.step)
     state.step += 1
-    return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    return state, metrics

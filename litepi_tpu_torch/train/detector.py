@@ -25,6 +25,7 @@ from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.types import DetectorConfig
 from litepi_tpu_torch.models import YoloLitePi
 from litepi_tpu_torch.ops.anchors import make_anchors
+from litepi_tpu_torch.parallel.mesh import Mesh, all_reduce_flat, global_batch
 from litepi_tpu_torch.train import optim
 from litepi_tpu_torch.train.losses import detection_loss
 
@@ -216,6 +217,7 @@ def detector_train_step(
     state: DetectorTrainState,
     batch: Dict[str, torch.Tensor],
     cfg: Optional[DetectorConfig] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[DetectorTrainState, Dict[str, torch.Tensor]]:
     """One optimization step, in place on ``state``.
 
@@ -224,20 +226,44 @@ def detector_train_step(
     (padded); gt_labels (B, G); gt_mask (B, G) bool.  ``cfg`` (anchor grid
     and ``reg_max`` of the loss) defaults to ``model.cfg``.  Returns the
     state and ``{"loss", "loss_box", "loss_cls", "loss_dfl", "num_fg"}`` as
-    device tensors (nothing is read back)."""
+    device tensors (nothing is read back).
+
+    With ``mesh`` (``parallel/mesh.py``) over several data ranks, ``batch``
+    is this rank's rows of the global batch and the step is the global
+    batch's, as the JAX step under a data-sharded ``jit``: BatchNorm's
+    moments and the loss's normaliser are global, the parameter gradients
+    are summed over the ranks (not averaged: the loss already divides by
+    global counts) and the metrics are the global batch's, so the
+    optimizer, the EMA and the BatchNorm statistics stay identical on every
+    rank.  One rank (or no mesh) changes nothing."""
     cfg = cfg if cfg is not None else model.cfg
     model.train()
     anchors, strides = _anchors(cfg, batch["images"].device)
-    out = forward_in(model, state.dtype, batch["images"])
-    loss, aux = detection_loss(
-        out, anchors, strides, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
-        reg_max=cfg.reg_max,
-    )
     params = list(model.parameters())
-    grads = torch.autograd.grad(loss, params)
+    with global_batch(mesh):
+        out = forward_in(model, state.dtype, batch["images"])
+        loss, aux = detection_loss(
+            out, anchors, strides, batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
+            reg_max=cfg.reg_max,
+        )
+        grads = torch.autograd.grad(loss, params)
+    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    group = mesh.data_group if mesh is not None else None
+    grads = all_reduce_flat(grads, group)
+    metrics = all_reduce_metrics(metrics, group)
     tx.update_(params, grads, state.opt_state, state.step)
     state.step += 1
     if state.ema_params is not None:
         with torch.no_grad():
             optim.ema_update(list(state.ema_params.values()), params, state.step)
-    return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    return state, metrics
+
+
+def all_reduce_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Scalar metrics (per-rank shares of the global batch's sums) summed
+    over ``group``'s ranks in one all-reduce, each in its own dtype; as
+    they are without a group."""
+    if group is None:
+        return metrics
+    summed = all_reduce_flat([torch.stack([v.double() for v in metrics.values()])], group)[0]
+    return {k: s.to(v.dtype) for (k, v), s in zip(metrics.items(), summed)}

@@ -16,6 +16,12 @@ uniform draws and keeping the top k.  JAX draws them with ``jax.random``
 (RPN positives, RPN negatives, ROI positives, ROI negatives) or a
 ``torch.Generator`` that makes them.  Gradients flow where JAX's do,
 through the proposals' coordinates into the ROI targets too.
+
+Over a mesh's data ranks (``parallel/mesh.py::global_batch``) the batch is
+the global one, as under the JAX package's data-sharded ``jit``: the
+normalisers (sampled and positive counts) are summed over the ranks, and a
+generator draws the uniforms of the whole global batch, of which each rank
+takes its own rows, so N ranks sample what one device samples.
 """
 
 from __future__ import annotations
@@ -23,13 +29,21 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from litepi_tpu_torch.models.faster_rcnn import encode_deltas
 from litepi_tpu_torch.ops.boxes import box_iou_signed
+from litepi_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 from litepi_tpu_torch.train.losses import optax_sigmoid_bce
 from litepi_tpu_torch.train.ssd_loss import force_best_matches, smooth_l1
 
 Draws = Union[Sequence[torch.Tensor], torch.Generator]
+
+
+def _global_sum(mask: torch.Tensor) -> torch.Tensor:
+    """The count of ``mask`` over the global batch (this rank's alone
+    outside a mesh)."""
+    return all_reduce_sum(mask.sum(), batch_group())
 
 
 def subsample_mask(mask: torch.Tensor, k: int, u: torch.Tensor) -> torch.Tensor:
@@ -79,7 +93,7 @@ def rpn_loss(
     pos_s = subsample_mask(pos, n_pos, draws[0])
     neg_s = subsample_mask(neg, batch_per_image - n_pos, draws[1])
     sampled = pos_s | neg_s
-    n_sampled = torch.clamp(sampled.sum(), min=1)
+    n_sampled = torch.clamp(_global_sum(sampled), min=1)
     bce = optax_sigmoid_bce(obj, pos_s.to(obj.dtype))
     loss_obj = torch.where(sampled, bce, 0.0).sum() / n_sampled
     enc = encode_deltas(_gather_boxes(gt_boxes, assigned), anchors_b)
@@ -110,7 +124,7 @@ def roi_head_loss(
     pos_s = subsample_mask(pos, n_pos, draws[0])
     neg_s = subsample_mask(neg, batch_per_image - n_pos, draws[1])
     sampled = pos_s | neg_s
-    n_sampled = torch.clamp(sampled.sum(), min=1)
+    n_sampled = torch.clamp(_global_sum(sampled), min=1)
 
     labels = torch.gather(gt_labels.long(), 1, assigned) + 1  # background 0
     labels = torch.where(pos_s, labels, 0)
@@ -121,7 +135,7 @@ def roi_head_loss(
     enc = encode_deltas(_gather_boxes(gt_boxes, assigned), proposals)
     reg = torch.gather(roi_reg, 2, labels[..., None, None].expand(-1, -1, 1, 4))[:, :, 0, :]
     l1 = smooth_l1(reg - enc).sum(-1)
-    loss_box = torch.where(pos_s, l1, 0.0).sum() / torch.clamp(pos_s.sum(), min=1)
+    loss_box = torch.where(pos_s, l1, 0.0).sum() / torch.clamp(_global_sum(pos_s), min=1)
     return loss_cls + loss_box, {"roi_cls_loss": loss_cls, "roi_box_loss": loss_box,
                                  "roi_pos": pos_s.sum()}
 
@@ -129,10 +143,18 @@ def roi_head_loss(
 def frcnn_draws(out: Dict[str, torch.Tensor], generator: torch.Generator):
     """The four uniform tensors of one loss, from ``generator`` (on the
     outputs' device): (B, A) twice for the RPN, (B, R) twice for the ROI
-    head."""
+    head.  Over a mesh's data ranks the draws are the global batch's, and
+    each rank takes its own rows (the generator must be seeded alike on
+    every rank)."""
     dev = out["rpn_obj"].device
-    a, r = out["rpn_obj"].shape, out["proposal_valid"].shape
-    return tuple(torch.rand(shape, generator=generator, device=dev) for shape in (a, a, r, r))
+    (b, a), r = out["rpn_obj"].shape, out["proposal_valid"].shape[1]
+    group = batch_group()
+    ranks, rank = (1, 0) if group is None else (dist.get_world_size(group),
+                                                dist.get_rank(group))
+    return tuple(
+        torch.rand((b * ranks, n), generator=generator, device=dev)[rank * b:(rank + 1) * b]
+        for n in (a, a, r, r)
+    )
 
 
 def frcnn_loss(

@@ -12,7 +12,11 @@ so the aligned target scores carry gradient, as in the JAX loss.  Where
 JAX's choice has a tie rule the port keeps it: top-k keeps every anchor
 whose metric reaches the k-th largest (``align >= kth``), ``argmax`` takes
 the first maximum, and a maximum against 0 splits its gradient at a tie
-(``torch.maximum``, not ``clamp``).
+(``torch.maximum``, not ``clamp``).  Over a mesh's data ranks
+(``parallel/mesh.py::global_batch``) the normaliser is the global batch's,
+summed over the ranks with its gradient, and each rank's loss is its own
+numerator over it: the ranks' losses and gradients sum to the global
+batch's.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 
 from litepi_tpu_torch.ops.boxes import EPS
 from litepi_tpu_torch.ops.dfl import dfl_decode
+from litepi_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 
 def _relu0(x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +212,8 @@ def detection_loss(
     )
     fg = assign["fg"]
     tscores = assign["target_scores"]
-    tsum = _floor_at(tscores.sum(), 1.0)
+    # the global batch's under a mesh (parallel/mesh.py::global_batch)
+    tsum = _floor_at(all_reduce_sum(tscores.sum(), batch_group()), 1.0)
     zero = torch.zeros_like(tscores)
 
     # classification: BCE against the aligned soft targets over all anchors

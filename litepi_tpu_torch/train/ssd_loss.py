@@ -11,7 +11,9 @@ positives; both terms divided by the positive count.  Where JAX's choice
 has a tie rule the port keeps it: ``argmax`` takes the first maximum, the
 argsorts are stable, and a scatter of the forced matches writes the last
 of equal indices (a ground-truth box later in the list wins a default box
-two boxes claim, as XLA's scatter applies its updates in order).
+two boxes claim, as XLA's scatter applies its updates in order).  Over a
+mesh's data ranks (``parallel/mesh.py::global_batch``) the positive count
+is the global batch's.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from litepi_tpu_torch.ops.boxes import box_iou_signed, xyxy_to_xywh
+from litepi_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 
 def encode_boxes(
@@ -89,7 +92,8 @@ def multibox_loss(
 
     enc = encode_boxes(tgt_boxes, default_boxes_cxcywh)
     loc_l = smooth_l1(loc - enc).sum(-1)
-    num_pos = torch.clamp(positive.sum(), min=1)
+    # the global batch's under a mesh (parallel/mesh.py::global_batch)
+    num_pos = torch.clamp(all_reduce_sum(positive.sum(), batch_group()), min=1)
     loss_loc = torch.where(positive, loc_l, 0.0).sum() / num_pos
 
     logp = torch.log_softmax(conf, dim=-1)

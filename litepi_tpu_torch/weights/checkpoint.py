@@ -19,6 +19,13 @@ to ``path.new``, then ``path`` -> ``path.old``, ``path.new`` -> ``path``,
 ``path.old`` removed, so a crash at any moment leaves a whole resume point
 (:func:`load_train_checkpoint` promotes a ``path.old`` left without
 ``path``).
+
+Across the ranks of a ``torch.distributed`` group (data-parallel training,
+``parallel/mesh.py``) the JAX package's multi-host contract holds: the
+state is replicated, so rank 0 alone writes and renames, on a filesystem
+every rank shares, and every rank waits at a barrier before going on; the
+``.old`` promotion happens on rank 0 under the barrier, and then every rank
+loads the result.
 """
 
 from __future__ import annotations
@@ -29,10 +36,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CHECKPOINT_FILE = "variables.pt"
 # files that only an orbax checkpoint directory holds
 _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+
+
+def _is_writer() -> bool:
+    """True on rank 0 of a group, and in a process outside any group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sync() -> None:
+    """A barrier of every rank; nothing on one process."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _to_tensors(tree: Any) -> Any:
@@ -121,23 +140,25 @@ def save_train_checkpoint(path: str, state: Any, meta: Dict[str, Any]) -> None:
     docstring)."""
     path = os.path.abspath(path)
     new, old = path + ".new", path + ".old"
-    for stale in (new, old):
-        if os.path.isdir(stale):
-            shutil.rmtree(stale)
-    payload = {
-        "model": _host(state.model.state_dict()),
-        "opt_state": _host(state.opt_state),
-        "step": int(state.step),
-        "ema_params": _host(getattr(state, "ema_params", None)),
-        "meta": {k: (v.item() if hasattr(v, "item") else v) for k, v in meta.items()},
-    }
-    os.makedirs(new)
-    torch.save(payload, os.path.join(new, CHECKPOINT_FILE))
-    if os.path.isdir(path):
-        os.rename(path, old)
-    os.rename(new, path)
-    if os.path.isdir(old):
-        shutil.rmtree(old)
+    if _is_writer():
+        for stale in (new, old):
+            if os.path.isdir(stale):
+                shutil.rmtree(stale)
+        payload = {
+            "model": _host(state.model.state_dict()),
+            "opt_state": _host(state.opt_state),
+            "step": int(state.step),
+            "ema_params": _host(getattr(state, "ema_params", None)),
+            "meta": {k: (v.item() if hasattr(v, "item") else v) for k, v in meta.items()},
+        }
+        os.makedirs(new)
+        torch.save(payload, os.path.join(new, CHECKPOINT_FILE))
+        if os.path.isdir(path):
+            os.rename(path, old)
+        os.rename(new, path)
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+    _sync()
 
 
 def load_train_checkpoint(
@@ -149,10 +170,12 @@ def load_train_checkpoint(
     filled).  A ``path.old`` left without ``path`` (a crash between the
     swap's renames) is promoted first.  ``meta_template`` gives the meta
     keys to return (all saved keys without it).  Raises ``ValueError`` for
-    an orbax directory."""
+    an orbax directory.  Across ranks: rank 0 promotes, every rank waits at
+    a barrier, then every rank loads."""
     path = os.path.abspath(path)
-    if not os.path.isdir(path) and os.path.isdir(path + ".old"):
+    if _is_writer() and not os.path.isdir(path) and os.path.isdir(path + ".old"):
         os.rename(path + ".old", path)
+    _sync()
     payload = torch.load(_checkpoint_file(path), map_location="cpu", weights_only=True)
     if not {"model", "opt_state", "step", "meta"} <= set(payload):
         raise ValueError(f"{path} holds variables, not a training checkpoint of the port")

@@ -6,7 +6,11 @@ tiny sizes: a Faster R-CNN run (input 64, ``pre_nms_topk`` 64,
 ``python -m litepi_tpu_torch.bench.detector_bench --checkpoint`` loads
 them and prints a row with the JAX bench's columns; the refusals exit with
 rc 2 and one ``error:`` line (an ssd300 ``--imgsz`` other than 300, as the
-JAX CLI; ``--data_parallel 2``); ``--pre_nms_topk 2000`` (torchvision's
+JAX CLI; ``--data_parallel 2`` under ``--device cuda`` without two visible
+cards); ``--data_parallel 2 --device cpu`` (gloo ranks) takes the
+``--data_parallel 1`` run's SSD300 step (the loss bit-equal, the weights
+within one bf16 ulp; Faster R-CNN's 1-vs-2-rank step is held in float64
+in tests/test_torch_baselines_dp.py); ``--pre_nms_topk 2000`` (torchvision's
 training default, above 1,024 candidates) runs; the default ``--device``
 raises without a card."""
 
@@ -84,14 +88,50 @@ def test_tiny_faster_rcnn_run_feeds_the_bench(data, tmp_path, capsys):
 
 @pytest.mark.parametrize("case,extra", [
     ("ssd300 imgsz", ["--arch", "ssd300", "--imgsz", "320", "--device", "cpu"]),
-    ("data_parallel", ["--arch", "faster_rcnn", "--data_parallel", "2", "--device", "cpu"]),
+    ("data_parallel", ["--arch", "faster_rcnn", "--data_parallel", "2", "--device", "cuda"]),
 ])
 def test_rc2_paths(data, tmp_path, capsys, case, extra):
     rc = train_baselines.main(_argv(data, tmp_path / "out", *extra))
     err = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error")]
     assert rc == 2 and len(err) == 1, err
-    key = {"ssd300 imgsz": "300", "data_parallel": "M11"}
+    key = {"ssd300 imgsz": "300", "data_parallel": "visible"}
     assert key[case] in err[0]
+
+
+def test_data_parallel_2_equals_1(data, tmp_path, monkeypatch):
+    """One step of SSD300 in the CLI's bf16 at ``--data_parallel 2 --device
+    cpu`` (one row each of the global batch of 2): its loss (``best_score``,
+    the negated loss without a validation set) is the ``--data_parallel 1``
+    run's, bit for bit, and after the update every leaf of the weights is
+    within one bf16 ulp of its largest magnitude of the 1-rank run's (the
+    ranks sum the gradients in another order); only rank 0 writes."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' torch threads
+    res, leaves = {}, {}
+    for n in (1, 2):
+        out = tmp_path / f"dp{n}"
+        argv = ["--images", data["train"][0], "--labels", data["train"][1], "--output",
+                str(out), "--epochs", "1", "--batch", "2", "--steps_per_epoch", "1", "--arch",
+                "ssd300", "--device", "cpu", "--data_parallel", str(n)]
+        assert train_baselines.main(argv) == 0
+        res[n] = json.loads((out / "results.json").read_text())
+        leaves[n] = {}
+
+        def walk(t, prefix, n=n):
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}/", n)
+                else:
+                    leaves[n][prefix + k] = np.asarray(v, np.float64)
+
+        walk(load_checkpoint(str(out / "last")), "")
+        assert sorted(os.listdir(out)) == ["best", "last", "results.json"]
+    assert res[1]["epochs_run"] == res[2]["epochs_run"] == 1
+    assert res[2]["best_score"] == res[1]["best_score"], res
+    assert sorted(leaves[2]) == sorted(leaves[1])
+    for name, want in leaves[1].items():
+        got = leaves[2][name]
+        _, exp = np.frexp(max(np.abs(want).max(), np.abs(got).max()))
+        assert np.abs(got - want).max() <= np.ldexp(1.0, exp - 8), name  # bf16: 8 bits
 
 
 def test_pre_nms_topk_2000_runs(data, tmp_path, capsys):

@@ -4,8 +4,10 @@ synthetic datasets (the tests/test_train_clis.py pattern).
 
 The same argv (``--device cpu``) gives the same rc and a ``results.json``
 with the same keys and the same variant, config and epoch counts; an
-ablation scale on a zoo variant is refused with rc 2 by both; the port
-refuses ``--data_parallel`` above 1 with rc 2 (ROADMAP M11).  A run cut
+ablation scale on a zoo variant is refused with rc 2 by both; the port's
+``--data_parallel 2`` on CPU ranks takes its ``--data_parallel 1`` run's
+step (the loss bit-equal, the weights within one bf16 ulp), and beyond the
+visible cards it exits with rc 2.  A run cut
 by ``--stop_after 1`` and continued with ``--resume`` ends with the
 uninterrupted run's checkpoints, bit for bit, validation through the
 port's ``PipelineEvaluator`` included (tolerance: none).
@@ -68,11 +70,46 @@ def test_same_argv_same_rc_and_results(det_data, tmp_path):
     assert port_main(_argv(det_data, tmp_path / "port2", *bad)) == 2
 
 
-def test_data_parallel_waits_for_m11(det_data, tmp_path, capsys):
+def test_data_parallel_2_equals_1(det_data, tmp_path, monkeypatch):
+    """``--data_parallel 2 --device cpu`` (two gloo ranks the CLI starts,
+    one row each of the global batch of 2), one step in the CLI's bf16:
+    its loss is the ``--data_parallel 1`` run's, bit for bit, and after the
+    update every tensor of the model within one bf16 ulp of its largest
+    magnitude of the 1-rank run's (the ranks sum the bf16 gradients in
+    another order: a second step's loss is no longer bit-equal); only
+    rank 0 writes."""
+    import torch
+
     from litepi_tpu_torch.apps.train_detector import main
 
-    assert main(_argv(det_data, tmp_path, "--epochs", "1", "--data_parallel", "2")) == 2
-    assert "M11" in capsys.readouterr().err
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' torch threads
+    runs = {}
+    for n in (1, 2):
+        out = tmp_path / f"dp{n}"
+        assert main(_argv(det_data, out, "--epochs", "1", "--data_parallel", str(n))) == 0
+        runs[n] = torch.load(out / "resume" / "variables.pt", weights_only=True)
+        assert sorted(os.listdir(out)) == ["best", "last", "results.json", "resume"]
+    for n in (1, 2):
+        assert runs[n]["step"] == 1 and runs[n]["meta"]["next_epoch"] == 1
+    assert runs[2]["meta"]["best_score"] == runs[1]["meta"]["best_score"]
+    assert sorted(runs[2]["model"]) == sorted(runs[1]["model"])
+    for name, want in runs[1]["model"].items():
+        want, got = want.double().numpy(), runs[2]["model"][name].double().numpy()
+        _, exp = np.frexp(max(np.abs(want).max(), np.abs(got).max()))
+        assert np.abs(got - want).max() <= np.ldexp(1.0, exp - 8), name  # bf16: 8 bits
+
+
+def test_data_parallel_beyond_the_cards_exits_2(det_data, tmp_path, capsys):
+    """Without N visible cards ``--data_parallel N --device cuda`` exits with
+    rc 2 and one ``error:`` line; it never trains on fewer ranks or on the
+    CPU."""
+    from litepi_tpu_torch.apps.train_detector import main
+
+    assert main(_argv(det_data, tmp_path, "--epochs", "1", "--data_parallel", "2", "--device",
+                      "cuda")) == 2
+    err = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("error")]
+    assert len(err) == 1 and "visible" in err[0], err
+    assert not os.path.exists(tmp_path / "results.json")
 
 
 def test_resume_equals_uninterrupted(det_data, tmp_path):
