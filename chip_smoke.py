@@ -13,10 +13,12 @@ source, in parallel), then:
    the one-kernel bound at 64 and of a word edge) with 1, 3 and 91
    classes; timed at K=64 (the serving candidate budget) and K=512 (the
    NMSConfig default) on 1-class inputs, the serving detector's; above
-   1,024 candidates (the greedy pass in global memory) bit-equal at B=8
-   for K in {1,025, 2,000, 2,048, 4,096, 8,400} with 1 and 91 classes,
-   each case keeping and suppressing, and timed at (8, 2,000), (8, 8,400)
-   and (128, 2,048) beside (8, 256) and (8, 1,024);
+   1,024 candidates (the greedy pass on a thread-block cluster per image,
+   as at B=8, K=1,024) bit-equal at B=8 for K in {1,025, 2,000, 2,048,
+   4,096, 8,400} with 1 and 91 classes, each case keeping and
+   suppressing, and at K=1,100 on more images than the card holds
+   clusters at once, and timed at (8, 2,000), (8, 8,400) and (128, 2,048)
+   beside (8, 256) and (8, 1,024), each with its cluster shape;
 2. ROI crop kernel vs ``crop_and_resize_plain``, both modes on B=128, D=8,
    640x640 (the serving crop), on B=8, D=8, 1080x1920 (three pyramid
    levels) and on an all-invalid batch, both modes also with the bf16
@@ -135,7 +137,8 @@ source, in parallel), then:
    run the pyramid at B=8, D=64 over 4 levels of 2048x2048 frames); then
    the CLI at ``--dtype bfloat16 --max_candidates 8400`` (every
    prediction of the 640 grid through the device NMS: K1 at (8, 8,400),
-   its launches counted by K) held the same way.  The full-width frames' labels come from the
+   its launches counted by K, and apart those whose greedy pass ran on a
+   cluster, which must include K=8,400) held the same way.  The full-width frames' labels come from the
    artifacts' own detections at ``benchmark_conf``, jittered, so that the
    metric rows are neither 0 nor 1;
 11. the convert phase, the reverse path, from phase 10's artifacts and
@@ -214,7 +217,8 @@ source, in parallel), then:
    training budget of 2,000 proposals (K1 above 1,024): the float32
    forward's RPN keep mask card vs CPU on the card's top-k picks, and the
    training CLI with ``--pre_nms_topk 2000`` (2 epochs of 3 steps; K1's
-   launches counted by K).  The timed steps, the
+   launches counted by K, and apart those on a cluster, which must include
+   K=2,000).  The timed steps, the
    bf16 inference, the CLIs and the benches run under the TF32 flags of a
    fresh process (FRESH_TF32), as a user's process does;
 14. data parallelism (``parallel/``, ``pipeline/serving.py``,
@@ -257,7 +261,10 @@ kernel's backward has a row of its own, and K1 a row at the RPN's (8,
 split by K in ``baseline_launches_by_k``, and rows at (8, 256) (the
 stream app), (8, 2,000) (the baseline CLI at ``--pre_nms_topk 2000``),
 (8, 8,400) (the e2e CLI at ``--max_candidates 8400``) and (128, 2,048)
-(a timing shape); ``stream_launches``, ``ladder_launches`` and
+(a timing shape), the rows at 2,000 and 8,400 with
+``greedy_cluster_launches``, their path's launches whose greedy pass ran
+on a cluster (``nms_greedy_cluster_kernel``), and the RPN row with the
+baselines phase's by K; ``stream_launches``, ``ladder_launches`` and
 ``ablation_launches`` are those paths' counts on the row of their shape,
 ``data_parallel_launches`` the data-parallel phase's), an
 ``{"e2e": ..., "zoo": ..., "eval": ..., "e2e_cli": ..., "convert": ...,
@@ -303,7 +310,7 @@ from litepi_tpu_torch.evals.labels import sample_images
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels import launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda
-from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
+from litepi_tpu_torch.kernels.nms import cluster_shape, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
@@ -376,6 +383,7 @@ NMS_CLASSES = (1, 3, 91)
 # of the 640 grid (8, 8,400) and the serving batch at 2,048
 NMS_LARGE_BATCH, NMS_LARGE_KS, NMS_LARGE_CLASSES = 8, (1025, 2000, 2048, 4096, 8400), (1, 91)
 NMS_LARGE_TIMED = ((8, 2000), (8, 8400), (128, 2048))
+NMS_OVER_K = 1100  # the check with more clusters than the card holds at once
 NMS_STREAM_TIMED = (8, 256)  # the stream app's budget at its batch
 ROI_DENSE = (128, 8, 640, 640)  # B, D, H, W of the serving crop
 ROI_PYRAMID = (8, 8, 1080, 1920)
@@ -683,10 +691,29 @@ def check_nms_large(dev) -> dict:
             del boxes, cls, valid, got, want
     print(f"nms above 1,024: bit-equal to suppress_sorted in {n} cases (B={NMS_LARGE_BATCH}, "
           f"K {NMS_LARGE_KS}, classes {NMS_LARGE_CLASSES})")
-    result = {}
+    # more clusters than the card holds at once (B * blocks > 132): the
+    # clusters past its capacity wait for a free place
+    b = 16
+    while True:
+        blocks, capacity = cluster_shape(b, NMS_OVER_K)
+        if b > capacity:
+            break
+        b = capacity + 1
+    boxes, cls, valid = nms_inputs(gen, b, NMS_OVER_K, 1, dev)
+    mismatches = int((nms_suppress_cuda(boxes, cls, valid, thr)
+                      != suppress_sorted(boxes, valid, cls, thr)).sum())
+    if mismatches or b * blocks <= 132:
+        fail(f"NMS kernel B={b} K={NMS_OVER_K} on {b} clusters of {blocks} blocks (the card "
+             f"holds {capacity}): {mismatches} keep bits differ from the plain version")
+    result = {"oversubscribed": dict(batch=b, k=NMS_OVER_K, cluster_blocks=blocks,
+                                     clusters_held_at_once=capacity, mismatches=0)}
+    print(f"nms B={b} K={NMS_OVER_K}: {b} clusters of {blocks} blocks, the card holds "
+          f"{capacity} at once: bit-equal to suppress_sorted")
+    del boxes, cls, valid
     for b, k in (NMS_STREAM_TIMED, (8, 1024), *NMS_LARGE_TIMED):
         boxes, cls, valid = nms_inputs(gen, b, k, 1, dev)
         r = nms_timing(boxes, cls, valid, thr, 50 if k > 1024 else 200, 3)
+        r["cluster_blocks_and_capacity"] = cluster_shape(b, k)
         result[f"{b}x{k}"] = r
         print(f"nms B={b} K={k}, 1 class: kernel {r['ms']:.4f} ms (windows {r['windows']}), "
               f"device {r['device_ms']:.4f} ms {r['device_ms_by_kernel']}, host issue "
@@ -698,21 +725,26 @@ def check_nms_large(dev) -> dict:
 
 
 class K1ByK:
-    """Counts K1's launches by K while it is entered: the kernel module's
-    wrapper is replaced by one that adds what the launch counter moved by
-    to the call's K."""
+    """Counts K1's launches by K while it is entered, and apart those whose
+    greedy pass ran on a thread-block cluster: the kernel module's wrapper
+    is replaced by one that adds what the launch counters moved by to the
+    call's K."""
 
     def __init__(self):
         from litepi_tpu_torch.kernels import nms as nms_kernel
 
-        self.module, self.real, self.by_k = nms_kernel, nms_kernel.nms_suppress_cuda, {}
+        self.module, self.real = nms_kernel, nms_kernel.nms_suppress_cuda
+        self.by_k, self.cluster_by_k = {}, {}
 
     def __enter__(self):
         def tallied(boxes, *args):
-            before = launch_counts()["nms_suppress"]
+            before = launch_counts()
             keep = self.real(boxes, *args)
-            k = int(boxes.shape[1])
-            self.by_k[k] = self.by_k.get(k, 0) + launch_counts()["nms_suppress"] - before
+            after, k = launch_counts(), int(boxes.shape[1])
+            for tally, key in ((self.by_k, "nms_suppress"),
+                               (self.cluster_by_k, "nms_greedy_cluster")):
+                if after[key] > before[key]:
+                    tally[k] = tally.get(k, 0) + after[key] - before[key]
             return keep
 
         self.module.nms_suppress_cuda = tallied
@@ -1200,10 +1232,12 @@ def main_path(dev):
                       pipe.cfg.num_classifier_classes, f"run_fused b={b} {h}x{w} {roi_impl}")
     for name, n in counts.items():
         # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates), the
-        # act kernel's backward mode the training phase's: serving runs none
-        if name in ("silu_bf16_bwd", "sigmoid_bf16_bwd"):
+        # act kernel's backward mode the training phase's, K1's cluster
+        # greedy pass the paths above 960 candidates at a batch of 16 or
+        # fewer: serving runs none of the last three
+        if name in ("silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster"):
             if n:
-                fail(f"serving launched the act kernel's backward ({name} {n} times)")
+                fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
             fail(f"kernel {name} was not launched on the main path")
     print(f"main path launch counts: {counts}, per run {run_counts}")
@@ -1909,6 +1943,7 @@ def check_cli_full(dev, weights, img_dir: str, lbl_dir: str, root: str, extra, w
     del ev, pipe, frames
     result = dict(args=list(extra), seconds=seconds, fused_pass_fps=float(s["fps"]),
                   launches=counts, k1_launches_by_k={str(k): n for k, n in sorted(k1.by_k.items())},
+                  k1_cluster_launches_by_k={str(k): n for k, n in sorted(k1.cluster_by_k.items())},
                   kernel_checks=kernel_checks,
                   row={k: float(s[k]) for k in CLI_METRICS})
     print(f"e2e CLI {what}: rc 0 in {seconds:.1f} s, fused pass "
@@ -1968,8 +2003,9 @@ def e2e_cli_phase(dev, root: str):
                            f"max_candidates {E2E_CLI_LARGE_K}",
                            {"nms_suppress": 1, "roi_crop_dense": 4, "roi_crop_pyramid": 0,
                             "roi_crop_pyramid_bf16": 0, "stem": 0})
-    if not large["k1_launches_by_k"].get(str(E2E_CLI_LARGE_K)):
-        fail(f"e2e CLI at {E2E_CLI_LARGE_K} candidates: K1 by K {large['k1_launches_by_k']}")
+    if not large["k1_cluster_launches_by_k"].get(str(E2E_CLI_LARGE_K)):
+        fail(f"e2e CLI at {E2E_CLI_LARGE_K} candidates: K1 by K {large['k1_launches_by_k']}, "
+             f"its greedy pass on a cluster {large['k1_cluster_launches_by_k']}")
     result = dict(detector_rel_err=art["detector_rel_err"], small=small, full_dense=dense,
                   full_bf16_pallas=pallas, full_k8400=large, decode_once_s=decode_s,
                   label_detections=n_labels, seconds=time.perf_counter() - t0)
@@ -2878,7 +2914,7 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
     launches = {k: 0 for k in launch_counts()}
     # K1's launches by K (the RPN's 1,024 or 2,000, the final NMS's 256, ...)
     k1 = K1ByK()
-    k2000 = {}
+    k2000 = k2000_cluster = {}
 
     def counted(fn):
         reset_launch_counts()
@@ -2901,7 +2937,7 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
                 str(BASE_STEPS), "--max_gt", str(TRAIN_MAX_GT), "--patience", "99",
                 "--output", out_dir, "--device", dev.type, *extra]
         t1 = time.perf_counter()
-        before = dict(k1.by_k)
+        before, before_cluster = dict(k1.by_k), dict(k1.cluster_by_k)
         text = counted(lambda: run_cli(train_baselines.main, argv, f"train_baselines {name}"))
         seconds = time.perf_counter() - t1
         with open(os.path.join(out_dir, "results.json")) as f:
@@ -2915,11 +2951,17 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
                           validation_seconds=[b for _, b in epochs],
                           k1_launches_by_k={str(k): n - before.get(k, 0)
                                             for k, n in sorted(k1.by_k.items())
-                                            if n - before.get(k, 0)})
+                                            if n - before.get(k, 0)},
+                          k1_cluster_launches_by_k={
+                              str(k): n - before_cluster.get(k, 0)
+                              for k, n in sorted(k1.cluster_by_k.items())
+                              if n - before_cluster.get(k, 0)})
         if extra:
             k2000 = clis[name]["k1_launches_by_k"]
-            if not k2000.get(str(BASE_LARGE_PRE_NMS)):
-                fail(f"train_baselines {name}: K1 never ran at K={BASE_LARGE_PRE_NMS}: {k2000}")
+            k2000_cluster = clis[name]["k1_cluster_launches_by_k"]
+            if not k2000_cluster.get(str(BASE_LARGE_PRE_NMS)):
+                fail(f"train_baselines {name}: K1's cluster greedy pass never ran at "
+                     f"K={BASE_LARGE_PRE_NMS}: K1 by K {k2000}, on a cluster {k2000_cluster}")
             continue
         bench_argv = ["--variants", arch, "--checkpoint", os.path.join(out_dir, "last"),
                       "--images", val_dir[0], "--labels", val_dir[1], "--device", dev.type]
@@ -2942,7 +2984,8 @@ def baselines_as_users_run_them(dev, root: str, smi: str, result: dict) -> None:
         fail(f"baselines phase: launch counts {launches}, K1 by K {k1.by_k}")
     result.update(cli=clis, checkpoint_bench=benches, fair_benchmark=fair, launches=launches,
                   k1_launches_by_k={str(k): n for k, n in sorted(k1.by_k.items())},
-                  k2000_cli_launches_by_k=k2000)
+                  k1_cluster_launches_by_k={str(k): n for k, n in sorted(k1.cluster_by_k.items())},
+                  k2000_cli_launches_by_k=k2000, k2000_cli_cluster_launches_by_k=k2000_cluster)
 
 
 # --------------------------------------------------------------------- #
@@ -3778,6 +3821,7 @@ def run(dev) -> None:
         "nms_suppress_rpn_k1024", "nms.cu", nms_at, bl["nms_suppress"], rpn["rpn_nms_timing"], 0,
         "B={} K={}, 1 class, Faster R-CNN RPN proposals".format(*rpn["rpn_nms"]["shape"]),
         baseline_launches_by_k=baselines["k1_launches_by_k"],
+        baseline_cluster_launches_by_k=baselines["k1_cluster_launches_by_k"],
         rpn_valid=rpn["rpn_nms"]["valid"], rpn_kept=rpn["rpn_nms"]["kept"],
         final_nms_mismatches={k: v["final_nms"]["mismatches"]
                               for k, v in baselines["inference"].items()},
@@ -3787,17 +3831,25 @@ def run(dev) -> None:
     # K1 above 1,024 candidates and at the stream app's budget, a row per
     # shape: (8, 8,400) the e2e CLI at --max_candidates 8400, (8, 2,000) the
     # baseline CLI at --pre_nms_topk 2000, (8, 256) the stream app, (128,
-    # 2,048) a timing shape no path runs
+    # 2,048) a timing shape no path runs; greedy_cluster_launches: those of
+    # the row's launches whose greedy pass ran on a thread-block cluster
+    # (nms_greedy_cluster_kernel)
     cli_k = cli["full_k8400"]
     k2000 = baselines["k2000_cli_launches_by_k"]
+    k2000_cluster = baselines["k2000_cli_cluster_launches_by_k"]
     for name, key, launches, extra in (
             ("nms_suppress_k256", "8x256", stream_counts(stream)["nms_suppress"],
              dict(stream_nms_mismatches=stream["kernel_checks"]["nms_mismatches"])),
             ("nms_suppress_k2000", "8x2000", k2000.get(str(BASE_LARGE_PRE_NMS), 0),
              dict(baseline_k2000_launches_by_k=k2000,
+                  greedy_cluster_launches=k2000_cluster.get(str(BASE_LARGE_PRE_NMS), 0),
+                  baseline_k2000_cluster_launches_by_k=k2000_cluster,
                   rpn_k2000=baselines["card_vs_cpu"]["frcnn_forward_k2000"])),
             ("nms_suppress_k8400", "8x8400", cli_k["k1_launches_by_k"].get(str(E2E_CLI_LARGE_K), 0),
              dict(e2e_cli_k8400_launches_by_k=cli_k["k1_launches_by_k"],
+                  greedy_cluster_launches=cli_k["k1_cluster_launches_by_k"].get(
+                      str(E2E_CLI_LARGE_K), 0),
+                  e2e_cli_k8400_cluster_launches_by_k=cli_k["k1_cluster_launches_by_k"],
                   e2e_cli_k8400_nms_mismatches=cli_k["kernel_checks"]["nms_mismatches"],
                   e2e_cli_k8400_valid=cli_k["kernel_checks"]["nms_valid"])),
             ("nms_suppress_b128_k2048", "128x2048", 0, {})):

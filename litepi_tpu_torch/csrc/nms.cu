@@ -47,16 +47,39 @@
 //   per candidate on the chain, in registers, with the row words loaded
 //   ahead of it), then ORs the kept rows' later words into the removed
 //   set across the lanes (__reduce_or_sync).
-//   - K <= 1024 (W <= 16): nms_greedy_kernel, one warp per image, copies
-//     the image's triangle into shared memory by cp.async and holds word c
-//     of the removed set in lane c.
-//   - K > 1024: the triangle outgrows shared memory (227 KB per block from
-//     K ~ 1,345) and the removed set a warp's lanes.
-//     nms_greedy_large_kernel, one block of kLargeWarps warps per image,
-//     keeps the removed set in shared memory and reads the row words from
-//     global memory (L2): warp 0 decides word w, then every warp ORs the
-//     kept rows' words of a share of the later columns, the part that
-//     grows as K^2 / 64 per image.
+//   - nms_greedy_kernel, one warp per image, copies the image's triangle
+//     into shared memory by cp.async and holds word c of the removed set in
+//     lane c: up to W = 16 at B > 16 (the serving batch), and up to W = 15
+//     at B <= 16.
+//   - nms_greedy_cluster_kernel, from W = 16 at B <= 16 and at every W > 16
+//     (the triangle outgrows a block's shared memory from K ~ 1,345): one
+//     thread-block cluster of 16 blocks per image (8 where the card cannot
+//     hold B clusters of 16 at once), block r owning the columns r, r + 16,
+//     ... of the removed set.  Each block streams its own columns' 512-byte
+//     mask segments into a ring in shared memory (1-D bulk copies under
+//     mbarriers, a producer lane running ahead of the consumer warp), so
+//     the chain reads shared memory only.  The owner of column w + 1 ORs
+//     word w's kept rows into that column first and decides word w + 1 at
+//     once, while the other blocks OR word w into their later columns;
+//     it publishes the keep word to every block of the cluster (st.async
+//     into distributed shared memory, one remote write per block,
+//     completing on that block's mbarrier).  The pass ends after the last
+//     word holding a valid candidate.
+//
+// What bounds the greedy pass above 1,024 candidates at small B: neither
+// bytes nor operations in bulk.  The triangle is W (W + 1) / 2 segments of
+// 512 bytes per image (4.5 MB at K = 8,400), streamed once over the
+// cluster's 16 SMs (0.28 MB each); at B = 8 that is 36 MB, 0.011 ms of the
+// card's 3.35 TB/s.  The bound is the chain of ``words`` decisions, each
+// greedy_word's 128 dependent integer instructions: ~0.26 us at 4 cycles
+// each and 1.98 GHz, 0.034 ms for 132 words.  Measured
+// (tools/nms_trace.py, H100 SXM at 700 W, (8, 8,400)), a word costs the
+// deciding block ~2,500 SM cycles: greedy_word on rows read from shared
+// memory ~1,200, the next column's OR ~530 (its slot's barrier, two loads,
+// two __reduce_or_sync), the wait for the keep word ~440, the diagonal's
+// slot ~180, the publication ~170; the remote write itself lands within
+// ~0.1 us.  Each block's ORs of its later columns cost about as much per
+// word (~870 cycles for one column, ~2,400 for six).
 //
 // The keep mask goes out one byte per lane, 32 bytes per store.  The TPU
 // kernel's matvec fixpoint and its 8-images-per-instance blocking were TPU
@@ -65,15 +88,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kSharedMaxWords = 16;  // K <= 1024: the greedy pass in shared memory
 constexpr int kSmallMaxK = 64;  // K up to one word takes nms_small_kernel
 constexpr int kSmallWarps = 4;  // warps per image in nms_small_kernel
-constexpr int kLargeWarps = 16;  // warps per image in nms_greedy_large_kernel
 constexpr int kMaxGridY = 65535;
+// The greedy pass: nms_greedy_cluster_kernel above kSharedMaxWords words
+// (the triangle outgrows nms_greedy_kernel's shared memory from K ~ 1,345),
+// and at B <= kClusterMaxBatch from kClusterMinWords words; else
+// nms_greedy_kernel.  Measured at B = 8 (tools/nms_ab.py, H100 SXM at
+// 700 W), the cluster pass against nms_greedy_kernel: 0.0128 against
+// 0.0145 ms at K = 1,024, 0.0105 each at K = 768, 0.0083 against 0.0069 at
+// K = 512.  The serving batch (B = 128, K <= 1,024) keeps nms_greedy_kernel.
+constexpr int kSharedMaxWords = 16;
+constexpr int kClusterMaxBatch = 16;
+constexpr int kClusterMinWords = 16;
+constexpr int kRing = 64;  // mask segments in flight per cluster block
+constexpr int kKeptSlots = 32;  // published keep words per block, reused: > the cluster size
+constexpr int kGroup = 4;  // columns a cluster block ORs together
+constexpr unsigned kSegmentBytes = 64 * sizeof(unsigned long long);
 
 __device__ __forceinline__ float box_area(float4 b) {
   return fmaxf(b.z - b.x, 0.f) * fmaxf(b.w - b.y, 0.f);
@@ -358,55 +395,330 @@ __global__ void __launch_bounds__(32) nms_greedy_kernel(
   }
 }
 
-// The greedy pass of one image for W > 16, in kLargeWarps warps: the
-// removed set in shared memory (``s_removed[c]``: word c, the invalid
-// candidates set from the start), the row words read from global memory.
-// For each word w, warp 0 decides its 64 candidates (greedy_word on the
-// diagonal tile's row words); then warp v ORs the kept rows' words of
-// columns w + 1 + v, w + 1 + v + kLargeWarps, ... into the removed set,
-// lane l holding rows 64w + l and 64w + 32 + l, whose loads are skipped
-// for a row not kept (only a kept row's words are read, and those the
-// mask kernel wrote).
-__global__ void __launch_bounds__(32 * kLargeWarps) nms_greedy_large_kernel(
+// Thread-block cluster primitives (sm_90).  Shared-memory addresses are the
+// 32-bit ones of cvta; a block's own address is valid in the cluster's
+// window, and mapa turns it into the same variable's address in block
+// ``rank`` of the cluster.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: what each wrote before is
+// visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrive, and expect ``bytes`` more of transfers in the current phase.
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.  kCluster: also
+// acquire what blocks of the cluster released into the barrier (st.async).
+template <bool kCluster>
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One bulk copy (TMA, 1-D) of ``bytes`` from global memory into this
+// block's shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Store ``v`` into ``slot`` of block ``rank`` and complete 8 bytes on that
+// block's ``bar`` (one remote write; the barrier's completion releases it).
+__device__ __forceinline__ void publish(unsigned slot, unsigned bar, u64 v, unsigned rank) {
+  unsigned rs, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rs) : "r"(slot), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rb) : "r"(bar), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
+               ::"r"(rs), "l"(v), "r"(rb) : "memory");
+}
+
+// The OR of the rows of a 64-row segment ``seg`` that are kept (lane l
+// holds rows l and l + 32, kept iff k0 / k1); the rows not kept are not
+// loaded.  Every lane gets the word.
+__device__ __forceinline__ u64 kept_rows_or(const u64* seg, bool k0, bool k1) {
+  const int lane = threadIdx.x & 31;
+  u64 x = 0ull;
+  if (k0) x = seg[lane];
+  if (k1) x |= seg[lane + 32];
+  const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x));
+  const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x >> 32));
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// The smallest column c >= x that block ``rank`` of ``n`` owns (c % n == rank).
+__device__ __forceinline__ int first_owned(int x, int rank, int n) {
+  return x + (rank - x % n + n) % n;
+}
+
+// Dynamic shared memory of nms_greedy_cluster_kernel: the segment ring and
+// its barriers, the published keep words and theirs, the owned columns of
+// the removed set.
+__host__ __device__ constexpr size_t cluster_smem_bytes(int owned) {
+  return (static_cast<size_t>(kRing) * 64 + 2 * kRing + 2 * kKeptSlots + owned) * sizeof(u64);
+}
+
+// The greedy pass of one image on a cluster of n blocks (n = 8 or 16), block
+// r owning the columns c = r, r + n, ... of the removed set.  The mask is
+// read in 512-byte segments: segment (c, w) is column c of word w's 64 rows,
+// m + c*kp + 64*w, contiguous.  Per block, warp 1's lane 0 streams the
+// segments of the block's own columns into a ring of kRing slots in the
+// order warp 0 consumes them (full / empty barriers per slot; the bulk copy
+// completes on full):
+//
+//   word 0's diagonal (0, 0) if r owns column 0; then for w = 0, 1, ...:
+//   (c, w) for each owned column c > w in ascending order, each followed by
+//   the diagonal (c, c) when c == w + 1.
+//
+// Warp 0 waits for word w's keep word, ORs the kept rows of each owned
+// column's segment into the removed set (two rows per lane, __reduce_or_sync
+// across the lanes, loads of rows not kept skipped; kGroup columns at a
+// time), and when it owns w + 1 (the first of its columns in that order)
+// decides word w + 1 at once, on the diagonal segment (greedy_word), before
+// the ORs of its later columns.
+// Lanes 0..n-1 then publish the keep word into slot (w + 1) % kKeptSlots of
+// every block of the cluster (st.async, completing on that slot's barrier:
+// one remote write each).  The pass stops after the last word that holds a
+// valid candidate: past it nothing is kept, so nothing is streamed, decided
+// or published, and the owners write the keep bytes 0.
+//
+// Slot reuse: every block decides one word in any n consecutive ones, and
+// only after it has waited for all words before, so when word x is
+// published every block has waited for words <= x - n.  kKeptSlots > n.
+__global__ void __launch_bounds__(64) nms_greedy_cluster_kernel(
     const u64* __restrict__ mask, const u64* __restrict__ valid_words,
     uint8_t* __restrict__ keep, int K, int W) {
-  extern __shared__ u64 s_removed[];  // [W]
-  __shared__ u64 s_kept;
+  extern __shared__ __align__(128) u64 smem[];
+  __shared__ int s_words;
+  u64* ring = smem;                           // [kRing][64]
+  u64* full = ring + kRing * 64;              // [kRing] barriers: segment landed
+  u64* empty = full + kRing;                  // [kRing] barriers: slot read
+  u64* kept_slot = empty + kRing;             // [kKeptSlots] published keep words
+  u64* kept_bar = kept_slot + kKeptSlots;     // [kKeptSlots] their barriers
+  u64* removed = kept_bar + kKeptSlots;       // [owned column c / n]
+  const int n = cluster_blocks(), rank = cluster_rank();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t kp = 64 * (size_t)W;
-  const u64* m = mask + (size_t)blockIdx.x * W * kp;
-  for (int c = threadIdx.x; c < W; c += 32 * kLargeWarps)
-    s_removed[c] = ~valid_words[(size_t)blockIdx.x * W + c];
-  __syncthreads();
-  const size_t img = (size_t)blockIdx.x * K;
-  for (int w = 0; w < W; ++w) {
-    if (warp == 0) {
-      const u64 kept = greedy_word(m + w * kp + 64 * w, s_removed[w]);
-      const int q0 = 64 * w + lane, q1 = q0 + 32;
-      if (q0 < K) keep[img + q0] = (kept >> lane) & 1ull;
-      if (q1 < K) keep[img + q1] = (kept >> (lane + 32)) & 1ull;
-      if (lane == 0) s_kept = kept;
+  const u64* m = mask + (size_t)(blockIdx.x / n) * W * kp;
+  const u64* vw = valid_words + (size_t)(blockIdx.x / n) * W;
+  uint8_t* out = keep + (size_t)(blockIdx.x / n) * K;
+
+  if (threadIdx.x == 0) {
+    s_words = 0;
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 1);
     }
-    __syncthreads();
-    const u64 kept = s_kept;
-    const bool k0 = (kept >> lane) & 1ull, k1 = (kept >> (lane + 32)) & 1ull;
-    if (kept != 0ull) {
-      const u64* rows = m + 64 * (size_t)w + lane;
-#pragma unroll 4
-      for (int c = w + 1 + warp; c < W; c += kLargeWarps) {
-        u64 x = 0ull;
-        if (k0) x = rows[c * kp];
-        if (k1) x |= rows[c * kp + 32];
-        const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x));
-        const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(x >> 32));
-        if (lane == 0) s_removed[c] |= (static_cast<u64>(hi) << 32) | lo;
+    for (int s = 0; s < kKeptSlots; ++s) mbar_init(smem_u32(kept_bar + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    const u64 v = vw[c];
+    if (v != 0ull) atomicMax(&s_words, c + 1);
+    if (c % n == rank) removed[c / n] = ~v;  // the invalid candidates, removed from the start
+  }
+  cluster_sync();  // every block's barriers exist before any block signals one
+  const int words = s_words;  // words past the last valid candidate: none kept
+  for (int c = first_owned(words, rank, n); c < W; c += n) {
+    const int q = 64 * c + static_cast<int>(threadIdx.x);
+    if (q < K) out[q] = 0;
+  }
+
+  if (warp == 1) {
+    if (lane == 0) {
+      unsigned i = 0;  // segments issued
+      auto issue = [&](int c, int w) {
+        const unsigned s = i % kRing;
+        if (i >= kRing) mbar_wait<false>(smem_u32(empty + s), (i / kRing - 1) & 1);
+        const unsigned bar = smem_u32(full + s);
+        mbar_expect_tx(bar, kSegmentBytes);
+        bulk_load(smem_u32(ring + 64 * s), m + c * kp + 64 * w, kSegmentBytes, bar);
+        ++i;
+      };
+      if (rank == 0 && words > 0) issue(0, 0);
+      for (int w = 0; w + 1 < words; ++w)
+        for (int c = first_owned(w + 1, rank, n); c < words; c += n) {
+          issue(c, w);
+          if (c == w + 1) issue(c, c);
+        }
+    }
+    __syncwarp();
+  } else {
+    unsigned i = 0;  // segments consumed
+    auto next = [&]() {  // the slot of the next segment, once it has landed
+      const unsigned s = i % kRing;
+      mbar_wait<false>(smem_u32(full + s), (i / kRing) & 1);
+      ++i;
+      return s;
+    };
+    auto release = [&](unsigned s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + s));
+    };
+    auto decide = [&](int c, u64 r) {  // word c, its removed set r
+      const unsigned s = next();
+      const u64 kept = greedy_word(ring + 64 * s, r);
+      release(s);
+      if (c + 1 < words && lane < n)
+        publish(smem_u32(kept_slot + c % kKeptSlots), smem_u32(kept_bar + c % kKeptSlots), kept,
+                lane);
+      const int q0 = 64 * c + lane, q1 = q0 + 32;
+      if (q0 < K) out[q0] = (kept >> lane) & 1ull;
+      if (q1 < K) out[q1] = (kept >> (lane + 32)) & 1ull;
+    };
+    if (rank == 0 && words > 0) decide(0, removed[0]);
+    for (int w = 0; w + 1 < words; ++w) {
+      const unsigned ks = w % kKeptSlots;
+      if (lane == 0) mbar_expect_tx(smem_u32(kept_bar + ks), sizeof(u64));
+      mbar_wait<true>(smem_u32(kept_bar + ks), (w / kKeptSlots) & 1);
+      const u64 kept = kept_slot[ks];
+      const bool k0 = (kept >> lane) & 1ull, k1 = (kept >> (lane + 32)) & 1ull;
+      int c = first_owned(w + 1, rank, n);
+      if (c == w + 1) {  // the next word's column first, then that word at once
+        const unsigned s = next();
+        const u64 r = removed[c / n] | (kept ? kept_rows_or(ring + 64 * s, k0, k1) : 0ull);
+        release(s);
+        removed[c / n] = r;  // every lane stores the same word
+        decide(c, r);
+        c += n;
+      }
+      // the later columns, kGroup at a time, so that their loads and
+      // reductions overlap
+      for (; c < words; c += kGroup * n) {
+        unsigned s[kGroup];
+        u64 x[kGroup];
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          if (c + g * n < words) s[g] = next();
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          x[g] = c + g * n < words && kept ? kept_rows_or(ring + 64 * s[g], k0, k1) : 0ull;
+        __syncwarp();
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (c + g * n >= words) break;
+          if (lane == 0) mbar_arrive(smem_u32(empty + s[g]));
+          removed[c / n + g] |= x[g];  // every lane stores the same word
+        }
       }
     }
-    __syncthreads();
   }
+  cluster_sync();  // no block leaves while a block of its cluster may still signal it
+}
+
+// 0: nms_small_kernel alone; 1: nms_mask_kernel, then nms_greedy_kernel;
+// 2: nms_mask_kernel, then nms_greedy_cluster_kernel.
+int route(int B, int K) {
+  if (K <= kSmallMaxK) return 0;
+  const int W = (K + 63) / 64;
+  return W > kSharedMaxWords || (B <= kClusterMaxBatch && W >= kClusterMinWords) ? 2 : 1;
+}
+
+cudaError_t max_active_clusters(int n, size_t smem, int* count) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n);
+  cfg.blockDim = dim3(64);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, nms_greedy_cluster_kernel, &cfg);
+}
+
+// The cluster for B images of W words: 16 blocks (non-portable) when the
+// card holds B such clusters at once, else 8 (portable; clusters past what
+// the card holds wait for a free place).  ``smem``: the kernel's dynamic
+// shared memory, sized for the 8-block cluster's share of the columns.
+// The card's capacity is queried once per device and size.
+cudaError_t cluster_plan(int B, int W, int* n, int* max_active, size_t* smem) {
+  static std::mutex lock;
+  static int device = -1;
+  static size_t known_smem = 0;
+  static int cap16 = 0, cap8 = 0;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  *smem = cluster_smem_bytes((W + 7) / 8);
+  std::lock_guard<std::mutex> guard(lock);
+  if (dev != device || *smem != known_smem) {
+    device = -1;
+    e = cudaFuncSetAttribute(nms_greedy_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess && *smem > 48 * 1024)
+      e = cudaFuncSetAttribute(nms_greedy_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (e == cudaSuccess) e = max_active_clusters(16, *smem, &cap16);
+    if (e == cudaSuccess) e = max_active_clusters(8, *smem, &cap8);
+    if (e != cudaSuccess) return e;
+    device = dev;
+    known_smem = *smem;
+  }
+  *n = B <= cap16 ? 16 : 8;
+  *max_active = B <= cap16 ? cap16 : cap8;
+  return cudaSuccess;
 }
 
 }  // namespace
+
+// Which greedy pass litepi_nms_suppress runs for (B, K): 0 none (one
+// kernel does all), 1 nms_greedy_kernel, 2 nms_greedy_cluster_kernel.
+extern "C" int litepi_nms_greedy_route(int B, int K) { return route(B, K); }
+
+// For route 2: the blocks per cluster and how many such clusters the card
+// holds at once (both 0 for another route).
+extern "C" int litepi_nms_cluster_shape(int B, int K, int* blocks, int* max_active) {
+  *blocks = *max_active = 0;
+  if (B <= 0 || route(B, K) != 2) return cudaSuccess;
+  size_t smem;
+  return cluster_plan(B, (K + 63) / 64, blocks, max_active, &smem);
+}
 
 // Bytes of device scratch litepi_nms_suppress needs for (B, K): 0 where
 // one kernel does the work, else the tiles' words and the valid words.
@@ -440,7 +752,7 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
   nms_mask_kernel<<<dim3(B, grid_y), 128, 0, s>>>(b, c, v, mask, valid_words, K, W, thr);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if (W <= kSharedMaxWords) {
+  if (route(B, K) == 1) {
     const size_t smem = (size_t)W * 64 * W * sizeof(u64);
     if (smem > 48 * 1024) {
       e = cudaFuncSetAttribute(nms_greedy_kernel,
@@ -450,12 +762,24 @@ extern "C" int litepi_nms_suppress(const void* boxes, const void* cls,
     nms_greedy_kernel<<<B, 32, smem, s>>>(mask, valid_words, out, K, W);
     return cudaGetLastError();
   }
-  const size_t smem = (size_t)W * sizeof(u64);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(nms_greedy_large_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  nms_greedy_large_kernel<<<B, 32 * kLargeWarps, smem, s>>>(mask, valid_words, out, K, W);
+  int n, max_active;
+  size_t smem;
+  e = cluster_plan(B, W, &n, &max_active, &smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = n;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * n);
+  cfg.blockDim = dim3(64);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, nms_greedy_cluster_kernel, static_cast<const u64*>(mask),
+                         static_cast<const u64*>(valid_words), out, K, W);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -12,6 +12,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "nms_suppress": 0,
+    "nms_greedy_cluster": 0,  # the calls of nms_suppress whose greedy pass ran on a cluster
     "roi_crop_dense": 0,
     "roi_crop_pyramid": 0,
     "roi_crop_pyramid_bf16": 0,

@@ -28,6 +28,12 @@ def _lib() -> ctypes.CDLL:
         size = lib.litepi_nms_scratch_bytes
         size.argtypes = [ctypes.c_int, ctypes.c_int]
         size.restype = ctypes.c_size_t
+        route = lib.litepi_nms_greedy_route
+        route.argtypes = [ctypes.c_int, ctypes.c_int]
+        route.restype = ctypes.c_int
+        shape = lib.litepi_nms_cluster_shape
+        shape.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        shape.restype = ctypes.c_int
     return lib
 
 
@@ -44,7 +50,11 @@ def nms_suppress_cuda(
     Above K = 64 the kernel takes a scratch buffer for its suppression
     words (B * W * (64 W + 1) * 8 bytes, W = ceil(K / 64): 8.9 MB per image
     at K = 8,400), allocated here from PyTorch's caching allocator on the
-    same stream (no synchronisation)."""
+    same stream (no synchronisation).
+
+    Counts the call in ``LAUNCHES["nms_suppress"]``, and also in
+    ``LAUNCHES["nms_greedy_cluster"]`` where its greedy pass is the
+    thread-block cluster kernel (:func:`greedy_route` 2)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k = boxes.shape[0], boxes.shape[1]
@@ -86,4 +96,23 @@ def nms_suppress_cuda(
         )
     check(status, "nms_suppress launch")
     LAUNCHES["nms_suppress"] += 1
+    if lib.litepi_nms_greedy_route(b, k) == 2:
+        LAUNCHES["nms_greedy_cluster"] += 1
     return keep
+
+
+def greedy_route(b: int, k: int) -> int:
+    """The greedy pass ``nms_suppress_cuda`` runs at (B, K): 0 none (one
+    kernel does all, K <= 64), 1 ``nms_greedy_kernel``, 2
+    ``nms_greedy_cluster_kernel``."""
+    return _lib().litepi_nms_greedy_route(b, k)
+
+
+def cluster_shape(b: int, k: int) -> tuple:
+    """(blocks per cluster, clusters the card holds at once) of the cluster
+    greedy pass at (B, K) on the current device; (0, 0) on another route."""
+    lib = _lib()
+    blocks, active = ctypes.c_int(), ctypes.c_int()
+    check(lib.litepi_nms_cluster_shape(b, k, ctypes.byref(blocks), ctypes.byref(active)),
+          "nms cluster shape")
+    return blocks.value, active.value

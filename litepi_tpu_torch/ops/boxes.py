@@ -41,6 +41,18 @@ def clip_boxes(boxes: torch.Tensor, w, h) -> torch.Tensor:
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
+def unletterbox_boxes(boxes: torch.Tensor, ratio: float, dw: float, dh: float,
+                      orig_w: int, orig_h: int) -> torch.Tensor:
+    """Map xyxy boxes from letterboxed 640-space back to original pixels
+    and clip, as the reference postprocess does: shift by (dw, dh), divide
+    by ``ratio``, clip to [0, orig_w] x [0, orig_h].  ``ratio`` divides as
+    a tensor: a CUDA divide by a Python float multiplies by its reciprocal,
+    where JAX divides."""
+    shift = torch.tensor([dw, dh, dw, dh], dtype=boxes.dtype, device=boxes.device)
+    ratio_t = torch.tensor(ratio, dtype=boxes.dtype, device=boxes.device)
+    return clip_boxes((boxes - shift) / ratio_t, orig_w, orig_h)
+
+
 def box_iou_signed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The JAX package's ``box_iou``, which the baselines' losses match
     with: pairwise IoU (..., M, N) with the areas *not* clamped

@@ -3,22 +3,32 @@ its source, at the candidate budgets the main path gives it.
 
     python -m litepi_tpu_torch.tools.nms_ab OTHER/nms.cu [OTHER2/nms.cu ...]
 
+e.g. the parent commit's source beside this one's:
+
+    git show HEAD~1:litepi_tpu_torch/csrc/nms.cu > build/nms_parent.cu
+    python -m litepi_tpu_torch.tools.nms_ab build/nms_parent.cu
+
 Each other source is built with this checkout's ``nvcc`` flags.  One that
-exports ``litepi_nms_scratch_bytes`` (this design) is called through this
-checkout's wrapper (``kernels/nms.py``); one that does not is called with
-the single-kernel entry point of the first design,
-``litepi_nms_suppress(boxes, cls, valid, keep, B, K, thr, stream)``.  The
-cases, on ``chip_smoke.py``'s NMS inputs (:func:`nms_inputs`, seed 0) with
-1 class (the serving detector's): B=128 at K=64 (the serving budget), at
-K=512 (``NMSConfig``'s default, the staged ``detect``), and B=8 at
-K=1,024 (the Faster R-CNN RPN's default budget).  The versions
-take turns, the others, this one, this one, the others in reverse, and
-each reading is the device time per call from ``torch.profiler`` over 200
-calls (the sum over the call's kernels, each also given apart;
-``stage_split.kernel_device_times``).
-Prints one JSON line with every version's keep masks compared with this
-one's; exits non-zero when one differs in any bit, or without a CUDA
-device.
+exports ``litepi_nms_scratch_bytes`` (two kernels above K = 64) is called
+through its own entry point with a scratch buffer of its own size; one that
+does not, with the single-kernel entry point of the first design,
+``litepi_nms_suppress(boxes, cls, valid, keep, B, K, thr, stream)``.  This
+checkout's source is called through its wrapper (``kernels/nms.py``).  The
+cases (:data:`CASES`), on ``chip_smoke.py``'s NMS inputs
+(:func:`nms_inputs`, seed 0) with 1 class (the serving detector's): B=128
+at K=64 (the serving budget) and K=512 (``NMSConfig``'s default, the
+staged ``detect``); B=8 at K=256 (the stream app's budget), 768 (where
+the two greedy passes tie at B=8), 1,024 (the Faster R-CNN RPN's default
+budget), 2,000 (its ``--pre_nms_topk 2000``) and 8,400 (the e2e CLI's
+``--max_candidates 8400``); B=128 at K=2,048 (a timing shape).  The
+versions take turns, the others, this one, this one, the others in
+reverse, and each reading is the device time per call from
+``torch.profiler`` over 200 calls (the sum over the call's kernels, and
+each kernel apart: the mask kernel and the greedy pass;
+``stage_split.kernel_device_times``).  Prints one JSON line with every
+version's keep masks compared with this one's and this one's greedy route
+and cluster shape per case; exits non-zero when one differs in any bit, or
+without a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,10 +45,12 @@ from pathlib import Path
 import torch
 
 from litepi_tpu_torch.kernels import build as kbuild
-from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
+from litepi_tpu_torch.kernels.nms import cluster_shape, greedy_route, nms_suppress_cuda
 from litepi_tpu_torch.tools.stage_split import kernel_device_times
 
-CASES, THR = ((128, 64), (128, 512), (8, 1024)), 0.45  # (B, K)
+CASES = ((128, 64), (128, 512), (8, 256), (8, 768), (8, 1024), (8, 2000), (8, 8400),
+         (128, 2048))  # (B, K)
+THR = 0.45
 ITERS = 200
 
 
@@ -67,52 +79,58 @@ def build_other(source: Path) -> ctypes.CDLL:
 
 
 def caller(lib: ctypes.CDLL):
-    """fn(boxes, cls, valid) -> keep through ``lib``."""
-    if hasattr(lib, "litepi_nms_scratch_bytes"):
-        def through_wrapper(boxes, cls, valid):
-            kbuild._loaded["nms"] = lib
-            return nms_suppress_cuda(boxes, cls, valid, THR)
-        return through_wrapper
+    """fn(boxes, cls, valid) -> keep through ``lib``'s own entry point."""
     fn = lib.litepi_nms_suppress
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p]
+    two_kernels = hasattr(lib, "litepi_nms_scratch_bytes")
+    fn.argtypes = [ctypes.c_void_p] * (5 if two_kernels else 4) + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if two_kernels:
+        lib.litepi_nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.litepi_nms_scratch_bytes.restype = ctypes.c_size_t
 
-    def single_kernel(boxes, cls, valid):
+    def call(boxes, cls, valid):
         b, k = valid.shape
         keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-        kbuild.check(fn(boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                        b, k, THR, torch.cuda.current_stream().cuda_stream), "nms_ab launch")
+        ptrs = [boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(), keep.data_ptr()]
+        if two_kernels:
+            n = lib.litepi_nms_scratch_bytes(b, k)
+            scratch = torch.empty(n, dtype=torch.uint8, device=boxes.device) if n else None
+            ptrs.append(None if scratch is None else scratch.data_ptr())
+        kbuild.check(fn(*ptrs, b, k, THR, torch.cuda.current_stream().cuda_stream),
+                     "nms_ab launch")
         return keep
-    return single_kernel
+    return call
 
 
 def measure(dev, others) -> dict:
-    this = kbuild.load("nms")
-    calls = {"this": caller(this)}
+    calls = {"this": lambda boxes, cls, valid: nms_suppress_cuda(boxes, cls, valid, THR)}
     calls.update((str(p), caller(build_other(Path(p)))) for p in others)
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [nms_inputs(gen, b, k, 1, dev) for b, k in CASES]
     order = [*others, "this", "this", *reversed(others)]
     readings = {name: [[] for _ in CASES] for name in calls}
     split = {name: [{} for _ in CASES] for name in calls}
-    try:
-        for name in order:
-            for i, case in enumerate(cases):
+    for name in order:
+        for i, case in enumerate(cases):
+            for _ in range(3):  # the trace now and then drops most of a window's kernels
                 times = kernel_device_times(lambda: calls[name](*case), ITERS, "nms_")
                 seen = min((n for _, n in times.values()), default=0)
-                if seen < ITERS // 2:
-                    raise RuntimeError(f"{name}: the trace shows {seen} of {ITERS} calls")
-                readings[name][i].append(sum(ms for ms, _ in times.values()))
-                for kernel, (ms, _) in times.items():
-                    short = re.search(r"nms_\w+", kernel).group(0)
-                    split[name][i].setdefault(short, []).append(ms)
-        outs = {name: [call(*case) for case in cases] for name, call in calls.items()}
-    finally:
-        kbuild._loaded["nms"] = this
+                if seen >= ITERS // 2:
+                    break
+            else:
+                raise RuntimeError(f"{name} at {CASES[i]}: the trace shows {seen} of {ITERS} "
+                                   "calls, three times")
+            readings[name][i].append(sum(ms for ms, _ in times.values()))
+            for kernel, (ms, _) in times.items():
+                short = re.search(r"nms_\w+", kernel).group(0)
+                split[name][i].setdefault(short, []).append(ms)
+    outs = {name: [call(*case) for case in cases] for name, call in calls.items()}
     return {
         "cases": [
-            {"shape": f"B={b} K={k}, 1 class", "device_ms": {n: r[i] for n, r in readings.items()},
+            {"shape": f"B={b} K={k}, 1 class", "greedy_route": greedy_route(b, k),
+             "cluster_blocks_and_capacity": cluster_shape(b, k),
+             "device_ms": {n: r[i] for n, r in readings.items()},
              "device_ms_by_kernel": {n: s[i] for n, s in split.items()},
              "differing_bits": {n: int((got[i] != outs["this"][i]).sum())
                                 for n, got in outs.items()}}

@@ -15,7 +15,7 @@ import torch
 from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
 from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda, act_bf16_cuda
-from litepi_tpu_torch.kernels.nms import nms_suppress_cuda
+from litepi_tpu_torch.kernels.nms import cluster_shape, greedy_route, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
 from litepi_tpu_torch.ops import act
@@ -190,17 +190,40 @@ def test_nms_kernel_at_the_threshold(cuda, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [64, 512])
+@pytest.mark.parametrize("k", [64, 512, 2000])
 def test_nms_wrapper_counts_one_launch_per_call(cuda, k):
-    """Above K=64 the wrapper runs two kernels; it still counts one call."""
+    """Above K=64 the wrapper runs two kernels; it still counts one call,
+    and the call once more under ``nms_greedy_cluster`` where its greedy
+    pass ran on a thread-block cluster."""
     gen = torch.Generator(device=cuda).manual_seed(k)
     boxes, cls, valid = _nms_inputs(gen, 3, k, 1, cuda)
     before = launch_counts()
     nms_suppress_cuda(boxes, cls, valid, 0.45)
     after = launch_counts()
     assert after["nms_suppress"] == before["nms_suppress"] + 1
-    assert {n: c for n, c in after.items() if n != "nms_suppress"} == {
-        n: c for n, c in before.items() if n != "nms_suppress"}
+    cluster = int(greedy_route(3, k) == 2)
+    assert cluster == (k > 1024)  # B=3: the cluster pass from 1,025 candidates
+    assert after["nms_greedy_cluster"] == before["nms_greedy_cluster"] + cluster
+    counted = ("nms_suppress", "nms_greedy_cluster")
+    assert {n: c for n, c in after.items() if n not in counted} == {
+        n: c for n, c in before.items() if n not in counted}
+
+
+@pytest.mark.gpu
+def test_nms_kernel_with_more_clusters_than_the_card_holds(cuda):
+    """B images whose clusters outnumber what the card holds at once: the
+    later clusters wait for a free place, bit-equal all the same."""
+    b = 16
+    blocks, capacity = cluster_shape(b, 1100)
+    while b <= capacity:
+        b = capacity + 1
+        blocks, capacity = cluster_shape(b, 1100)
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    boxes, cls, valid = _nms_inputs(gen, b, 1100, 2, cuda)
+    got = nms_suppress_cuda(boxes, cls, valid, 0.45)
+    want = suppress_sorted(boxes, valid, cls, 0.45)
+    torch.cuda.synchronize()
+    assert b * blocks > 132 and torch.equal(got, want)
 
 
 @pytest.mark.gpu
