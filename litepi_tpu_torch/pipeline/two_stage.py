@@ -38,6 +38,7 @@ import torch.distributed as dist
 from torch import nn
 
 from litepi_tpu_torch.core.device import resolve_device
+from litepi_tpu_torch.core.metrics import span
 from litepi_tpu_torch.core.types import PipelineConfig
 from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.models import YoloLitePi, build_classifier
@@ -261,7 +262,10 @@ class TwoStagePipeline:
     # ------------------------------------------------------------------ #
 
     # Each stage below is one step of run_fused, in its order; the stage
-    # timing tool (tools/stage_split.py) calls the same methods.
+    # timing tool (tools/stage_split.py) calls the same methods.  Under a
+    # profiler, run_fused marks them with the spans litepi.stem, .detect,
+    # .candidates, .suppress, .unmap, .crop and .classify inside one
+    # litepi.run_fused per call (core/metrics.py::span).
 
     def _canvas_sized(self, frames: torch.Tensor) -> bool:
         """True when frames are (B, S, S, 3) at the detector's input size S
@@ -459,23 +463,42 @@ class TwoStagePipeline:
         the classifier budget is then global, the one cross-frame step.
         """
         conf = self.cfg.benchmark_conf if conf_threshold is None else conf_threshold
-        frames = torch.as_tensor(frames).to(self.device).contiguous()
-        if frames.dtype != torch.uint8 or frames.dim() != 4:
-            raise ValueError("frames must be (B, H, W, 3) uint8")
-        h, w = int(frames.shape[1]), int(frames.shape[2])
-
-        head = self._detect(self._stem(frames))
-        b, s, c, v = self._suppress(*self._candidates(head), conf)
-        orig_boxes, v = self._unmap(b, v, h, w, area_scale)
-        probs, v = self._classify_budgeted(self._crop(frames, orig_boxes, v), s, v, group)
+        # every operation the call issues lies under one stage span, the
+        # frames' upload under the stem's.  The stem's output is handed on
+        # in a list, so that the detector's call holds its only reference
+        # and frees it as soon as it is consumed (the injected detector's
+        # colour flip frees the B x 3 x S x S canvas before the model runs)
+        with span("run_fused"):
+            with span("stem"):
+                frames = torch.as_tensor(frames).to(self.device).contiguous()
+                if frames.dtype != torch.uint8 or frames.dim() != 4:
+                    raise ValueError("frames must be (B, H, W, 3) uint8")
+                stem_act = [self._stem(frames)]
+            h, w = int(frames.shape[1]), int(frames.shape[2])
+            with span("detect"):
+                head = self._detect(stem_act.pop())
+            with span("candidates"):
+                candidates = self._candidates(head)
+            with span("suppress"):
+                b, s, c, v = self._suppress(*candidates, conf)
+                del candidates
+            with span("unmap"):
+                orig_boxes, v = self._unmap(b, v, h, w, area_scale)
+            with span("crop"):
+                crops = self._crop(frames, orig_boxes, v)
+            with span("classify"):
+                probs, v = self._classify_budgeted(crops, s, v, group)
+                del crops
+                labels = probs.argmax(dim=-1).to(torch.int32)
+                cls_scores = probs.amax(dim=-1)
         return {
             "boxes": orig_boxes,
             "det_scores": s,
             "det_class_ids": c,
             "valid": v,
             "cls_probs": probs,
-            "cls_labels": probs.argmax(dim=-1).to(torch.int32),
-            "cls_scores": probs.amax(dim=-1),
+            "cls_labels": labels,
+            "cls_scores": cls_scores,
         }
 
     # ------------------------------------------------------------------ #
