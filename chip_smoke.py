@@ -400,6 +400,11 @@ STEM_TOL = 1e-4
 # scalar tail and an odd shape checked
 ACT_SILU_SHAPE, ACT_SIGMOID_SHAPE = (128, 32, 160, 160), (128, 96, 1, 1)
 ACT_CASES = ((2, 32, 40, 40), (1001,), (3, 20, 7, 9))
+# the act kernel's bias mode at the litepi detector's largest SiLU conv
+# output (backbone.down1, 3x3/2, 12 -> 24 channels, at the B=256 cell): the
+# conv's input (B, C_in, H, W) and output channels
+ACT_BIAS_CONV = (256, 12, 320, 320, 24)
+DETECTOR_SILU_CONVS = 56  # the litepi detector's ConvBN calls after its stem
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
 # more than 20x the card-vs-CPU noise apart under SMALL's seed-3 weights
@@ -1073,6 +1078,78 @@ def check_act(dev) -> dict:
               f"{r['library_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
               f"{differ} of {n} elements differ from the plain version ({ulps:.3g} ulp)")
         out[name] = r
+    out["silu_bias_bf16"] = check_act_bias(dev)
+    return out
+
+
+def check_act_bias(dev) -> dict:
+    """The bias mode (``silu(y, bias)``) at ACT_BIAS_CONV's conv output, in
+    NCHW and channels last: bit-equal to its plain version and to the two
+    passes it replaces (the biased conv, whose bias cuDNN leaves to ATen's
+    bf16 add, then the SiLU kernel), or the run fails.  Timed beside those
+    two passes (the add and the SiLU pass apart) and its bytes bound: the
+    conv output and the result, 2 bytes a value, and the bias read once.
+    First, every pair of bf16 values (x, bias) against the plain version
+    (NaNs equal): 2,048 channels of all 65,536 values at a time, each
+    channel's bias another value."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(
+        torch.bfloat16)
+    x = every.view(1, 1, 256, 256).expand(1, 2048, 256, 256).contiguous()
+    bad = 0
+    with torch.inference_mode():
+        for c0 in range(0, every.numel(), 2048):
+            got = act_ops.silu(x, every[c0:c0 + 2048])
+            want = act_ops.silu_bias_bf16_plain(x, every[c0:c0 + 2048])
+            bad += int(((got.view(torch.int16) != want.view(torch.int16))
+                        & ~(got.isnan() & want.isnan())).sum())
+    if bad:
+        fail(f"silu_bias_bf16: {bad} of 2^32 (x, bias) pairs differ from the plain version")
+    print("silu_bias_bf16: every (x, bias) pair of bf16 values equals the plain version")
+    del every, x, got, want
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, c_in, h, w, c = ACT_BIAS_CONV
+    x = (torch.randn((b, c_in, h, w), generator=gen, device=dev) * 2).bfloat16()
+    weight = (torch.randn((c, c_in, 3, 3), generator=gen, device=dev)
+              / (9 * c_in) ** 0.5).bfloat16()
+    bias = (torch.randn(c, generator=gen, device=dev) * 2).bfloat16()
+    out = {"every_pair_mismatches": bad}
+    for layout in ("nchw", "channels_last"):
+        xin = x if layout == "nchw" else x.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            y = F.conv2d(xin, weight, None, 2, 1)
+            got = act_ops.silu(y, bias)
+            wants = {"its plain version": act_ops.silu_bias_bf16_plain(y, bias),
+                     "the biased conv and the SiLU pass": act_ops.silu(
+                         F.conv2d(xin, weight, bias, 2, 1))}
+        torch.cuda.synchronize()
+        what = f"silu_bias_bf16 {layout} {tuple(y.shape)}"
+        for name, want in wants.items():
+            bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            if bad or got.stride() != y.stride():
+                fail(f"{what}: {bad} of {got.numel()} elements differ from {name}, "
+                     f"strides {got.stride()} vs {y.stride()}")
+        del got, wants, xin
+        n = y.numel()
+        fn = lambda: act_ops.silu(y, bias)  # noqa: E731
+        add = lambda: y + bias[:, None, None]  # noqa: E731
+        ms, windows = median_ms(fn, 20)
+        r = dict(shape=list(y.shape), layout=layout, ms=ms, windows=windows,
+                 host_ms=host_ms(fn, 20), device_ms=device_ms(fn, 20, "act_bias_vec_kernel"),
+                 plain_ms=cuda_ms(lambda: act_ops.silu_bias_bf16_plain(y, bias), 5),
+                 two_pass_ms=cuda_ms(lambda: act_ops.silu(add()), 20),
+                 add_device_ms=device_ms(add, 20, "elementwise_kernel"),
+                 silu_device_ms=device_ms(lambda: act_ops.silu(y), 20, "act_vec_kernel"),
+                 mismatches=0, elements=n, max_abs_err=0.0,
+                 # y read once and the result written once, 2 bytes each, the
+                 # bias once; the add and SiLU's five steps per value
+                 bound=bound(4 * n + 2 * c, 6 * n))
+        print(f"{what}: {ms:.4f} ms (windows {windows}), device {r['device_ms']:.4f} ms, host "
+              f"issue {r['host_ms']:.4f} ms; the two passes it replaces {r['two_pass_ms']:.4f} "
+              f"ms (device: add {r['add_device_ms']:.4f}, SiLU {r['silu_device_ms']:.4f}); "
+              f"plain {r['plain_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); "
+              "bit-equal to the plain version and to the biased conv + SiLU")
+        out[layout] = r
+        del y
     return out
 
 
@@ -1234,12 +1311,19 @@ def main_path(dev):
         # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates), the
         # act kernel's backward mode the training phase's, K1's cluster
         # greedy pass the paths above 960 candidates at a batch of 16 or
-        # fewer: serving runs none of the last three
-        if name in ("silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster"):
+        # fewer: serving runs none of the last three; its SiLUs all carry
+        # their conv's bias (the bias mode), so none runs the plain mode
+        if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
             fail(f"kernel {name} was not launched on the main path")
+    for (_, _, _, b, h, w, roi_impl), c in zip(runs, run_counts):
+        # bf16: every ConvBN after the stem, and the letterboxed frames' stem
+        want = 0 if "float32" in roi_impl else DETECTOR_SILU_CONVS + ((h, w) != (640, 640))
+        if c["silu_bias_bf16"] != want:
+            fail(f"run_fused b={b} {h}x{w} {roi_impl}: {c['silu_bias_bf16']} bias-mode "
+                 f"launches, expected {want}")
     print(f"main path launch counts: {counts}, per run {run_counts}")
 
     timings = []
@@ -1452,9 +1536,11 @@ def zoo_path(dev):
                    "roi_crop_pyramid_bf16": 0, "stem": 0}
     # the bf16 activation kernel: SiLU in every detector but the anchor-free
     # YOLOv5n (torch's F.silu, models/yolov5.py) and in EfficientNet-B0,
-    # sigmoid in EfficientNet-B0's gates only
+    # sigmoid in EfficientNet-B0's gates only; its bias mode in
+    # EfficientNet-B0's deploy-form convs (the injected detectors keep
+    # BatchNorm)
     act_runs = {"yolov11n": ("silu_bf16",), "yolov5n": (),
-                "yolov5n_legacy": ("silu_bf16", "sigmoid_bf16")}
+                "yolov5n_legacy": ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16")}
     runs = []
     for i, (variant, arch, b) in enumerate(ZOO_RUNS):
         cfg = dataclasses.replace(ZOO_SERVING, cls_crop_budget=4 * b)
@@ -1466,7 +1552,7 @@ def zoo_path(dev):
         out, counts = issue_sync_free(lambda: pipe.run_fused(frames, area_scale=area), what)
         if {k: counts[k] for k in want_counts} != want_counts:
             fail(f"{what}: launch counts {counts}, expected {want_counts}")
-        for k in ("silu_bf16", "sigmoid_bf16"):
+        for k in ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16"):
             if (counts[k] > 0) != (k in act_runs[variant]):
                 fail(f"{what}: {k} launched {counts[k]} times")
         check_outputs(out, b, cfg.crop_det_budget, s, s, cfg.num_classifier_classes, what)
@@ -3614,7 +3700,7 @@ def by_row(counts: dict, nms_row: str, dense_row: str) -> dict:
     rows = {nms_row: counts["nms_suppress"], dense_row: counts["roi_crop_dense"],
             "act_bf16_bwd": counts["silu_bf16_bwd"]}
     for name in ("roi_crop_pyramid", "roi_crop_pyramid_bf16", "stem", "silu_bf16",
-                 "sigmoid_bf16"):
+                 "silu_bias_bf16", "sigmoid_bf16"):
         rows[name] = counts[name]
     return rows
 
@@ -3668,7 +3754,7 @@ def run(dev) -> None:
 
     zoo_launches = {name: {f"{z['detector']}+{z['classifier']}": z["launches"][name] for z in zoo}
                     for name in ("nms_suppress", "roi_crop_dense", "stem", "silu_bf16",
-                                 "sigmoid_bf16")}
+                                 "silu_bias_bf16", "sigmoid_bf16")}
 
     def entry(name, source, replaces, launches, r, err, shape, **extra):
         return dict(name=name, route="cuda", source=f"litepi_tpu_torch/csrc/{source}",
@@ -3685,6 +3771,7 @@ def run(dev) -> None:
                      "roi_crop_pyramid": eval_counts["roi_crop_pyramid"],
                      "roi_crop_pyramid_bf16": eval_counts["roi_crop_pyramid_bf16"],
                      "stem": eval_counts["stem"], "silu_bf16": eval_counts["silu_bf16"],
+                     "silu_bias_bf16": eval_counts["silu_bias_bf16"],
                      "sigmoid_bf16": eval_counts["sigmoid_bf16"],
                      "act_bf16_bwd": eval_counts["silu_bf16_bwd"]}
     # the e2e CLI phase's full-width launches (both runs, zeroed before each):
@@ -3700,6 +3787,7 @@ def run(dev) -> None:
                     "roi_crop_pyramid": cli_sum("roi_crop_pyramid"),
                     "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
                     "stem": cli_sum("stem"), "silu_bf16": cli_sum("silu_bf16"),
+                    "silu_bias_bf16": cli_sum("silu_bias_bf16"),
                     "sigmoid_bf16": cli_sum("sigmoid_bf16"),
                     "act_bf16_bwd": cli_sum("silu_bf16_bwd")}
     # the convert phase's full-width e2e run over the emitted NCNN pairs
@@ -3707,7 +3795,8 @@ def run(dev) -> None:
     convert_launches = {"nms_suppress": 0, "nms_suppress_k512": conv_counts["nms_suppress"],
                         "roi_crop_dense": 0, "roi_crop_dense_b8": conv_counts["roi_crop_dense"],
                         **{k: conv_counts[k] for k in ("roi_crop_pyramid", "roi_crop_pyramid_bf16",
-                                                       "stem", "silu_bf16", "sigmoid_bf16")},
+                                                       "stem", "silu_bf16", "silu_bias_bf16",
+                                                       "sigmoid_bf16")},
                         "act_bf16_bwd": conv_counts["silu_bf16_bwd"]}
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
@@ -3773,6 +3862,16 @@ def run(dev) -> None:
               max_ulps=acts["silu_bf16"]["max_ulps"],
               mismatch_share=acts["silu_bf16"]["mismatch_share"],
               zoo_launches=zoo_launches["silu_bf16"]),
+        # the bias mode: a deploy-form conv's bias add folded into the SiLU
+        # (launches: every ConvBN of the main path's bf16 runs)
+        entry("silu_bias_bf16", "act.cu", "none: port-only (a biased flax nn.Conv's bias add "
+              "and flax nn.silu in bf16, litepi_tpu/models/layers.py:53-71)",
+              counts["silu_bias_bf16"], acts["silu_bias_bf16"]["nchw"], 0.0,
+              "x".join(map(str, acts["silu_bias_bf16"]["nchw"]["shape"])) + " NCHW",
+              library="the biased conv's ATen bias add + the SiLU pass",
+              two_pass_ms=acts["silu_bias_bf16"]["nchw"]["two_pass_ms"],
+              channels_last=acts["silu_bias_bf16"]["channels_last"],
+              zoo_launches=zoo_launches["silu_bias_bf16"]),
         # its path is the zoo's EfficientNet-B0 run (the main path has no gate)
         entry("sigmoid_bf16", "act.cu", "none: port-only (flax nn.sigmoid in bf16, "
               "litepi_tpu/models/efficientnet.py:55)",
@@ -3797,7 +3896,8 @@ def run(dev) -> None:
                       "roi_crop_dense": 0, "roi_crop_dense_b8": tl["roi_crop_dense"],
                       "roi_crop_pyramid": tl["roi_crop_pyramid"],
                       "roi_crop_pyramid_bf16": tl["roi_crop_pyramid_bf16"], "stem": tl["stem"],
-                      "silu_bf16": tl["silu_bf16"], "sigmoid_bf16": tl["sigmoid_bf16"],
+                      "silu_bf16": tl["silu_bf16"], "silu_bias_bf16": tl["silu_bias_bf16"],
+                      "sigmoid_bf16": tl["sigmoid_bf16"],
                       "act_bf16_bwd": tl["silu_bf16_bwd"]}
     for k in kernels:
         k["eval_launches"] = eval_launches[k["name"]]
@@ -3814,7 +3914,8 @@ def run(dev) -> None:
                          "roi_crop_dense": 0, "roi_crop_dense_b8": bl["roi_crop_dense"],
                          "roi_crop_pyramid": bl["roi_crop_pyramid"],
                          "roi_crop_pyramid_bf16": bl["roi_crop_pyramid_bf16"], "stem": bl["stem"],
-                         "silu_bf16": bl["silu_bf16"], "sigmoid_bf16": bl["sigmoid_bf16"],
+                         "silu_bf16": bl["silu_bf16"], "silu_bias_bf16": bl["silu_bias_bf16"],
+                         "sigmoid_bf16": bl["sigmoid_bf16"],
                          "act_bf16_bwd": bl["silu_bf16_bwd"]}
     rpn = baselines["inference"]["faster_rcnn"]
     kernels.insert(2, entry(

@@ -39,6 +39,32 @@
 // dx = bf16(bf16(g * s) + bf16(bf16(x * g) * d)), sigmoid's dx = bf16(g *
 // d).  One pass, reading x and g and writing dx: 6 bytes per value, what
 // bounds it on the card.
+//
+// Bias mode (litepi_silu_bias_bf16): y = silu(bf16(x + bias[c])) for a
+// biased conv's output x (N, C, H, W) taken without its bias, in place of
+// the conv's bias add and the SiLU pass after it.  Replaces no TPU kernel:
+// the JAX program's biased bf16 nn.Conv adds its bias as an op of its own
+// (float sum of the two bf16 values, one rounding), then flax's SiLU; on
+// the card torch's biased bf16 conv does the same (cuDNN's output, then
+// ATen's bf16 add of the broadcast bias, which TensorIterator cannot
+// vectorise).  Here v = bf16(float(x) + float(bias[c])), ATen's add with
+// alpha 1, then the five SiLU steps on v, each rounded as above: the same
+// bits as the two passes (chip_smoke.py holds it to the plain version on
+// every pair of bf16 values).  Plain version:
+// ops/act.py::silu_bias_bf16_plain.
+// Bound by bytes: 4 bytes per value plus the bias, one pass where the two
+// passes moved 8.  Layouts: NCHW-contiguous, channel (i / HW) % C, where
+// with HW % 8 == 0 a 16-byte group of 8 values lies in one channel, so the
+// vector path loads its bias once (other HW take the scalar path); and
+// channels_last-contiguous, channel i % C, one bias per lane (C may be 12).
+// What held it back on the H100, over the litepi detector's 56 SiLU conv
+// outputs at B=256 (9.5 GB, 2.83 ms at 3.35 TB/s): first the channel index,
+// two 32-bit divides per 8 values (4.21 ms), then the roundings' float ->
+// bf16 conversions (4.03 ms with the divides gone).  Indices are 32-bit
+// below 2^31 values and divided by a multiply and a shift (Divider); the
+// vector path takes its values in pairs and rounds each pair with one
+// packed conversion (cvt.rn.bf16x2.f32): 3.58-3.61 ms, 79% of the bound,
+// where the SiLU pass alone takes 3.64-3.66 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,6 +164,98 @@ __global__ void act_scalar_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// SiLU of v = bf16(x + b), the bias add rounded as ATen's bf16 add
+__device__ __forceinline__ __nv_bfloat16 silu_biased(__nv_bfloat16 xv, float b) {
+  return act<true>(__float2bfloat16_rn(__bfloat162float(xv) + b));
+}
+
+// silu_biased on two values at once: each rounding to bf16 one packed
+// conversion (cvt.rn.bf16x2.f32) for the pair
+__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
+__device__ __forceinline__ __nv_bfloat162 silu_biased2(__nv_bfloat162 xv, float b0, float b1) {
+  const float2 x = __bfloat1622float2(xv);
+  const float2 v = round_bf16x2(x.x + b0, x.y + b1);
+  const float2 e = round_bf16x2(expf(-v.x), expf(-v.y));
+  const float2 a = round_bf16x2(1.0f + e.x, 1.0f + e.y);
+  const float2 s = round_bf16x2(rcp_of_bf16(a.x), rcp_of_bf16(a.y));
+  return __floats2bfloat162_rn(v.x * s.x, v.y * s.y);
+}
+
+// n / d in the kernels' index type.  32-bit (below 2^31 values): a multiply
+// and a shift, (umulhi(n, magic) + n) >> shift with magic and shift from the
+// host (Granlund and Montgomery; ATen's IntDivider<unsigned>), exact for n <
+// 2^31, where the sum stays below 2^32.  64-bit: the divide.
+template <typename I>
+struct Divider;
+
+template <>
+struct Divider<unsigned> {
+  unsigned d, magic, shift;
+  explicit Divider(unsigned long long divisor) : d((unsigned)divisor), shift(0) {
+    while ((1ULL << shift) < divisor) ++shift;
+    magic = (unsigned)(((1ULL << 32) * ((1ULL << shift) - divisor)) / divisor + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (__umulhi(n, magic) + n) >> shift;
+  }
+};
+
+template <>
+struct Divider<unsigned long long> {
+  unsigned long long d;
+  explicit Divider(unsigned long long divisor) : d(divisor) {}
+  __device__ __forceinline__ unsigned long long div(unsigned long long n) const { return n / d; }
+};
+
+template <typename I>
+__device__ __forceinline__ I mod_by(I n, const Divider<I>& c) {
+  return n - c.div(n) * c.d;
+}
+
+// groups of 8 values; NCHW: hw8 = HW / 8 groups per channel plane
+template <bool kChannelsLast, typename I>
+__global__ void act_bias_vec_kernel(const uint4* __restrict__ x,
+                                    const __nv_bfloat16* __restrict__ bias,
+                                    uint4* __restrict__ y, I groups, Divider<I> c,
+                                    Divider<I> hw8) {
+  for (I i = blockIdx.x * (I)blockDim.x + threadIdx.x; i < groups;
+       i += (I)gridDim.x * blockDim.x) {
+    uint4 v = x[i];
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    if (kChannelsLast) {
+      I ch = mod_by(i * 8, c);
+      float b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        b[j] = __bfloat162float(bias[ch]);
+        ch = ch + 1 == c.d ? 0 : ch + 1;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[j] = silu_biased2(h[j], b[2 * j], b[2 * j + 1]);
+    } else {
+      const float b = __bfloat162float(bias[mod_by(hw8.div(i), c)]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[j] = silu_biased2(h[j], b, b);
+    }
+    y[i] = v;
+  }
+}
+
+template <bool kChannelsLast, typename I>
+__global__ void act_bias_scalar_kernel(const __nv_bfloat16* __restrict__ x,
+                                       const __nv_bfloat16* __restrict__ bias,
+                                       __nv_bfloat16* __restrict__ y, I start, I n,
+                                       Divider<I> c, Divider<I> hw) {
+  for (I i = start + blockIdx.x * (I)blockDim.x + threadIdx.x; i < n;
+       i += (I)gridDim.x * blockDim.x) {
+    const I ch = mod_by(kChannelsLast ? i : hw.div(i), c);
+    y[i] = silu_biased(x[i], __bfloat162float(bias[ch]));
+  }
+}
+
 int blocks_for(long long work) {
   const long long b = (work + kThreads - 1) / kThreads;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
@@ -182,6 +300,35 @@ cudaError_t launch_grad(const void* x, const void* g, void* dx, long long n, cud
   return cudaGetLastError();
 }
 
+template <bool kChannelsLast, typename I>
+cudaError_t launch_bias(const void* x, const void* bias, void* y, long long n, long long c,
+                        long long hw, cudaStream_t s) {
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
+  const long long groups = aligned && (kChannelsLast || hw % 8 == 0) ? n / 8 : 0;
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(bias);
+  if (groups > 0) {
+    act_bias_vec_kernel<kChannelsLast, I><<<blocks_for(groups), kThreads, 0, s>>>(
+        static_cast<const uint4*>(x), b, static_cast<uint4*>(y), (I)groups, Divider<I>(c),
+        Divider<I>(hw / 8 > 0 ? hw / 8 : 1));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const long long start = groups * 8;
+  if (start < n) {
+    act_bias_scalar_kernel<kChannelsLast, I><<<blocks_for(n - start), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), b, static_cast<__nv_bfloat16*>(y), (I)start,
+        (I)n, Divider<I>(c), Divider<I>(hw));
+  }
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t launch_bias_as(const void* x, const void* bias, void* y, long long n, long long c,
+                           long long hw, bool channels_last, cudaStream_t s) {
+  return channels_last ? launch_bias<true, I>(x, bias, y, n, c, hw, s)
+                       : launch_bias<false, I>(x, bias, y, n, c, hw, s);
+}
+
 }  // namespace
 
 extern "C" int litepi_act_bf16_backward(const void* x, const void* g, void* dx, long long n,
@@ -198,4 +345,15 @@ extern "C" int litepi_act_bf16(const void* x, void* y, long long n, int silu,
   if (n == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return silu ? launch<true>(x, y, n, s) : launch<false>(x, y, n, s);
+}
+
+extern "C" int litepi_silu_bias_bf16(const void* x, const void* bias, void* y, long long n,
+                                     long long c, long long hw, int channels_last,
+                                     void* stream) {
+  if (n < 0 || c <= 0 || hw <= 0 || n % (c * hw) != 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return n < (1LL << 31)
+             ? launch_bias_as<unsigned>(x, bias, y, n, c, hw, channels_last != 0, s)
+             : launch_bias_as<unsigned long long>(x, bias, y, n, c, hw, channels_last != 0, s);
 }

@@ -18,6 +18,7 @@ LAUNCHES: Dict[str, int] = {
     "roi_crop_pyramid_bf16": 0,
     "stem": 0,
     "silu_bf16": 0,
+    "silu_bias_bf16": 0,  # the bias mode: a biased conv's bias add folded into the SiLU
     "sigmoid_bf16": 0,
     "silu_bf16_bwd": 0,
     "sigmoid_bf16_bwd": 0,

@@ -2,9 +2,11 @@
 
 A port-only kernel: it replaces no TPU kernel, but five torch passes that
 round each step of SiLU (or the four of sigmoid) to bf16 as the JAX
-program does, and in its backward mode the passes of their gradient.  The
-plain versions are ``ops/act.py::silu_bf16_plain``, ``sigmoid_bf16_plain``,
-``silu_bf16_grad_plain`` and ``sigmoid_bf16_grad_plain``.
+program does, in its backward mode the passes of their gradient, and in
+its bias mode a biased conv's bias add with the SiLU after it.  The plain
+versions are ``ops/act.py::silu_bf16_plain``, ``sigmoid_bf16_plain``,
+``silu_bf16_grad_plain``, ``sigmoid_bf16_grad_plain`` and
+``silu_bias_bf16_plain``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ def _lib() -> ctypes.CDLL:
         bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         bwd.restype = ctypes.c_int
+        biased = lib.litepi_silu_bias_bf16
+        biased.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        biased.restype = ctypes.c_int
     return lib
 
 
@@ -57,6 +63,34 @@ def act_bf16_cuda(x: torch.Tensor, silu: bool) -> torch.Tensor:
         status = lib.litepi_act_bf16(x.data_ptr(), y.data_ptr(), x.numel(), int(silu), stream)
     check(status, "act_bf16 launch")
     LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] += 1
+    return y
+
+
+def act_bias_bf16_cuda(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``silu(x + bias)`` of a bf16 CUDA tensor ``x`` (N, C, H, W) and a
+    bf16 ``bias`` (C,) on its device, the bias added over the channel axis:
+    the add rounded to bf16 as ATen's, then each SiLU step rounded to bf16.
+    The result has ``x``'s shape and layout (an ``x`` that is neither
+    contiguous nor channels-last contiguous is made contiguous first)."""
+    if not x.is_cuda or x.dtype != torch.bfloat16 or x.dim() != 4:
+        raise ValueError(f"x must be a 4-D bf16 CUDA tensor, got {x.dim()}-D {x.dtype} "
+                         f"on {x.device}")
+    if (bias.device != x.device or bias.dtype != torch.bfloat16
+            or tuple(bias.shape) != (x.shape[1],) or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous bf16 ({x.shape[1]},) tensor on {x.device}, "
+                         f"got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    x = _dense(x)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.litepi_silu_bias_bf16(
+            x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), x.shape[1],
+            x.shape[2] * x.shape[3], int(not x.is_contiguous()), stream)
+    check(status, "silu_bias_bf16 launch")
+    LAUNCHES["silu_bias_bf16"] += 1
     return y
 
 

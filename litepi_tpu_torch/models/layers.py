@@ -152,7 +152,10 @@ class ConvBN(nn.Module):
     classifiers: ``CLASSIFIER_BN``); BatchNorm trains as flax's
     (:func:`batch_norm_train`).
     ``padding`` -1 pads by ``kernel // 2``; 0 or more pads by that much
-    (YOLOv5's 6x6/2 stem pads by 2)."""
+    (YOLOv5's 6x6/2 stem pads by 2).
+    Where :meth:`folds_bias` holds, the conv runs without its bias and the
+    act kernel adds it inside the SiLU pass (``ops/act.py``), with the same
+    bits as the conv's own bias add."""
 
     def __init__(
         self,
@@ -177,8 +180,29 @@ class ConvBN(nn.Module):
         self.bn = None if fused else nn.BatchNorm2d(c_out, eps=bn_eps, momentum=bn_momentum)
         self.act = _ACTS[act]
 
+    def folds_bias(self, x: torch.Tensor) -> bool:
+        """Whether :meth:`forward` hands the conv's bias to the SiLU kernel,
+        from what it can see: a biased conv without BatchNorm (the deploy
+        form), the port's SiLU, a bf16 CUDA ``x``, no autograd graph being
+        recorded.  The card rounds such a conv's output, then its bias add,
+        as the kernel does; but ATen's depthwise kernel adds the bias inside
+        its sum, so a grouped conv takes part only with ``bias_apart``."""
+        conv = self.conv
+        if self.bn is not None or conv.bias is None or self.act is not silu:
+            return False
+        if not (self.bias_apart or conv.groups == 1):
+            return False
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or conv.weight.requires_grad or conv.bias.requires_grad)
+        return x.dtype == torch.bfloat16 and x.is_cuda and not recording
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_bias_apart(self.conv, x) if self.bias_apart else self.conv(x)
+        conv = self.conv
+        if self.folds_bias(x):
+            y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation,
+                         conv.groups)
+            return silu(y, conv.bias)
+        x = conv_bias_apart(conv, x) if self.bias_apart else conv(x)
         if self.bn is not None:
             x = batch_norm_train(self.bn, x) if self.training else self.bn(x)
         return self.act(x)

@@ -16,9 +16,18 @@ derivative of ``logistic``), SiLU's ``g * s + (x * g) * d`` and sigmoid's
 act kernel's backward mode on a CUDA tensor, the plain passes on a CPU
 tensor.  Without autograd (no grad needed) the forward runs alone, as
 before.
+
+``silu(x, bias)`` is SiLU of a biased conv's output taken without its
+bias: the bias add rounded to bf16 as ATen's (and flax's), then the five
+steps.  In bf16 without autograd it is the act kernel's bias mode on a
+CUDA tensor, one pass in place of the add's and the SiLU's, and
+:func:`silu_bias_bf16_plain` on a CPU tensor; otherwise the add, then
+:func:`silu`.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +41,13 @@ def sigmoid_bf16_plain(x: torch.Tensor) -> torch.Tensor:
 def silu_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     """bf16 SiLU in five torch ops, each rounded: x * (1 / (1 + exp(-x)))."""
     return x * sigmoid_bf16_plain(x)
+
+
+def silu_bias_bf16_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """bf16 SiLU of ``x`` (N, C, H, W) plus ``bias`` (C,) over its channel
+    axis: the float sum rounded once to bf16 (ATen's bf16 add), then
+    :func:`silu_bf16_plain`."""
+    return silu_bf16_plain((x.float() + bias.float()[:, None, None]).bfloat16())
 
 
 def sigmoid_bf16_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -87,9 +103,22 @@ def _act(x: torch.Tensor, silu: bool) -> torch.Tensor:
     return silu_bf16_plain(x) if silu else sigmoid_bf16_plain(x)
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """SiLU; in bf16 each of its five steps rounded, as the JAX program."""
-    return _act(x, True)
+def silu(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SiLU of ``x``, or of ``x`` plus ``bias`` (C,) over the channel axis of
+    an (N, C, H, W) ``x``; in bf16 each of its five steps rounded, as the
+    JAX program, and the bias add rounded before them."""
+    if bias is None:
+        return _act(x, True)
+    if x.dtype != torch.bfloat16 or (
+            torch.is_grad_enabled() and (x.requires_grad or bias.requires_grad)):
+        return _act(x + bias[:, None, None], True)
+    if x.is_cuda:
+        from litepi_tpu_torch.kernels.act import act_bias_bf16_cuda
+
+        return act_bias_bf16_cuda(x, bias)
+    if x.device.type != "cpu":
+        raise ValueError(f"no bf16 activation for device {x.device}")
+    return silu_bias_bf16_plain(x, bias)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,11 @@ import torch
 
 from litepi_tpu_torch.core.types import NMSConfig
 from litepi_tpu_torch.kernels import LAUNCHES, launch_counts, reset_launch_counts
-from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda, act_bf16_cuda
+from litepi_tpu_torch.kernels.act import (
+    act_bf16_backward_cuda,
+    act_bf16_cuda,
+    act_bias_bf16_cuda,
+)
 from litepi_tpu_torch.kernels.nms import cluster_shape, greedy_route, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import MAX_OUT, roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import MAX_CHANNELS, pack_stem_params, stem_cuda
@@ -495,9 +499,10 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
         assert out["boxes"].is_cuda and out["cls_probs"].shape == (2, 8, 10)
     counts = launch_counts()
     # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only
-    assert counts == {"nms_suppress": 2, "roi_crop_dense": 1, "roi_crop_pyramid": 1,
-                      "roi_crop_pyramid_bf16": 0, "stem": 0, "silu_bf16": 0,
-                      "sigmoid_bf16": 0, "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
+    assert counts == {"nms_suppress": 2, "nms_greedy_cluster": 0, "roi_crop_dense": 1,
+                      "roi_crop_pyramid": 1, "roi_crop_pyramid_bf16": 0, "stem": 0,
+                      "silu_bf16": 0, "silu_bias_bf16": 0, "sigmoid_bf16": 0,
+                      "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
 
 
 def _small_cfg(**kw):
@@ -527,11 +532,14 @@ def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
     torch.cuda.synchronize()
     assert out["valid"].shape == (3, 8)
     counts = launch_counts()
-    # the bf16 detector's SiLUs go through the activation kernel
-    assert counts.pop("silu_bf16") > 0
-    assert counts == {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0,
-                      "roi_crop_pyramid_bf16": 0, "stem": 1, "sigmoid_bf16": 0,
-                      "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
+    # the bf16 detector's SiLUs go through the activation kernel, each
+    # with its conv's bias folded in; the plain mode runs at most once, for
+    # the stem kernel's SiLU table (made at a device's first stem call)
+    assert counts.pop("silu_bias_bf16") > 0
+    assert counts.pop("silu_bf16") <= 1
+    assert counts == {"nms_suppress": 1, "nms_greedy_cluster": 0, "roi_crop_dense": 1,
+                      "roi_crop_pyramid": 0, "roi_crop_pyramid_bf16": 0, "stem": 1,
+                      "sigmoid_bf16": 0, "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -712,6 +720,70 @@ def test_act_kernel_bit_equal_to_plain(cuda, silu, case):
     assert torch.equal((act.silu if silu else act.sigmoid)(x.float()),
                        torch.nn.functional.silu(x.float()) if silu else torch.sigmoid(x.float()))
     assert LAUNCHES["silu_bf16" if silu else "sigmoid_bf16"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["nchw", "nchw_hw_odd", "channels_last", "channels_last_tail",
+                                  "unaligned", "strided"])
+def test_act_bias_kernel_bit_equal_to_plain(cuda, case):
+    """The bias mode equals ``silu_bias_bf16_plain`` on every element: NCHW
+    with H * W a multiple of 8 (the vector path) and not (scalar), channels
+    last at C = 12 (vector, a bias per lane) and with a scalar tail, an
+    unaligned tensor and a strided one; one launch, ``x``'s layout kept."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    shape = {"nchw_hw_odd": (3, 24, 7, 9), "channels_last": (2, 12, 20, 20),
+             "channels_last_tail": (1, 12, 3, 5)}.get(case, (4, 24, 40, 40))
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    x = (torch.randn(n + 1, generator=gen, device=cuda) * 4).bfloat16()
+    x = x[1:].view(shape) if case == "unaligned" else x[:n].view(shape)
+    if case.startswith("channels_last"):
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif case == "strided":
+        x = x[:, ::2]
+    bias = (torch.randn(x.shape[1], generator=gen, device=cuda) * 2).bfloat16()
+    before = LAUNCHES["silu_bias_bf16"]
+    got = act.silu(x, bias)
+    assert LAUNCHES["silu_bias_bf16"] == before + 1
+    want = act.silu_bias_bf16_plain(x, bias)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    if case.startswith("channels_last"):
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_act_bias_wrapper_rejects_a_bias_it_does_not_take(cuda):
+    x = torch.zeros((2, 12, 8, 8), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(12, dtype=torch.bfloat16, device=cuda)
+    for bad in (bias[:6], torch.zeros(24, dtype=torch.bfloat16, device=cuda)[::2],
+                bias.float(), bias.cpu(), bias[None]):
+        with pytest.raises(ValueError, match="bias must be"):
+            act_bias_bf16_cuda(x, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_apart", [False, True])
+def test_convbn_folds_its_bias_into_the_silu_bit_equal(cuda, bias_apart):
+    """A deploy-form bf16 ``ConvBN`` with SiLU on the card without autograd
+    runs one bias-mode launch and no other act launch, and gives the bits
+    of the biased conv followed by the SiLU kernel (cuDNN's output, then
+    ATen's bias add), in NCHW and channels last."""
+    from litepi_tpu_torch.models.layers import ConvBN, conv_bias_apart
+
+    torch.manual_seed(10)
+    m = ConvBN(12, 24, 3, fused=True, bias_apart=bias_apart).eval().to(cuda, torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((4, 12, 40, 40), generator=gen, device=cuda).bfloat16()
+    for xin in (x, x.contiguous(memory_format=torch.channels_last)):
+        with torch.inference_mode():
+            want = act.silu(conv_bias_apart(m.conv, xin) if bias_apart else m.conv(xin))
+            reset_launch_counts()
+            got = m(xin)
+        counts = launch_counts()
+        torch.cuda.synchronize()
+        assert counts["silu_bias_bf16"] == 1 and counts["silu_bf16"] == 0
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_act_backward_wrapper_rejects_what_the_kernel_does_not_take():
