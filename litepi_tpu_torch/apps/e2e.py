@@ -20,6 +20,9 @@ card it raises) or on the CPU with ``--device cpu``:
 * no ``--detector`` (or ``random``) — seeded random weights
   (``weights/seeded.py``), with a warning.
 
+``--detector_variant yolo12l`` (YOLO12-L) takes a port checkpoint or
+seeded random weights; no importer reads its artifacts.
+
 The classifier loads from a torchvision ``.pth``, an NCNN ``.param`` (+
 sibling ``.bin``), an ONNX export, an OpenVINO ``.xml`` (+ sibling
 ``.bin``) or a port checkpoint; without ``--classifier`` it takes seeded
@@ -80,7 +83,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--detector_variant",
         default=None,  # resolved from --dataset preset when omitted
         choices=["yolo_plus_v2", "yolo_plus_v1", "yolov8n", "yolov11n",
-                 "yolov5n", "yolov5n_legacy"],
+                 "yolov5n", "yolov5n_legacy", "yolo12l"],
     )
     # dataset preset: class count, shipped detector, classifier crop stats
     p.add_argument("--dataset", default="tt100k", choices=["tt100k", "vntsr"])
@@ -229,6 +232,9 @@ def _load_detector(args, cfg, probe):
     from litepi_tpu_torch.weights.checkpoint import load_checkpoint
 
     det = args.detector or ""
+    if args.detector_variant == "yolo12l" and (
+            args.detector_param or det.endswith((".onnx", ".pt", ".pth", ".xml"))):
+        return "--detector_variant yolo12l takes a port checkpoint or random weights"
     zoo = args.detector_variant in ("yolov5n", "yolov5n_legacy", "yolov11n")
     if det.endswith((".onnx", ".pt", ".pth")) and zoo:
         return ("direct v5n/v11n artifact loading covers NCNN .param pairs and "
@@ -389,6 +395,7 @@ def build_pipeline(args: argparse.Namespace):
         stats[key] = preset[key] if vals is None else tuple(vals * (3 // len(vals)))
 
     from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
+    from litepi_tpu_torch.models.registry import DETECTOR_VARIANTS
     from litepi_tpu_torch.pipeline import TwoStagePipeline
     from litepi_tpu_torch.weights.jax_bridge import jax_to_state_dict
     from litepi_tpu_torch.weights.seeded import seeded_state
@@ -424,7 +431,7 @@ def build_pipeline(args: argparse.Namespace):
 
     # ---- weights ----------------------------------------------------- #
     zoo = (detector_kwargs(args.detector_variant, cfg, device)
-           if args.detector_variant in ("yolov11n", "yolov5n", "yolov5n_legacy") else {})
+           if args.detector_variant in DETECTOR_VARIANTS else {})
     det_vars = _load_detector(args, cfg, probe)
     if isinstance(det_vars, str):
         return det_vars

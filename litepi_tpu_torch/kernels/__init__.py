@@ -4,6 +4,8 @@ Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
 went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
 ``kernels/stem.py`` and ``kernels/act.py``; the sources in ``csrc/``.
+``area_attn`` counts the calls of a library kernel's caller instead
+(``models/yolo12.py::area_attention``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ LAUNCHES: Dict[str, int] = {
     "sigmoid_bf16": 0,
     "silu_bf16_bwd": 0,
     "sigmoid_bf16_bwd": 0,
+    # YOLO12's area-attention cores (models/yolo12.py): SDPA's flash kernel
+    # on the card in bf16, the plain version elsewhere; 16 per YOLO12-L call
+    "area_attn": 0,
 }
 
 

@@ -4,6 +4,7 @@ from litepi_tpu_torch.models.registry import build_classifier, detector_kwargs
 from litepi_tpu_torch.models.resnet import ResNet18
 from litepi_tpu_torch.models.shufflenetv2 import ShuffleNetV2
 from litepi_tpu_torch.models.yolo import YoloLitePi
+from litepi_tpu_torch.models.yolo12 import Yolo12L
 from litepi_tpu_torch.models.yolov5 import V5CandidateDecoder, YoloV5
 from litepi_tpu_torch.models.yolov11 import YoloV11
 
@@ -13,6 +14,7 @@ __all__ = [
     "ResNet18",
     "ShuffleNetV2",
     "V5CandidateDecoder",
+    "Yolo12L",
     "YoloLitePi",
     "YoloV5",
     "YoloV11",

@@ -13,6 +13,7 @@ from litepi_tpu_torch.models.efficientnet import EfficientNetB0
 from litepi_tpu_torch.models.mobilenetv2 import MobileNetV2
 from litepi_tpu_torch.models.resnet import ResNet18
 from litepi_tpu_torch.models.shufflenetv2 import ShuffleNetV2
+from litepi_tpu_torch.models.yolo12 import Yolo12L
 from litepi_tpu_torch.models.yolov5 import V5CandidateDecoder, YoloV5
 from litepi_tpu_torch.models.yolov11 import YoloV11
 
@@ -33,20 +34,22 @@ def build_classifier(arch: str, num_classes: int, fused: bool = False) -> nn.Mod
     return CLASSIFIER_REGISTRY[arch](num_classes=num_classes, fused=fused)
 
 
-DETECTOR_VARIANTS = ("yolov11n", "yolov5n", "yolov5n_legacy")
+DETECTOR_VARIANTS = ("yolov11n", "yolov5n", "yolov5n_legacy", "yolo12l")
 
 
 def detector_kwargs(variant: str, cfg: PipelineConfig, device="cuda") -> Dict[str, Any]:
     """The ``TwoStagePipeline`` keyword arguments that inject a zoo detector
     for the pipeline configuration ``cfg``, as the JAX package's e2e app
-    wires them: ``det_model`` (YOLOv11n, or YOLOv5n anchor-free (the
-    u-variant) or anchor-based) with ``cfg.detector.num_classes`` classes,
+    wires them: ``det_model`` (YOLOv11n, YOLO12-L, or YOLOv5n anchor-free
+    (the u-variant) or anchor-based) with ``cfg.detector.num_classes`` classes,
     and for the anchor-based head its ``candidate_decoder`` (anchor table
     for ``cfg.det_input_size``, made on ``device``) and
     ``candidate_capacity`` (3 x the anchor-free grid)."""
     num_classes = cfg.detector.num_classes
     if variant == "yolov11n":
         return {"det_model": YoloV11(num_classes=num_classes)}
+    if variant == "yolo12l":
+        return {"det_model": Yolo12L(num_classes=num_classes)}
     if variant == "yolov5n":
         return {"det_model": YoloV5(num_classes=num_classes, anchor_free=True)}
     if variant == "yolov5n_legacy":

@@ -12,7 +12,7 @@ runs it unfolded, as the JAX package runs an injected detector.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -185,17 +185,7 @@ class YoloV11(nn.Module):
         self.bu_down4 = ConvBN(c[3], c[3], 3, 2)
         self.bu_p5 = C3k2(c[3] + c[4], c[4], n, True)
 
-        c_reg = max(16, c[2] // 4, 4 * reg_max)
-        c_cls = max(c[2], min(num_classes, 100))
-        for i, f in enumerate((c[2], c[3], c[4])):
-            setattr(self, f"reg{i}_cv1", ConvBN(f, c_reg, 3))
-            setattr(self, f"reg{i}_cv2", ConvBN(c_reg, c_reg, 3))
-            setattr(self, f"reg{i}_out", nn.Conv2d(c_reg, 4 * reg_max, 1))
-            setattr(self, f"cls{i}_dw1", ConvBN(f, f, 3, groups=f))
-            setattr(self, f"cls{i}_pw1", ConvBN(f, c_cls, 1))
-            setattr(self, f"cls{i}_dw2", ConvBN(c_cls, c_cls, 3, groups=c_cls))
-            setattr(self, f"cls{i}_pw2", ConvBN(c_cls, c_cls, 1))
-            setattr(self, f"cls{i}_out", nn.Conv2d(c_cls, num_classes, 1))
+        add_detect_head(self, (c[2], c[3], c[4]), num_classes, reg_max)
 
     def _features(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.c3k2_1(self.down1(self.stem(x)))
@@ -210,15 +200,42 @@ class YoloV11(nn.Module):
         return n3, n4, n5
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        reg_out, cls_out = [], []
-        for i, f in enumerate(self._features(x)):
-            r = getattr(self, f"reg{i}_cv2")(getattr(self, f"reg{i}_cv1")(f))
-            reg_out.append(flatten_anchors(getattr(self, f"reg{i}_out")(r)))
-            k = f
-            for name in ("dw1", "pw1", "dw2", "pw2", "out"):
-                k = getattr(self, f"cls{i}_{name}")(k)
-            cls_out.append(flatten_anchors(k))
-        return {
-            "reg": torch.cat(reg_out, dim=1).float(),
-            "cls": torch.cat(cls_out, dim=1).float(),
-        }
+        return detect_head(self, self._features(x))
+
+
+def add_detect_head(
+    model: nn.Module, channels: Sequence[int], num_classes: int, reg_max: int
+) -> None:
+    """Ultralytics' Detect head (v11 and v12) as submodules of ``model``,
+    one set per level of ``channels`` (P3..P5): a DFL box branch
+    ``reg{i}_cv1``, ``reg{i}_cv2``, ``reg{i}_out`` and a depthwise-separable
+    class branch ``cls{i}_dw1``, ``_pw1``, ``_dw2``, ``_pw2``, ``_out``; both
+    branches' widths follow from P3's channels."""
+    c_reg = max(16, channels[0] // 4, 4 * reg_max)
+    c_cls = max(channels[0], min(num_classes, 100))
+    for i, f in enumerate(channels):
+        setattr(model, f"reg{i}_cv1", ConvBN(f, c_reg, 3))
+        setattr(model, f"reg{i}_cv2", ConvBN(c_reg, c_reg, 3))
+        setattr(model, f"reg{i}_out", nn.Conv2d(c_reg, 4 * reg_max, 1))
+        setattr(model, f"cls{i}_dw1", ConvBN(f, f, 3, groups=f))
+        setattr(model, f"cls{i}_pw1", ConvBN(f, c_cls, 1))
+        setattr(model, f"cls{i}_dw2", ConvBN(c_cls, c_cls, 3, groups=c_cls))
+        setattr(model, f"cls{i}_pw2", ConvBN(c_cls, c_cls, 1))
+        setattr(model, f"cls{i}_out", nn.Conv2d(c_cls, num_classes, 1))
+
+
+def detect_head(model: nn.Module, feats: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The head :func:`add_detect_head` put on ``model``, on its P3..P5
+    features: ``reg`` (B, A, 4*reg_max) and ``cls`` (B, A, nc) in float32."""
+    reg_out, cls_out = [], []
+    for i, f in enumerate(feats):
+        r = getattr(model, f"reg{i}_cv2")(getattr(model, f"reg{i}_cv1")(f))
+        reg_out.append(flatten_anchors(getattr(model, f"reg{i}_out")(r)))
+        k = f
+        for name in ("dw1", "pw1", "dw2", "pw2", "out"):
+            k = getattr(model, f"cls{i}_{name}")(k)
+        cls_out.append(flatten_anchors(k))
+    return {
+        "reg": torch.cat(reg_out, dim=1).float(),
+        "cls": torch.cat(cls_out, dim=1).float(),
+    }

@@ -115,3 +115,39 @@ def test_bfloat16_placed_as_jax(v11):
         assert got[k].dtype == torch.float32
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k], np.float32),
                                    atol=BF16_HEAD_ATOL, rtol=0)
+
+
+# YoloV11's state-dict keys and shapes (sha256 of "key:shape" lines in
+# order) and its float64 head on a seeded input, recorded before the Detect
+# head was factored out for YOLO12 (models/yolov11.py::add_detect_head)
+V11_KEYS = (498, "f21d68dad4878d97d0301c87ff95d79d746477598b042018f7b9d6e0cd1aab8e")
+V11_HEAD = {"reg": (-76.27299499511719, 775.8237915039062,
+                    (-0.15521438419818878, 0.04203389212489128, -0.09804673492908478,
+                     -0.02014162763953209)),
+            "cls": (16.54243278503418, 16.54243278503418, (0.10527442395687103,))}
+
+
+def test_yolov11_keys_and_output_unchanged_by_the_shared_head():
+    import hashlib
+
+    torch.manual_seed(0)
+    model = YoloV11(num_classes=1)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) + 0.5)
+    state = model.state_dict()
+    lines = "\n".join(f"{k}:{tuple(v.shape)}" for k, v in state.items())
+    assert (len(state), hashlib.sha256(lines.encode()).hexdigest()) == V11_KEYS
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    with torch.no_grad():
+        out = model.double().eval()(x)
+    for k, (total, abs_total, picks) in V11_HEAD.items():
+        v = out[k].double()
+        assert float(v.sum()) == pytest.approx(total, rel=1e-6)
+        assert float(v.abs().sum()) == pytest.approx(abs_total, rel=1e-6)
+        np.testing.assert_allclose(v.reshape(-1)[::997][:len(picks)].numpy(), picks, rtol=1e-6)
