@@ -1311,9 +1311,11 @@ def main_path(dev):
         # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates), the
         # act kernel's backward mode the training phase's, K1's cluster
         # greedy pass the paths above 960 candidates at a batch of 16 or
-        # fewer: serving runs none of the last three; its SiLUs all carry
-        # their conv's bias (the bias mode), so none runs the plain mode
-        if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster"):
+        # fewer, area attention YOLO12's: serving runs none of the last
+        # four; its SiLUs all carry their conv's bias (the bias mode), so
+        # none runs the plain mode
+        if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
+                    "area_attn"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
@@ -1324,6 +1326,10 @@ def main_path(dev):
         if c["silu_bias_bf16"] != want:
             fail(f"run_fused b={b} {h}x{w} {roi_impl}: {c['silu_bias_bf16']} bias-mode "
                  f"launches, expected {want}")
+        # on the card the body runs channels last on both stem branches
+        if c["det_channels_last"] != 1:
+            fail(f"run_fused b={b} {h}x{w} {roi_impl}: {c['det_channels_last']} "
+                 f"channels-last bodies, expected 1")
     print(f"main path launch counts: {counts}, per run {run_counts}")
 
     timings = []

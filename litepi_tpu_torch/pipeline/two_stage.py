@@ -40,6 +40,7 @@ from torch import nn
 from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.metrics import span
 from litepi_tpu_torch.core.types import PipelineConfig
+from litepi_tpu_torch.kernels import LAUNCHES
 from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.models import YoloLitePi, build_classifier
 from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS
@@ -185,6 +186,17 @@ class TwoStagePipeline:
         with torch.no_grad():
             raw_stem.conv.weight.copy_(fold_stem_input(stem_w, 1.0 / 255.0, flip))
         self._raw_stem = raw_stem
+        # cuDNN's bf16 convs on the card are NHWC: on an NCHW body it
+        # transposes every conv's input in and its output back out.  So on
+        # the card the body runs channels last from the stem's output to
+        # the head, its weights placed here once (no call copies a weight);
+        # the CPU keeps NCHW.  The stem conv on letterboxed canvases stays
+        # NCHW, as the narrow C2f blocks do (models/yolo.py::runs_nchw):
+        # with 3 input channels it ran slower channels last (5.10 ms
+        # against 4.77 ms with its output converted, B=256 on an H100)
+        self._channels_last = self.device.type == "cuda"
+        if self._channels_last:
+            self.det_model.to_channels_last()
 
     def _place(self, model: nn.Module, state: StateDict, float32=()) -> nn.Module:
         """``model`` on the device in the pipeline's dtype with ``state``
@@ -279,9 +291,9 @@ class TwoStagePipeline:
         return letterbox_nchw(frames, self.cfg.det_input_size, self.dtype)
 
     def _stem(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 frames -> (B, c0, S/2, S/2) NCHW stem
-        activations in the pipeline's dtype, the input scale and colour
-        flip folded into the weights.
+        """(B, H, W, 3) uint8 frames -> (B, c0, S/2, S/2) stem activations
+        in the pipeline's dtype, the input scale and colour flip folded into
+        the weights; dense channels last on the card, NCHW on the CPU.
 
         The frame shape alone picks the branch: canvas-sized frames go
         through :func:`~litepi_tpu_torch.ops.stem.fused_stem` (the stem
@@ -298,14 +310,24 @@ class TwoStagePipeline:
             act = fused_stem(
                 frames, self._stem_kernel, self._stem_bias, self.dtype, self._stem_params
             )
-            return act.permute(0, 3, 1, 2)
-        return self._raw_stem(self._letterbox(frames))
+            # the stem kernel writes NCHW: one pass to the body's layout
+            return self._body_layout(act.permute(0, 3, 1, 2))
+        return self._body_layout(self._raw_stem(self._letterbox(frames)))
+
+    def _body_layout(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the default detector's layout: dense channels last on
+        the card, unchanged on the CPU."""
+        if self._channels_last:
+            return x.contiguous(memory_format=torch.channels_last)
+        return x
 
     def _detect(self, stem_act: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Stem activations -> head output ``{reg, cls}``: the detector
         after its stem.  An injected detector runs whole on the [0, 1]
         canvases, flipped to RGB first where the host sends BGR."""
         if not self._injected:
+            if stem_act.is_contiguous(memory_format=torch.channels_last):
+                LAUNCHES["det_channels_last"] += 1
             return self.det_model(stem_act, from_stem=True)
         if self.cfg.input_color == "bgr":
             stem_act = stem_act.flip(1)
