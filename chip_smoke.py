@@ -314,6 +314,7 @@ from litepi_tpu_torch.kernels.nms import cluster_shape, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
+from litepi_tpu_torch.models.layers import runs_nchw
 from litepi_tpu_torch.ops import act as act_ops
 from litepi_tpu_torch.ops.anchors import make_anchors
 from litepi_tpu_torch.ops.letterbox import letterbox_params
@@ -332,6 +333,12 @@ from litepi_tpu_torch.pipeline import PipelineEvaluator, StreamingRunner, TwoSta
 from litepi_tpu_torch.pipeline.streaming import area_scale_of, unmap_boxes
 from litepi_tpu_torch.tools.nms_ab import nms_inputs
 from litepi_tpu_torch.tools.roi_ab import roi_inputs, touched_bytes
+from litepi_tpu_torch.tools.timing import (
+    cuda_ms,
+    cuda_ms_windows,
+    kernel_device_ms,
+    kernel_device_times,
+)
 from litepi_tpu_torch.train import (
     classifier_train_step,
     create_classifier_train_state,
@@ -339,12 +346,6 @@ from litepi_tpu_torch.train import (
     detector_train_step,
 )
 from litepi_tpu_torch.train.losses import detection_loss
-from litepi_tpu_torch.tools.stage_split import (
-    cuda_ms,
-    cuda_ms_windows,
-    kernel_device_ms,
-    kernel_device_times,
-)
 from litepi_tpu_torch.weights import ncnn_import, onnx_import, openvino_import
 from litepi_tpu_torch.weights.export import export_classifier, export_detector, load_program
 from litepi_tpu_torch.weights.graph_ops import float32_exact
@@ -1326,10 +1327,17 @@ def main_path(dev):
         if c["silu_bias_bf16"] != want:
             fail(f"run_fused b={b} {h}x{w} {roi_impl}: {c['silu_bias_bf16']} bias-mode "
                  f"launches, expected {want}")
-        # on the card the body runs channels last on both stem branches
-        if c["det_channels_last"] != 1:
-            fail(f"run_fused b={b} {h}x{w} {roi_impl}: {c['det_channels_last']} "
-                 f"channels-last bodies, expected 1")
+    for pipe, _, _, b, h, w, roi_impl in runs:
+        # on the card the detector's conv weights are placed channels last
+        # once, but those of the blocks that run NCHW; the letterboxed
+        # canvases' stem conv, a copy apart from the detector, stays NCHW
+        nchw = {m for blk in pipe.det_model.modules() if runs_nchw(blk) for m in blk.modules()}
+        for name, m in pipe.det_model.named_modules():
+            fmt = torch.contiguous_format if m in nchw else torch.channels_last
+            if isinstance(m, torch.nn.Conv2d) and not m.weight.is_contiguous(memory_format=fmt):
+                fail(f"run_fused b={b} {h}x{w} {roi_impl}: {name}'s weight is not {fmt}")
+        if not pipe._raw_stem.conv.weight.is_contiguous():
+            fail(f"run_fused b={b} {h}x{w} {roi_impl}: the letterboxed stem's weight is not NCHW")
     print(f"main path launch counts: {counts}, per run {run_counts}")
 
     timings = []

@@ -5,9 +5,7 @@ its kernel, and nowhere else, so a run can show which kernels its path
 went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
 ``kernels/stem.py`` and ``kernels/act.py``; the sources in ``csrc/``.
 ``area_attn`` counts the calls of a library kernel's caller instead
-(``models/yolo12.py::area_attention``), and ``det_channels_last`` no
-kernel: the default detector's bodies that ran on a dense channels-last
-input (``pipeline/two_stage.py::TwoStagePipeline._detect``).
+(``models/yolo12.py::area_attention``).
 """
 
 from __future__ import annotations
@@ -29,10 +27,6 @@ LAUNCHES: Dict[str, int] = {
     # YOLO12's area-attention cores (models/yolo12.py): SDPA's flash kernel
     # on the card in bf16, the plain version elsewhere; 16 per YOLO12-L call
     "area_attn": 0,
-    # the default detector's body on a dense channels-last stem activation:
-    # one per litepi run_fused on the card, 0 on the CPU and for injected
-    # detectors
-    "det_channels_last": 0,
 }
 
 

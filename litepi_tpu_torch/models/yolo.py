@@ -1,11 +1,11 @@
 """The YOLO-LitePi detector (backbone + PAN neck + decoupled DFL head).
 
 Modules take (B, C, H, W) tensors in either dense layout and keep it:
-``TwoStagePipeline`` runs the deploy form channels last on the card, where
-cuDNN's convs are NHWC, and NCHW on the CPU.  The head returns the JAX
-package's layout: ``reg`` (B, A, 4*reg_max) and ``cls`` (B, A, nc) raw
-logits, anchors flattened row-major (y, x) per level and P3..P5
-concatenated (A = 8,400 at 640).  Module names follow the Flax names
+``TwoStagePipeline`` runs the detector channels last on the card, where
+cuDNN's convs are NHWC (``layers.py::to_channels_last``), and NCHW on the
+CPU.  The head returns the JAX package's layout: ``reg`` (B, A,
+4*reg_max) and ``cls`` (B, A, nc) raw logits, anchors flattened row-major
+(y, x) per level and P3..P5 concatenated (A = 8,400 at 640).  Module names follow the Flax names
 (``backbone.stem``, ``neck.td_p4``, ``head.reg0_out``, ...).
 """
 
@@ -17,22 +17,7 @@ import torch
 from torch import nn
 
 from litepi_tpu_torch.core.types import DetectorConfig
-from litepi_tpu_torch.models.layers import C2f, ConvBN, SPPF, upsample2x_nearest
-
-
-def runs_nchw(block: nn.Module) -> bool:
-    """Whether ``block`` runs NCHW in a channels-last detector
-    (:meth:`YoloLitePi.to_channels_last`): a C2f whose half width is not a
-    multiple of 8.  cuDNN has no fast NHWC kernel for a conv that narrow;
-    on NCHW it pads such a conv in its own layout passes.  On an H100 at
-    B=256 the litepi detector's two 12-wide 3x3 convs took 5.0 ms channels
-    last and 3.1 ms NCHW, and the whole block NCHW (one layout change at
-    each end) beat its bottlenecks alone NCHW by 0.7 ms a batch."""
-    return isinstance(block, C2f) and block.hidden % 8 != 0
-
-
-def _nchw_input(block: nn.Module, args):
-    return (args[0].contiguous(),) + args[1:]
+from litepi_tpu_torch.models.layers import C2f, ConvBN, SPPF, flatten_anchors, upsample2x_nearest
 
 
 class Backbone(nn.Module):
@@ -112,12 +97,8 @@ class DetectHead(nn.Module):
             r = getattr(self, f"reg{i}_out")(r)
             k = getattr(self, f"cls{i}_cv2")(getattr(self, f"cls{i}_cv1")(f))
             k = getattr(self, f"cls{i}_out")(k)
-            b = f.shape[0]
-            # NHWC row-major (y, x) flatten per level, as the JAX head does
-            # (a view of channels-last memory); an NCHW reshape would
-            # silently reorder the anchors
-            reg_out.append(r.permute(0, 2, 3, 1).reshape(b, -1, r.shape[1]))
-            cls_out.append(k.permute(0, 2, 3, 1).reshape(b, -1, k.shape[1]))
+            reg_out.append(flatten_anchors(r))
+            cls_out.append(flatten_anchors(k))
         return {"reg": torch.cat(reg_out, dim=1), "cls": torch.cat(cls_out, dim=1)}
 
 
@@ -132,18 +113,6 @@ class YoloLitePi(nn.Module):
         self.backbone = Backbone(cfg, fused)
         self.neck = PANNeck(cfg, fused)
         self.head = DetectHead(cfg, fused)
-
-    def to_channels_last(self) -> "YoloLitePi":
-        """Places the model for a channels-last forward (cuDNN's NHWC convs
-        on the card), once: every 4-D weight channels last, but the blocks
-        that run NCHW (:func:`runs_nchw`) keep NCHW weights and make their
-        input NCHW in a forward pre-hook.  Returns ``self``."""
-        self.to(memory_format=torch.channels_last)
-        for m in self.modules():
-            if runs_nchw(m):
-                m.to(memory_format=torch.contiguous_format)
-                m.register_forward_pre_hook(_nchw_input)
-        return self
 
     def forward(
         self, x: torch.Tensor, from_stem: bool = False

@@ -17,7 +17,9 @@ unfolded, as it runs every injected detector.
 
 The model runs channels last from its input on, so that the qkv conv's
 output is (B, H, W, 3C) in memory and an area's q, k and v are views of it:
-the attention core copies only v, for the positional conv.  On the card in
+the attention core copies only v, for the positional conv.  ``forward``
+makes its input so on every device; on the card that is a no-op, since the
+pipeline hands every detector a dense channels-last input.  On the card in
 bf16 the core is SDPA's flash kernel and nothing else (a call it cannot
 take raises); elsewhere the plain version (:func:`attend_plain`).
 Submodule names are the plain reference's (``cardbench/reference/yolo12.py``):

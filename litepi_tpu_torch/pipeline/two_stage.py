@@ -22,8 +22,9 @@ The staged programs (:meth:`~TwoStagePipeline.detect`,
 pre-letterboxed [0, 1] canvases, and the classifier on crops.
 
 On a CUDA device the stem, NMS and ROI crop run as the hand-written
-kernels in ``csrc/``; on the CPU (``device="cpu"``, the tests) their plain
-versions run.
+kernels in ``csrc/`` and the detector runs channels last; on the CPU
+(``device="cpu"``, the tests) the kernels' plain versions run and the
+detector NCHW.
 """
 
 from __future__ import annotations
@@ -40,10 +41,9 @@ from torch import nn
 from litepi_tpu_torch.core.device import resolve_device
 from litepi_tpu_torch.core.metrics import span
 from litepi_tpu_torch.core.types import PipelineConfig
-from litepi_tpu_torch.kernels import LAUNCHES
 from litepi_tpu_torch.kernels.stem import pack_stem_params
 from litepi_tpu_torch.models import YoloLitePi, build_classifier
-from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS
+from litepi_tpu_torch.models.layers import CLASSIFIER_BN_EPS, to_channels_last
 from litepi_tpu_torch.ops.anchors import make_anchors
 from litepi_tpu_torch.ops.boxes import box_area, clip_boxes
 from litepi_tpu_torch.ops.dfl import decode_candidates, topk_stable
@@ -136,6 +136,12 @@ class TwoStagePipeline:
             self.det_model = self._place(copy.deepcopy(det_model), det_state)
         else:
             self._init_default_detector(det_state)
+        # cuDNN's bf16 convs on the card are NHWC: it transposes NCHW
+        # activations in and out, and copies NCHW weights, on every call.  So
+        # on the card the detector's weights are placed channels last here,
+        # once, and its input made so where it enters (_det_input)
+        if self.device.type == "cuda":
+            to_channels_last(self.det_model)
 
         cls_state = fold_pipeline_state(cls_state, CLASSIFIER_BN_EPS)
         self.cls_model = self._place(
@@ -182,21 +188,13 @@ class TwoStagePipeline:
         self._stem_params = pack_stem_params(stem_kernel.reshape(27, -1), stem_bias)
         self._stem_kernel = stem_kernel.to(self.device)
         self._stem_bias = stem_bias.to(self.device)
+        # a copy taken before the channels-last placement: with 3 input
+        # channels the stem conv ran slower channels last (5.10 ms against
+        # 4.77 ms NCHW with its output converted, B=256 on an H100)
         raw_stem = copy.deepcopy(self.det_model.backbone.stem)
         with torch.no_grad():
             raw_stem.conv.weight.copy_(fold_stem_input(stem_w, 1.0 / 255.0, flip))
         self._raw_stem = raw_stem
-        # cuDNN's bf16 convs on the card are NHWC: on an NCHW body it
-        # transposes every conv's input in and its output back out.  So on
-        # the card the body runs channels last from the stem's output to
-        # the head, its weights placed here once (no call copies a weight);
-        # the CPU keeps NCHW.  The stem conv on letterboxed canvases stays
-        # NCHW, as the narrow C2f blocks do (models/yolo.py::runs_nchw):
-        # with 3 input channels it ran slower channels last (5.10 ms
-        # against 4.77 ms with its output converted, B=256 on an H100)
-        self._channels_last = self.device.type == "cuda"
-        if self._channels_last:
-            self.det_model.to_channels_last()
 
     def _place(self, model: nn.Module, state: StateDict, float32=()) -> nn.Module:
         """``model`` on the device in the pipeline's dtype with ``state``
@@ -273,8 +271,7 @@ class TwoStagePipeline:
     # stages                                                              #
     # ------------------------------------------------------------------ #
 
-    # Each stage below is one step of run_fused, in its order; the stage
-    # timing tool (tools/stage_split.py) calls the same methods.  Under a
+    # Each stage below is one step of run_fused, in its order.  Under a
     # profiler, run_fused marks them with the spans litepi.stem, .detect,
     # .candidates, .suppress, .unmap, .crop and .classify inside one
     # litepi.run_fused per call (core/metrics.py::span).
@@ -291,9 +288,9 @@ class TwoStagePipeline:
         return letterbox_nchw(frames, self.cfg.det_input_size, self.dtype)
 
     def _stem(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 frames -> (B, c0, S/2, S/2) stem activations
-        in the pipeline's dtype, the input scale and colour flip folded into
-        the weights; dense channels last on the card, NCHW on the CPU.
+        """(B, H, W, 3) uint8 frames -> (B, c0, S/2, S/2) NCHW stem
+        activations in the pipeline's dtype, the input scale and colour flip
+        folded into the weights.
 
         The frame shape alone picks the branch: canvas-sized frames go
         through :func:`~litepi_tpu_torch.ops.stem.fused_stem` (the stem
@@ -310,14 +307,13 @@ class TwoStagePipeline:
             act = fused_stem(
                 frames, self._stem_kernel, self._stem_bias, self.dtype, self._stem_params
             )
-            # the stem kernel writes NCHW: one pass to the body's layout
-            return self._body_layout(act.permute(0, 3, 1, 2))
-        return self._body_layout(self._raw_stem(self._letterbox(frames)))
+            return act.permute(0, 3, 1, 2)
+        return self._raw_stem(self._letterbox(frames))
 
-    def _body_layout(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` in the default detector's layout: dense channels last on
-        the card, unchanged on the CPU."""
-        if self._channels_last:
+    def _det_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the detector's layout: dense channels last on the card,
+        as it comes on the CPU."""
+        if self.device.type == "cuda":
             return x.contiguous(memory_format=torch.channels_last)
         return x
 
@@ -325,13 +321,12 @@ class TwoStagePipeline:
         """Stem activations -> head output ``{reg, cls}``: the detector
         after its stem.  An injected detector runs whole on the [0, 1]
         canvases, flipped to RGB first where the host sends BGR."""
-        if not self._injected:
-            if stem_act.is_contiguous(memory_format=torch.channels_last):
-                LAUNCHES["det_channels_last"] += 1
-            return self.det_model(stem_act, from_stem=True)
-        if self.cfg.input_color == "bgr":
+        if self._injected and self.cfg.input_color == "bgr":
             stem_act = stem_act.flip(1)
-        return self.det_model(stem_act)
+        stem_act = self._det_input(stem_act)
+        if self._injected:
+            return self.det_model(stem_act)
+        return self.det_model(stem_act, from_stem=True)
 
     def _candidates(self, head: Dict[str, torch.Tensor], k: Optional[int] = None):
         """Top-``k`` (default ``max_candidates``) score-descending
@@ -489,7 +484,8 @@ class TwoStagePipeline:
         # frames' upload under the stem's.  The stem's output is handed on
         # in a list, so that the detector's call holds its only reference
         # and frees it as soon as it is consumed (the injected detector's
-        # colour flip frees the B x 3 x S x S canvas before the model runs)
+        # colour flip and the layout conversion free it before the model
+        # runs)
         with span("run_fused"):
             with span("stem"):
                 frames = torch.as_tensor(frames).to(self.device).contiguous()
@@ -536,7 +532,7 @@ class TwoStagePipeline:
         x = torch.as_tensor(canvas01).to(device=self.device, dtype=self.dtype)
         if self.cfg.input_color == "bgr":
             x = x.flip(-1)  # the detector computes in RGB
-        return self._candidates(self.det_model(x.permute(0, 3, 1, 2)), k)
+        return self._candidates(self.det_model(self._det_input(x.permute(0, 3, 1, 2))), k)
 
     @_in_precision
     @torch.inference_mode()

@@ -10,7 +10,7 @@ Each other version is loaded from its file and must define
 the bf16 serving pipeline calls) and in float32.  The versions take turns,
 the others, this one, this one, the others in reverse, and each reading is
 the device time per call summed over every kernel the call launches, from
-``torch.profiler`` over 50 calls (``stage_split.kernel_device_times``),
+``torch.profiler`` over 50 calls (``timing.kernel_device_times``),
 beside the bound: the frames read once and the canvas written once over the
 H100 SXM's 3.35 TB/s.  Prints one JSON line with each version's largest
 difference from this one's canvas; exits non-zero without a CUDA device.
@@ -27,7 +27,7 @@ import sys
 import torch
 
 from litepi_tpu_torch.ops import letterbox as this_module
-from litepi_tpu_torch.tools.stage_split import kernel_device_times
+from litepi_tpu_torch.tools.timing import kernel_device_times
 
 BATCH, HEIGHT, WIDTH, CANVAS = 8, 1080, 1920, 640
 DTYPES = (torch.bfloat16, torch.float32)

@@ -35,7 +35,7 @@ def rank_body(batch: int) -> dict:
     from litepi_tpu_torch.parallel.mesh import make_mesh
     from litepi_tpu_torch.pipeline import TwoStagePipeline
     from litepi_tpu_torch.pipeline.serving import MeshServer
-    from litepi_tpu_torch.tools.stage_split import cuda_ms_windows
+    from litepi_tpu_torch.tools.timing import cuda_ms_windows
 
     mesh = make_mesh(backend="cuda")
     cfg = PipelineConfig(nms=NMSConfig(max_candidates=64, max_detections=16),

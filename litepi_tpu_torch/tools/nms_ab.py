@@ -25,7 +25,7 @@ versions take turns, the others, this one, this one, the others in
 reverse, and each reading is the device time per call from
 ``torch.profiler`` over 200 calls (the sum over the call's kernels, and
 each kernel apart: the mask kernel and the greedy pass;
-``stage_split.kernel_device_times``).  Prints one JSON line with every
+``timing.kernel_device_times``).  Prints one JSON line with every
 version's keep masks compared with this one's and this one's greedy route
 and cluster shape per case; exits non-zero when one differs in any bit, or
 without a CUDA device.
@@ -46,7 +46,7 @@ import torch
 
 from litepi_tpu_torch.kernels import build as kbuild
 from litepi_tpu_torch.kernels.nms import cluster_shape, greedy_route, nms_suppress_cuda
-from litepi_tpu_torch.tools.stage_split import kernel_device_times
+from litepi_tpu_torch.tools.timing import kernel_device_times
 
 CASES = ((128, 64), (128, 512), (8, 256), (8, 768), (8, 1024), (8, 2000), (8, 8400),
          (128, 2048))  # (B, K)

@@ -11,7 +11,7 @@ dense (the serving crop), B=8 D=8 1080x1920 dense, and B=8 D=8 1080x1920
 pyramid on levels built in advance; 64x64 crops.  The versions take turns,
 the others, this one, this one, the others in reverse, and each reading is
 the mean kernel duration from ``torch.profiler`` over 100 launches
-(``stage_split.kernel_device_ms``), beside the bound: the bytes the crop
+(``timing.kernel_device_ms``), beside the bound: the bytes the crop
 must move over the H100 SXM's 3.35 TB/s.  Prints one JSON line, with each
 version's largest difference from this one's output; exits non-zero when
 one is over 1e-3 (the tolerance ``chip_smoke.py`` holds K2 to) or
@@ -39,7 +39,7 @@ from litepi_tpu_torch.ops.roi import (
     pyramid_scales,
     roi_geometry,
 )
-from litepi_tpu_torch.tools.stage_split import kernel_device_ms
+from litepi_tpu_torch.tools.timing import kernel_device_ms
 
 SIZES = ((128, 8, 640, 640), (8, 8, 1080, 1920))  # B, D, H, W
 CASES = ((0, "dense"), (1, "dense"), (1, "pyramid"))  # (size, mode)

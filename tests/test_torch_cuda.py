@@ -498,13 +498,11 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
         out = pipe.run_fused(frames, 0.001)
         assert out["boxes"].is_cuda and out["cls_probs"].shape == (2, 8, 10)
     counts = launch_counts()
-    # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only;
-    # the detector's body runs channels last on the card on either branch
+    # 200x300 frames are letterboxed: the stem kernel takes canvas sizes only
     assert counts == {"nms_suppress": 2, "nms_greedy_cluster": 0, "roi_crop_dense": 1,
                       "roi_crop_pyramid": 1, "roi_crop_pyramid_bf16": 0, "stem": 0,
                       "silu_bf16": 0, "silu_bias_bf16": 0, "sigmoid_bf16": 0,
-                      "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0, "area_attn": 0,
-                      "det_channels_last": 2}
+                      "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0, "area_attn": 0}
 
 
 def _small_cfg(**kw):
@@ -542,7 +540,7 @@ def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
     assert counts == {"nms_suppress": 1, "nms_greedy_cluster": 0, "roi_crop_dense": 1,
                       "roi_crop_pyramid": 0, "roi_crop_pyramid_bf16": 0, "stem": 1,
                       "sigmoid_bf16": 0, "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0,
-                      "area_attn": 0, "det_channels_last": 1}
+                      "area_attn": 0}
 
 
 @pytest.mark.gpu
