@@ -42,7 +42,9 @@ source, in parallel), then:
    bf16 SiLU / sigmoid kernel (``csrc/act.cu``, port-only) against its
    plain version (five / four torch passes) within one bf16 ulp at
    ACT_CASES and the timed shapes, beside the plain passes and torch's
-   one-pass op;
+   one-pass op; its bias mode and its BatchNorm mode (ACT_BN_SHAPES,
+   channels last) bit-equal to their plain versions and to the passes
+   they replace, timed beside them;
 4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
    plain versions run, at 200x300 frames (letterboxed) and at 160x160
@@ -314,7 +316,7 @@ from litepi_tpu_torch.kernels.nms import cluster_shape, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
-from litepi_tpu_torch.models.layers import runs_nchw
+from litepi_tpu_torch.models.layers import ConvBN, runs_nchw
 from litepi_tpu_torch.ops import act as act_ops
 from litepi_tpu_torch.ops.anchors import make_anchors
 from litepi_tpu_torch.ops.letterbox import letterbox_params
@@ -405,6 +407,12 @@ ACT_CASES = ((2, 32, 40, 40), (1001,), (3, 20, 7, 9))
 # output (backbone.down1, 3x3/2, 12 -> 24 channels, at the B=256 cell): the
 # conv's input (B, C_in, H, W) and output channels
 ACT_BIAS_CONV = (256, 12, 320, 320, 24)
+# the act kernel's BatchNorm mode at the injected detectors' largest
+# BatchNorm inputs, channels last as they run: YOLOv11n's stem output at the
+# B=256 cell and YOLO12-L's (1280 input) at the B=32 cell; the plain version
+# checked ACT_BN_CHUNK frames at a time (its float64 steps)
+ACT_BN_SHAPES = ((256, 16, 320, 320), (32, 64, 640, 640))
+ACT_BN_CHUNK = 16
 DETECTOR_SILU_CONVS = 56  # the litepi detector's ConvBN calls after its stem
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
@@ -1080,6 +1088,7 @@ def check_act(dev) -> dict:
               f"{differ} of {n} elements differ from the plain version ({ulps:.3g} ulp)")
         out[name] = r
     out["silu_bias_bf16"] = check_act_bias(dev)
+    out["bn_silu_bf16"] = check_act_bn(dev)
     return out
 
 
@@ -1151,6 +1160,74 @@ def check_act_bias(dev) -> dict:
               "bit-equal to the plain version and to the biased conv + SiLU")
         out[layout] = r
         del y
+    return out
+
+
+def check_act_bn(dev) -> dict:
+    """The BatchNorm mode (``batch_norm_act``) at ACT_BN_SHAPES, channels
+    last, with SiLU and alone: bit-equal to its plain version and to the
+    two passes it replaces (ATen's eval BatchNorm with float32 statistics,
+    then the SiLU kernel), or the run fails.  The mode with SiLU timed
+    beside those two passes, each of their kernels' device time, and its
+    bytes bound: the input and the result, 2 bytes a value, and each
+    channel's four float32 numbers once."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for shape in ACT_BN_SHAPES:
+        n, c = shape[0] * shape[1] * shape[2] * shape[3], shape[1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 2).bfloat16().contiguous(
+            memory_format=torch.channels_last)
+        bn = torch.nn.BatchNorm2d(c, eps=1e-3).to(dev).eval()
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.randn(c, generator=gen, device=dev) * 0.5)
+            bn.running_var.copy_(torch.rand(c, generator=gen, device=dev) * 2 + 0.05)
+            bn.weight.copy_(torch.randn(c, generator=gen, device=dev) * 0.5 + 1)
+            bn.bias.copy_(torch.randn(c, generator=gen, device=dev) * 0.5)
+        state = (bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+        what = f"bn_act_bf16 channels_last {shape}"
+        for with_silu in (True, False):
+            plain = act_ops.batch_norm_silu_bf16_plain if with_silu else \
+                act_ops.batch_norm_bf16_plain
+            with torch.inference_mode():
+                got = act_ops.batch_norm_act(x, *state, with_silu)
+                two = act_ops.silu(bn(x)) if with_silu else bn(x)
+                bad = {"ATen's BatchNorm and the act": int((got.view(torch.int16)
+                                                           != two.view(torch.int16)).sum())}
+                del two
+                bad["its plain version"] = sum(
+                    int((got[i:i + ACT_BN_CHUNK].view(torch.int16) != plain(
+                        x[i:i + ACT_BN_CHUNK], *state).view(torch.int16)).sum())
+                    for i in range(0, shape[0], ACT_BN_CHUNK))
+            torch.cuda.synchronize()
+            if any(bad.values()) or got.stride() != x.stride():
+                fail(f"{what} silu={with_silu}: elements that differ {bad}, strides "
+                     f"{got.stride()} vs {x.stride()}")
+            del got
+        fn = lambda: act_ops.batch_norm_act(x, *state, True)  # noqa: E731
+        two_pass = lambda: act_ops.silu(bn(x))  # noqa: E731
+        with torch.inference_mode():
+            ms, windows = median_ms(fn, 20)
+            r = dict(shape=list(shape), layout="channels_last", ms=ms, windows=windows,
+                     host_ms=host_ms(fn, 20), device_ms=device_ms(fn, 20, "bn_act_vec_kernel"),
+                     plain_ms=cuda_ms(lambda: [act_ops.batch_norm_silu_bf16_plain(
+                         x[i:i + ACT_BN_CHUNK], *state) for i in range(0, shape[0],
+                                                                      ACT_BN_CHUNK)], 1, 0),
+                     library_ms=cuda_ms(two_pass, 20),
+                     bn_device_ms=device_ms(lambda: bn(x), 20, "batch_norm_transform_input"),
+                     silu_device_ms=device_ms(lambda: act_ops.silu(x), 20, "act_vec_kernel"),
+                     mismatches=0, elements=n, max_abs_err=0.0,
+                     # x read once and the result written once, 2 bytes
+                     # each, the channels' records once; the BatchNorm's
+                     # three operations and SiLU's five per value
+                     bound=bound(4 * n + 16 * c, 8 * n))
+        print(f"{what}: {ms:.4f} ms (windows {windows}), device {r['device_ms']:.4f} ms, host "
+              f"issue {r['host_ms']:.4f} ms; ATen's BatchNorm and the SiLU pass it replaces "
+              f"{r['library_ms']:.4f} ms (device: BatchNorm {r['bn_device_ms']:.4f}, SiLU "
+              f"{r['silu_device_ms']:.4f}); plain {r['plain_ms']:.4f} ms; bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); with SiLU and alone bit-equal to the "
+              "plain version and to ATen's BatchNorm + the act")
+        out["x".join(map(str, shape))] = r
+        del x
     return out
 
 
@@ -1312,11 +1389,12 @@ def main_path(dev):
         # the bf16 sigmoid kernel is the zoo's (EfficientNet-B0's gates), the
         # act kernel's backward mode the training phase's, K1's cluster
         # greedy pass the paths above 960 candidates at a batch of 16 or
-        # fewer, area attention YOLO12's: serving runs none of the last
-        # four; its SiLUs all carry their conv's bias (the bias mode), so
-        # none runs the plain mode
+        # fewer, area attention YOLO12's, the BatchNorm mode the injected
+        # detectors': serving runs none of the last six; its SiLUs all
+        # carry their conv's bias (the bias mode), so none runs the plain
+        # mode
         if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
-                    "area_attn"):
+                    "area_attn", "bn_silu_bf16", "bn_bf16"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
@@ -1548,13 +1626,15 @@ def zoo_path(dev):
     s = ZOO_SERVING.det_input_size
     want_counts = {"nms_suppress": 1, "roi_crop_dense": 1, "roi_crop_pyramid": 0,
                    "roi_crop_pyramid_bf16": 0, "stem": 0}
-    # the bf16 activation kernel: SiLU in every detector but the anchor-free
-    # YOLOv5n (torch's F.silu, models/yolov5.py) and in EfficientNet-B0,
-    # sigmoid in EfficientNet-B0's gates only; its bias mode in
-    # EfficientNet-B0's deploy-form convs (the injected detectors keep
-    # BatchNorm)
-    act_runs = {"yolov11n": ("silu_bf16",), "yolov5n": (),
-                "yolov5n_legacy": ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16")}
+    # the bf16 activation kernel: its BatchNorm mode in every ConvBN of the
+    # detectors that keep BatchNorm but the anchor-free YOLOv5n's (torch's
+    # F.silu, models/yolov5.py: ATen's BatchNorm), one launch per ConvBN
+    # call, with SiLU or alone (YOLOv11n's C2PSA); the plain SiLU in
+    # EfficientNet-B0, sigmoid in its gates only, the bias mode in its
+    # deploy-form convs
+    act_runs = {"yolov11n": ("bn_silu_bf16", "bn_bf16"), "yolov5n": (),
+                "yolov5n_legacy": ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16",
+                                   "bn_silu_bf16")}
     runs = []
     for i, (variant, arch, b) in enumerate(ZOO_RUNS):
         cfg = dataclasses.replace(ZOO_SERVING, cls_crop_budget=4 * b)
@@ -1566,9 +1646,15 @@ def zoo_path(dev):
         out, counts = issue_sync_free(lambda: pipe.run_fused(frames, area_scale=area), what)
         if {k: counts[k] for k in want_counts} != want_counts:
             fail(f"{what}: launch counts {counts}, expected {want_counts}")
-        for k in ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16"):
+        for k in ("silu_bf16", "sigmoid_bf16", "silu_bias_bf16", "bn_silu_bf16", "bn_bf16"):
             if (counts[k] > 0) != (k in act_runs[variant]):
                 fail(f"{what}: {k} launched {counts[k]} times")
+        # each ConvBN runs once per call; these detectors' act is SiLU or none
+        convbns = [m for m in pipe.det_model.modules() if isinstance(m, ConvBN) and m.bn is not None]
+        if variant != "yolov5n" and (counts["bn_silu_bf16"], counts["bn_bf16"]) != (
+                sum(m.act is act_ops.silu for m in convbns),
+                sum(m.act is not act_ops.silu for m in convbns)):
+            fail(f"{what}: BatchNorm-mode launches {counts}, ConvBNs {len(convbns)}")
         check_outputs(out, b, cfg.crop_det_budget, s, s, cfg.num_classifier_classes, what)
         if not bool(out["valid"].any()):
             fail(f"{what}: no valid detection")
@@ -1607,8 +1693,10 @@ def check_zoo_candidates(pipe, gen, b: int, s: int) -> dict:
         fail(f"zoo detect_candidates at eval_max_candidates={k}: scores {tuple(scores.shape)}")
     if not (bool(torch.isfinite(boxes).all()) and bool((scores[:, :-1] >= scores[:, 1:]).all())):
         fail("zoo detect_candidates: boxes not finite or scores not descending")
-    # the detector's own bf16 SiLUs run the activation kernel; nothing else
-    if any(c for key, c in counts.items() if key not in ("silu_bf16", "sigmoid_bf16")):
+    # the detector's own bf16 BatchNorms and SiLUs run the activation
+    # kernel; nothing else
+    if any(c for key, c in counts.items()
+           if key not in ("silu_bf16", "sigmoid_bf16", "bn_silu_bf16", "bn_bf16")):
         fail(f"zoo detect_candidates launched kernels: {counts}")
     print(f"zoo detect_candidates b={b}: {scores.shape[1]} candidates per image, sync-free")
     return dict(batch=b, candidates_per_image=int(scores.shape[1]), launches=counts,
@@ -3714,7 +3802,7 @@ def by_row(counts: dict, nms_row: str, dense_row: str) -> dict:
     rows = {nms_row: counts["nms_suppress"], dense_row: counts["roi_crop_dense"],
             "act_bf16_bwd": counts["silu_bf16_bwd"]}
     for name in ("roi_crop_pyramid", "roi_crop_pyramid_bf16", "stem", "silu_bf16",
-                 "silu_bias_bf16", "sigmoid_bf16"):
+                 "silu_bias_bf16", "bn_silu_bf16", "sigmoid_bf16"):
         rows[name] = counts[name]
     return rows
 
@@ -3768,7 +3856,7 @@ def run(dev) -> None:
 
     zoo_launches = {name: {f"{z['detector']}+{z['classifier']}": z["launches"][name] for z in zoo}
                     for name in ("nms_suppress", "roi_crop_dense", "stem", "silu_bf16",
-                                 "silu_bias_bf16", "sigmoid_bf16")}
+                                 "silu_bias_bf16", "sigmoid_bf16", "bn_silu_bf16", "bn_bf16")}
 
     def entry(name, source, replaces, launches, r, err, shape, **extra):
         return dict(name=name, route="cuda", source=f"litepi_tpu_torch/csrc/{source}",
@@ -3786,6 +3874,7 @@ def run(dev) -> None:
                      "roi_crop_pyramid_bf16": eval_counts["roi_crop_pyramid_bf16"],
                      "stem": eval_counts["stem"], "silu_bf16": eval_counts["silu_bf16"],
                      "silu_bias_bf16": eval_counts["silu_bias_bf16"],
+                     "bn_silu_bf16": eval_counts["bn_silu_bf16"],
                      "sigmoid_bf16": eval_counts["sigmoid_bf16"],
                      "act_bf16_bwd": eval_counts["silu_bf16_bwd"]}
     # the e2e CLI phase's full-width launches (both runs, zeroed before each):
@@ -3802,6 +3891,7 @@ def run(dev) -> None:
                     "roi_crop_pyramid_bf16": cli_sum("roi_crop_pyramid_bf16"),
                     "stem": cli_sum("stem"), "silu_bf16": cli_sum("silu_bf16"),
                     "silu_bias_bf16": cli_sum("silu_bias_bf16"),
+                    "bn_silu_bf16": cli_sum("bn_silu_bf16"),
                     "sigmoid_bf16": cli_sum("sigmoid_bf16"),
                     "act_bf16_bwd": cli_sum("silu_bf16_bwd")}
     # the convert phase's full-width e2e run over the emitted NCNN pairs
@@ -3810,7 +3900,7 @@ def run(dev) -> None:
                         "roi_crop_dense": 0, "roi_crop_dense_b8": conv_counts["roi_crop_dense"],
                         **{k: conv_counts[k] for k in ("roi_crop_pyramid", "roi_crop_pyramid_bf16",
                                                        "stem", "silu_bf16", "silu_bias_bf16",
-                                                       "sigmoid_bf16")},
+                                                       "bn_silu_bf16", "sigmoid_bf16")},
                         "act_bf16_bwd": conv_counts["silu_bf16_bwd"]}
     cli_checks = {"dense": cli["full_dense"]["kernel_checks"],
                   "pyramid_bf16": cli["full_bf16_pallas"]["kernel_checks"]}
@@ -3886,6 +3976,18 @@ def run(dev) -> None:
               two_pass_ms=acts["silu_bias_bf16"]["nchw"]["two_pass_ms"],
               channels_last=acts["silu_bias_bf16"]["channels_last"],
               zoo_launches=zoo_launches["silu_bias_bf16"]),
+        # the BatchNorm mode: an injected detector's eval BatchNorm and the
+        # SiLU after it (launches: the zoo's YOLOv11n run; the main path's
+        # detector has its BatchNorm folded)
+        entry("bn_silu_bf16", "act.cu", "none: port-only (flax nn.BatchNorm and nn.silu in "
+              "bf16, litepi_tpu/models/layers.py:63-71)",
+              zoo_launches["bn_silu_bf16"]["yolov11n+resnet18"],
+              acts["bn_silu_bf16"]["x".join(map(str, ACT_BN_SHAPES[0]))], 0.0,
+              "x".join(map(str, ACT_BN_SHAPES[0])) + " channels last",
+              library="ATen's eval BatchNorm + the SiLU pass",
+              yolo12=acts["bn_silu_bf16"]["x".join(map(str, ACT_BN_SHAPES[1]))],
+              zoo_launches=zoo_launches["bn_silu_bf16"],
+              zoo_launches_alone=zoo_launches["bn_bf16"]),
         # its path is the zoo's EfficientNet-B0 run (the main path has no gate)
         entry("sigmoid_bf16", "act.cu", "none: port-only (flax nn.sigmoid in bf16, "
               "litepi_tpu/models/efficientnet.py:55)",
@@ -3911,6 +4013,7 @@ def run(dev) -> None:
                       "roi_crop_pyramid": tl["roi_crop_pyramid"],
                       "roi_crop_pyramid_bf16": tl["roi_crop_pyramid_bf16"], "stem": tl["stem"],
                       "silu_bf16": tl["silu_bf16"], "silu_bias_bf16": tl["silu_bias_bf16"],
+                      "bn_silu_bf16": tl["bn_silu_bf16"],
                       "sigmoid_bf16": tl["sigmoid_bf16"],
                       "act_bf16_bwd": tl["silu_bf16_bwd"]}
     for k in kernels:
@@ -3929,6 +4032,7 @@ def run(dev) -> None:
                          "roi_crop_pyramid": bl["roi_crop_pyramid"],
                          "roi_crop_pyramid_bf16": bl["roi_crop_pyramid_bf16"], "stem": bl["stem"],
                          "silu_bf16": bl["silu_bf16"], "silu_bias_bf16": bl["silu_bias_bf16"],
+                         "bn_silu_bf16": bl["bn_silu_bf16"],
                          "sigmoid_bf16": bl["sigmoid_bf16"],
                          "act_bf16_bwd": bl["silu_bf16_bwd"]}
     rpn = baselines["inference"]["faster_rcnn"]

@@ -65,6 +65,32 @@
 // vector path takes its values in pairs and rounds each pair with one
 // packed conversion (cvt.rn.bf16x2.f32): 3.58-3.61 ms, 79% of the bound,
 // where the SiLU pass alone takes 3.64-3.66 ms.
+//
+// BatchNorm mode (litepi_bn_act_bf16): y = silu(v) or y = v, v = bf16(w *
+// (x - m) * invstd + s), for a bias-free conv's output x (N, C, H, W) and
+// an eval BatchNorm's float32 running mean m and variance, weight w and
+// bias s, in place of ATen's BatchNorm pass and the SiLU pass after it
+// (the identity: the ConvBNs without an activation).  Replaces no TPU
+// kernel: the JAX program's flax BatchNorm in bf16.  ATen's eval BatchNorm
+// on a bf16 tensor with float32 parameters (batch_norm_transform_input
+// and its channels-last twin, ATen/native/cuda/Normalization.cuh) takes
+// invstd = rsqrtf(var + float(eps)) in a kernel of its own and computes w
+// * (x - m) * invstd + s in float32, the last multiply and the add
+// contracted into one FMA (ATen builds with contraction on; here it is
+// written out), rounded once to bf16; the SiLU steps then round as
+// above.  Here the same operations in the same order, so the same bits
+// (chip_smoke.py holds the mode to ATen's two passes and to the plain
+// versions, ops/act.py::batch_norm_bf16_plain and
+// batch_norm_silu_bf16_plain).  Each block stages the C channels' (m,
+// invstd, w, s) in shared memory from the live buffers, a 16-byte record
+// per channel with one record of padding after every 8, so that a warp's
+// lanes, 8 channels apart in channels last, read 8 different banks' words
+// in each quarter-warp; NCHW's groups of 8 lie in one channel (H * W % 8
+// == 0, else the scalar path).  C is at most kMaxBnChannels (37 KB).
+// Layouts, index types and pair rounding as the bias mode's.  Bound by
+// bytes: 4 bytes per value, where the two passes it replaces move 8 and
+// ATen's BatchNorm pass also launches a copy of the mean and the invstd
+// kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,13 +201,63 @@ __device__ __forceinline__ float2 round_bf16x2(float a, float b) {
   return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 
-__device__ __forceinline__ __nv_bfloat162 silu_biased2(__nv_bfloat162 xv, float b0, float b1) {
-  const float2 x = __bfloat1622float2(xv);
-  const float2 v = round_bf16x2(x.x + b0, x.y + b1);
+// the five SiLU steps on two bf16 values v (as floats)
+__device__ __forceinline__ __nv_bfloat162 silu2(float2 v) {
   const float2 e = round_bf16x2(expf(-v.x), expf(-v.y));
   const float2 a = round_bf16x2(1.0f + e.x, 1.0f + e.y);
   const float2 s = round_bf16x2(rcp_of_bf16(a.x), rcp_of_bf16(a.y));
   return __floats2bfloat162_rn(v.x * s.x, v.y * s.y);
+}
+
+__device__ __forceinline__ __nv_bfloat162 silu_biased2(__nv_bfloat162 xv, float b0, float b1) {
+  const float2 x = __bfloat1622float2(xv);
+  return silu2(round_bf16x2(x.x + b0, x.y + b1));
+}
+
+// one channel of an eval BatchNorm: its running mean, rsqrtf(var + eps),
+// weight and bias
+struct __align__(16) BnChannel {
+  float mean, invstd, weight, shift;
+};
+
+constexpr int kMaxBnChannels = 2048;  // ops/act.py::BN_ACT_MAX_CHANNELS
+
+// channel c's record in shared memory: one record of padding after every 8
+__device__ __forceinline__ unsigned bn_slot(unsigned c) { return c + (c >> 3); }
+
+size_t bn_shared_bytes(long long c) { return (size_t)(c + c / 8 + 1) * sizeof(BnChannel); }
+
+// ATen's w * (x - m) * invstd + s, its last multiply and add one FMA
+__device__ __forceinline__ float bn_value(float x, const BnChannel& p) {
+  return __fmaf_rn(__fmul_rn(p.weight, __fsub_rn(x, p.mean)), p.invstd, p.shift);
+}
+
+template <bool kSilu>
+__device__ __forceinline__ __nv_bfloat16 bn_act(__nv_bfloat16 xv, const BnChannel& p) {
+  const __nv_bfloat16 v = __float2bfloat16_rn(bn_value(__bfloat162float(xv), p));
+  return kSilu ? act<true>(v) : v;
+}
+
+template <bool kSilu>
+__device__ __forceinline__ __nv_bfloat162 bn_act2(__nv_bfloat162 xv, const BnChannel& p0,
+                                                  const BnChannel& p1) {
+  const float2 x = __bfloat1622float2(xv);
+  const float v0 = bn_value(x.x, p0), v1 = bn_value(x.y, p1);
+  return kSilu ? silu2(round_bf16x2(v0, v1)) : __floats2bfloat162_rn(v0, v1);
+}
+
+struct BnArgs {
+  const float *mean, *var, *weight, *bias;
+  float eps;
+};
+
+// the C channels' records into shared memory, from the live buffers
+__device__ __forceinline__ void stage_bn(BnChannel* sm, const BnArgs& bn, unsigned c) {
+  for (unsigned k = threadIdx.x; k < c; k += blockDim.x) {
+    sm[bn_slot(k)] = BnChannel{bn.mean[k], rsqrtf(__fadd_rn(bn.var[k], bn.eps)), bn.weight[k],
+                               bn.bias[k]};
+  }
+  __syncthreads();
 }
 
 // n / d in the kernels' index type.  32-bit (below 2^31 values): a multiply
@@ -253,6 +329,49 @@ __global__ void act_bias_scalar_kernel(const __nv_bfloat16* __restrict__ x,
        i += (I)gridDim.x * blockDim.x) {
     const I ch = mod_by(kChannelsLast ? i : hw.div(i), c);
     y[i] = silu_biased(x[i], __bfloat162float(bias[ch]));
+  }
+}
+
+// groups of 8 values, as act_bias_vec_kernel
+template <bool kSilu, bool kChannelsLast, typename I>
+__global__ void bn_act_vec_kernel(const uint4* __restrict__ x, BnArgs bn,
+                                  uint4* __restrict__ y, I groups, Divider<I> c,
+                                  Divider<I> hw8) {
+  extern __shared__ BnChannel sm[];
+  stage_bn(sm, bn, (unsigned)c.d);
+  for (I i = blockIdx.x * (I)blockDim.x + threadIdx.x; i < groups;
+       i += (I)gridDim.x * blockDim.x) {
+    uint4 v = x[i];
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    if (kChannelsLast) {
+      unsigned ch = (unsigned)mod_by(i * 8, c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const BnChannel p0 = sm[bn_slot(ch)];
+        ch = ch + 1 == c.d ? 0 : ch + 1;
+        const BnChannel p1 = sm[bn_slot(ch)];
+        ch = ch + 1 == c.d ? 0 : ch + 1;
+        h[j] = bn_act2<kSilu>(h[j], p0, p1);
+      }
+    } else {
+      const BnChannel p = sm[bn_slot((unsigned)mod_by(hw8.div(i), c))];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) h[j] = bn_act2<kSilu>(h[j], p, p);
+    }
+    y[i] = v;
+  }
+}
+
+template <bool kSilu, bool kChannelsLast, typename I>
+__global__ void bn_act_scalar_kernel(const __nv_bfloat16* __restrict__ x, BnArgs bn,
+                                     __nv_bfloat16* __restrict__ y, I start, I n,
+                                     Divider<I> c, Divider<I> hw) {
+  extern __shared__ BnChannel sm[];
+  stage_bn(sm, bn, (unsigned)c.d);
+  for (I i = start + blockIdx.x * (I)blockDim.x + threadIdx.x; i < n;
+       i += (I)gridDim.x * blockDim.x) {
+    const I ch = mod_by(kChannelsLast ? i : hw.div(i), c);
+    y[i] = bn_act<kSilu>(x[i], sm[bn_slot((unsigned)ch)]);
   }
 }
 
@@ -329,6 +448,39 @@ cudaError_t launch_bias_as(const void* x, const void* bias, void* y, long long n
                        : launch_bias<false, I>(x, bias, y, n, c, hw, s);
 }
 
+template <bool kSilu, bool kChannelsLast, typename I>
+cudaError_t launch_bn(const void* x, const BnArgs& bn, void* y, long long n, long long c,
+                      long long hw, cudaStream_t s) {
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
+  const long long groups = aligned && (kChannelsLast || hw % 8 == 0) ? n / 8 : 0;
+  const size_t smem = bn_shared_bytes(c);
+  if (groups > 0) {
+    bn_act_vec_kernel<kSilu, kChannelsLast, I><<<blocks_for(groups), kThreads, smem, s>>>(
+        static_cast<const uint4*>(x), bn, static_cast<uint4*>(y), (I)groups, Divider<I>(c),
+        Divider<I>(hw / 8 > 0 ? hw / 8 : 1));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const long long start = groups * 8;
+  if (start < n) {
+    bn_act_scalar_kernel<kSilu, kChannelsLast, I><<<blocks_for(n - start), kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), bn, static_cast<__nv_bfloat16*>(y), (I)start,
+        (I)n, Divider<I>(c), Divider<I>(hw));
+  }
+  return cudaGetLastError();
+}
+
+template <typename I>
+cudaError_t launch_bn_as(const void* x, const BnArgs& bn, void* y, long long n, long long c,
+                         long long hw, bool channels_last, bool silu, cudaStream_t s) {
+  if (silu) {
+    return channels_last ? launch_bn<true, true, I>(x, bn, y, n, c, hw, s)
+                         : launch_bn<true, false, I>(x, bn, y, n, c, hw, s);
+  }
+  return channels_last ? launch_bn<false, true, I>(x, bn, y, n, c, hw, s)
+                       : launch_bn<false, false, I>(x, bn, y, n, c, hw, s);
+}
+
 }  // namespace
 
 extern "C" int litepi_act_bf16_backward(const void* x, const void* g, void* dx, long long n,
@@ -356,4 +508,23 @@ extern "C" int litepi_silu_bias_bf16(const void* x, const void* bias, void* y, l
   return n < (1LL << 31)
              ? launch_bias_as<unsigned>(x, bias, y, n, c, hw, channels_last != 0, s)
              : launch_bias_as<unsigned long long>(x, bias, y, n, c, hw, channels_last != 0, s);
+}
+
+extern "C" int litepi_bn_act_bf16(const void* x, const void* mean, const void* var,
+                                  const void* weight, const void* bias, double eps, void* y,
+                                  long long n, long long c, long long hw, int channels_last,
+                                  int silu, void* stream) {
+  if (n < 0 || c <= 0 || c > kMaxBnChannels || hw <= 0 || n % (c * hw) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // eps as ATen's kernel takes it: the double rounded to float on the host
+  const BnArgs bn{static_cast<const float*>(mean), static_cast<const float*>(var),
+                  static_cast<const float*>(weight), static_cast<const float*>(bias),
+                  static_cast<float>(eps)};
+  return n < (1LL << 31)
+             ? launch_bn_as<unsigned>(x, bn, y, n, c, hw, channels_last != 0, silu != 0, s)
+             : launch_bn_as<unsigned long long>(x, bn, y, n, c, hw, channels_last != 0,
+                                                silu != 0, s);
 }

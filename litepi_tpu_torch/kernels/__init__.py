@@ -21,6 +21,9 @@ LAUNCHES: Dict[str, int] = {
     "stem": 0,
     "silu_bf16": 0,
     "silu_bias_bf16": 0,  # the bias mode: a biased conv's bias add folded into the SiLU
+    # the BatchNorm mode: an eval BatchNorm with the SiLU after it, or alone
+    "bn_silu_bf16": 0,
+    "bn_bf16": 0,
     "sigmoid_bf16": 0,
     "silu_bf16_bwd": 0,
     "sigmoid_bf16_bwd": 0,

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from litepi_tpu_torch.ops.act import silu
+from litepi_tpu_torch.ops.act import BN_ACT_MAX_CHANNELS, batch_norm_act, silu
 from litepi_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 
@@ -155,7 +155,9 @@ class ConvBN(nn.Module):
     (YOLOv5's 6x6/2 stem pads by 2).
     Where :meth:`folds_bias` holds, the conv runs without its bias and the
     act kernel adds it inside the SiLU pass (``ops/act.py``), with the same
-    bits as the conv's own bias add."""
+    bits as the conv's own bias add.  Where :meth:`fuses_bn` holds, the act
+    kernel applies the eval BatchNorm and the SiLU (or nothing) in one
+    pass, with the same bits as ATen's BatchNorm and the SiLU after it."""
 
     def __init__(
         self,
@@ -196,6 +198,28 @@ class ConvBN(nn.Module):
             x.requires_grad or conv.weight.requires_grad or conv.bias.requires_grad)
         return x.dtype == torch.bfloat16 and x.is_cuda and not recording
 
+    def fuses_bn(self, y: torch.Tensor) -> bool:
+        """Whether :meth:`forward` hands the conv's output ``y`` to the act
+        kernel's BatchNorm mode (``ops/act.py::batch_norm_act``), from what
+        it can see: a BatchNorm in eval mode whose running statistics and
+        parameters are float32 on ``y``'s device, the port's SiLU or no
+        activation, a bf16 CUDA ``y``, no autograd graph being recorded;
+        and a ``y`` that ATen computes in the order the mode matches: dense
+        (contiguous or channels last) and below 2^31 - 1 values (its 32-bit
+        kernels), with at most ``BN_ACT_MAX_CHANNELS`` channels."""
+        bn = self.bn
+        if bn is None or bn.training or self.act not in (silu, _identity):
+            return False
+        state = (bn.running_mean, bn.running_var, bn.weight, bn.bias)
+        if any(t is None or t.dtype != torch.float32 or t.device != y.device for t in state):
+            return False
+        recording = torch.is_grad_enabled() and (
+            y.requires_grad or bn.weight.requires_grad or bn.bias.requires_grad)
+        if recording or y.dtype != torch.bfloat16 or not y.is_cuda:
+            return False
+        return (bn.num_features <= BN_ACT_MAX_CHANNELS and y.numel() < 2**31 - 1
+                and (y.is_contiguous() or y.is_contiguous(memory_format=torch.channels_last)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         if self.folds_bias(x):
@@ -203,8 +227,12 @@ class ConvBN(nn.Module):
                          conv.groups)
             return silu(y, conv.bias)
         x = conv_bias_apart(conv, x) if self.bias_apart else conv(x)
-        if self.bn is not None:
-            x = batch_norm_train(self.bn, x) if self.training else self.bn(x)
+        bn = self.bn
+        if bn is not None:
+            if self.fuses_bn(x):
+                return batch_norm_act(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                      bn.eps, self.act is silu)
+            x = batch_norm_train(bn, x) if self.training else bn(x)
         return self.act(x)
 
 

@@ -23,6 +23,15 @@ steps.  In bf16 without autograd it is the act kernel's bias mode on a
 CUDA tensor, one pass in place of the add's and the SiLU's, and
 :func:`silu_bias_bf16_plain` on a CPU tensor; otherwise the add, then
 :func:`silu`.
+
+:func:`batch_norm_act` is an eval BatchNorm of a bf16 tensor with float32
+statistics and parameters as ATen's CUDA kernel computes it (``w * (x -
+m) * rsqrt(var + eps) + s`` in float32, its last multiply and add one
+fused multiply-add, rounded once to bf16), then the five SiLU steps or
+nothing: on a CUDA tensor the act kernel's BatchNorm mode, one pass in
+place of ATen's BatchNorm pass and the SiLU pass; on a CPU tensor
+:func:`batch_norm_silu_bf16_plain` or :func:`batch_norm_bf16_plain`.
+``models/layers.py::ConvBN`` decides when to call it.
 """
 
 from __future__ import annotations
@@ -48,6 +57,50 @@ def silu_bias_bf16_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     axis: the float sum rounded once to bf16 (ATen's bf16 add), then
     :func:`silu_bf16_plain`."""
     return silu_bf16_plain((x.float() + bias.float()[:, None, None]).bfloat16())
+
+
+# the act kernel's BatchNorm mode stages each channel in shared memory
+# (csrc/act.cu's kMaxBnChannels); a wider BatchNorm stays on ATen's
+BN_ACT_MAX_CHANNELS = 2048
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once to float32, as a
+    fused multiply-add rounds it: the product is exact in float64, the
+    float64 sum is rounded to odd (its error from Knuth's two-sum), and
+    rounding that to float32 is the exact sum's rounding (53 >= 24 + 2
+    bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    bits = s.view(torch.int64)
+    # inexact with an even last bit: the odd neighbour on the error's side
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & (bits & 1 == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
+def batch_norm_bf16_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                          weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """An eval BatchNorm of a bf16 ``x`` (N, C, H, W) over its channel axis
+    as ATen's CUDA kernel computes it: ``invstd = rsqrt(var + eps)`` in
+    float32 (the device's own ``rsqrt``), ``weight * (x - mean)`` in
+    float32, times ``invstd`` plus ``bias`` in one fused multiply-add
+    (:func:`fma_f32`), rounded once to bf16."""
+    def col(t: torch.Tensor) -> torch.Tensor:
+        return t.float()[:, None, None]
+
+    invstd = torch.rsqrt(var.float() + eps)
+    return fma_f32(col(weight) * (x.float() - col(mean)), col(invstd), col(bias)).bfloat16()
+
+
+def batch_norm_silu_bf16_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                               weight: torch.Tensor, bias: torch.Tensor,
+                               eps: float) -> torch.Tensor:
+    """:func:`silu_bf16_plain` of :func:`batch_norm_bf16_plain`."""
+    return silu_bf16_plain(batch_norm_bf16_plain(x, mean, var, weight, bias, eps))
 
 
 def sigmoid_bf16_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -119,6 +172,25 @@ def silu(x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     if x.device.type != "cpu":
         raise ValueError(f"no bf16 activation for device {x.device}")
     return silu_bias_bf16_plain(x, bias)
+
+
+def batch_norm_act(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                   weight: torch.Tensor, bias: torch.Tensor, eps: float,
+                   with_silu: bool) -> torch.Tensor:
+    """An eval BatchNorm of a bf16 ``x`` (N, C, H, W) with running
+    statistics ``mean`` and ``var`` and parameters ``weight`` and ``bias``
+    (float32, (C,)), then SiLU (``with_silu``) or nothing, rounded as ATen's
+    CUDA BatchNorm and the port's SiLU round them; no autograd."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bf16, got {x.dtype}")
+    if x.is_cuda:
+        from litepi_tpu_torch.kernels.act import bn_act_bf16_cuda
+
+        return bn_act_bf16_cuda(x, mean, var, weight, bias, eps, with_silu)
+    if x.device.type != "cpu":
+        raise ValueError(f"no bf16 activation for device {x.device}")
+    plain = batch_norm_silu_bf16_plain if with_silu else batch_norm_bf16_plain
+    return plain(x, mean, var, weight, bias, eps)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
