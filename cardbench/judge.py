@@ -18,20 +18,28 @@ matched to the reference anchor nearest in box and score together
     logits do not);
 ``choice``
     the median over the judged frames of each frame's worst violation of
-    the decisions, judged in the reference's values (scores as logits,
-    overlaps as IoU): every reference candidate among its top
-    ``max_candidates`` above the threshold that the program left out must
-    be explained by the candidate cut, by a full set of slots that outrank
-    it, or by a kept box that outranks and overlaps it past the IoU
-    threshold; the shortfall of the best explanation is the violation.  So
-    are two kept boxes that overlap past the threshold (by the smaller of
-    the overlap's excess and their logit gap), a slot below the threshold
-    or past the cut, a class id that is not the reference's (1), and the
-    global classifier budget: a classified slot must be eligible (above
-    the threshold, its own box at or above the minimum area; else 1), no
-    more slots than the budget classified (else 1), and an eligible slot
-    left unclassified must be outranked by every classified one (1 where
-    the budget was not full);
+    the decisions, judged in the reference's values (scores and classes as
+    logits, overlaps as IoU), class-aware as NMS is: every reference
+    candidate among its top ``max_candidates`` above the threshold that
+    the program left out must be explained by the candidate cut, by a full
+    set of slots that outrank it, or by a kept box of its own class that
+    outranks and overlaps it past the IoU threshold (a kept box of the
+    program's class c explains it only as far as the reference's logits at
+    the candidate would have to move for c to be its best class: the
+    larger of its best logit less its logit of c and the box's own
+    shortfall in score or overlap); the shortfall of the best explanation
+    is the violation.  So are two kept boxes of one class (the program's
+    ids) that overlap past the threshold (by the smaller of the overlap's
+    excess and their logit gap), a slot below the threshold or past the
+    cut, a class id the reference's logits at the matched anchor do not
+    put first (by its best logit less its logit of the program's class;
+    infinite for an id outside the classes), and the global classifier
+    budget: a classified slot must be eligible (above the threshold, its
+    own box at or above the minimum area; else 1), no more slots than the
+    budget classified (else 1), and an eligible slot left unclassified
+    must be outranked by every classified one (1 where the budget was not
+    full).  With one class and ids in range, every pair and every kept box
+    is of one class and every class gap is 0: the checks are class-blind;
 ``prob``
     the worst, over the classified slots, of the classifier's largest
     probability gap against the reference's on the crop of the program's
@@ -127,8 +135,21 @@ def _frame_checks(det: dict, prog: dict, sv: dict, ratio: float) -> dict:
     def worst(v, mask):
         return torch.where(mask, v, 0.0).reshape(n, -1).amax(-1)
 
+    logits, nc = det["cls_logits"], det["cls_logits"].shape[-1]
+    c_prog = prog["det_class_ids"].long()
+    c_ok = (c_prog >= 0) & (c_prog < nc)
+    c_idx = c_prog.clamp(0, nc - 1)
+
+    def class_gap(rows, best, ids):
+        """Each row's logit of its class ``best`` above its logits of the
+        classes ``ids``: rows (n, R, nc), best (n, R), ids (n, R, m)."""
+        return torch.clamp(torch.gather(rows, 2, best[..., None]) - torch.gather(rows, 2, ids),
+                           min=0.0)
+
+    l_slot = torch.gather(logits, 1, a_star[..., None].expand(-1, -1, nc))  # (n, D, nc)
     cls_star = torch.gather(det["class_ids"], 1, a_star)
-    viol = torch.maximum(viol, worst((cls_star != prog["det_class_ids"]).float(), nmsv))
+    slot_gap = class_gap(l_slot, cls_star, c_idx[..., None])[..., 0]
+    viol = torch.maximum(viol, worst(torch.where(c_ok, slot_gap, INF), nmsv))
     # the decisions in logit units: score gaps near 0 and 1 shrink, logits' do not
     s_sorted, i_sorted = torch.sort(det["scores"], dim=-1, descending=True, stable=True)
     l_sorted, l_star, l_conf = logit(s_sorted), logit(s_star), float(logit(torch.tensor(conf)))
@@ -138,9 +159,10 @@ def _frame_checks(det: dict, prog: dict, sv: dict, ratio: float) -> dict:
     # kept slots: above the threshold, inside the candidate cut
     viol = torch.maximum(viol, worst(torch.clamp(l_conf - l_star, min=0.0), nmsv))
     viol = torch.maximum(viol, worst(torch.clamp(l_sorted[:, k - 1:k] - l_star, min=0.0), nmsv))
-    # pairs of kept slots
+    # pairs of kept slots of one class
     pair_iou = box_iou(lb_star, lb_star)
-    pair = nmsv[:, :, None] & nmsv[:, None, :] & ~torch.eye(d, dtype=torch.bool, device=scores.device)
+    pair = (nmsv[:, :, None] & nmsv[:, None, :] & (c_prog[:, :, None] == c_prog[:, None, :])
+            & ~torch.eye(d, dtype=torch.bool, device=scores.device))
     overlap = torch.minimum(pair_iou - thr, (l_star[:, :, None] - l_star[:, None, :]).abs())
     viol = torch.maximum(viol, worst(torch.clamp(overlap, min=0.0), pair))
     # reference candidates the program left out
@@ -154,6 +176,11 @@ def _frame_checks(det: dict, prog: dict, sv: dict, ratio: float) -> dict:
     e_cut = l_c - l_next[:, None]
     by_kept = torch.maximum(torch.clamp(l_c[:, :, None] - l_star[:, None, :], min=0.0),
                             torch.clamp(thr - box_iou(lb_c, lb_star), min=0.0))
+    # a kept slot suppresses only its own class
+    l_cand = torch.gather(logits, 1, cand[..., None].expand(-1, -1, nc))  # (n, k, nc)
+    c_cand = torch.gather(det["class_ids"], 1, cand)
+    cand_gap = class_gap(l_cand, c_cand, c_idx[:, None, :].expand(-1, k, -1))
+    by_kept = torch.maximum(by_kept, torch.where(c_ok[:, None, :], cand_gap, INF))
     e_supp = torch.where(nmsv[:, None, :], by_kept, INF).amin(-1)
     missed = torch.minimum(torch.minimum(e_conf, e_full), torch.minimum(e_cut, e_supp))
     viol = torch.maximum(viol, worst(torch.clamp(missed, min=0.0), ~in_k & (s_c > conf)))

@@ -197,13 +197,14 @@ class Reference:
     @torch.no_grad()
     def detect_all(self, frames: torch.Tensor) -> dict:
         """Every anchor of every frame: ``scores`` (B, A) sigmoid class
-        maxima, ``class_ids`` (B, A), ``boxes_lb`` (B, A, 4) xyxy in canvas
-        pixels, ``boxes`` (B, A, 4) unmapped and clipped to the frame."""
+        maxima, ``class_ids`` (B, A) (the first maximal class),
+        ``cls_logits`` (B, A, nc) float32 (the head's own, no copy),
+        ``boxes_lb`` (B, A, 4) xyxy in canvas pixels, ``boxes`` (B, A, 4)
+        unmapped and clipped to the frame."""
         with tf32_off():
             x = self._rgb(self.letterbox(frames) * (1.0 / 255.0), 1)
             head = {k: v.float() for k, v in self.det(x.to(self.dtype)).items()}
-        prob = torch.sigmoid(head["cls"].float())
-        scores, class_ids = prob.max(dim=-1)
+        scores, class_ids = torch.sigmoid(head["cls"]).max(dim=-1)
         n, a = scores.shape
         bins = torch.arange(self.reg_max, dtype=torch.float32, device=scores.device)
         dist = (torch.softmax(head["reg"].float().reshape(n, a, 4, self.reg_max), -1) * bins).sum(-1)
@@ -215,7 +216,8 @@ class Reference:
         fr = (boxes_lb - shift) / r
         lim = torch.tensor([w, h, w, h], dtype=torch.float32, device=scores.device)
         boxes = torch.minimum(torch.clamp(fr, min=0.0), lim)
-        return {"scores": scores, "class_ids": class_ids, "boxes_lb": boxes_lb, "boxes": boxes}
+        return {"scores": scores, "class_ids": class_ids, "cls_logits": head["cls"],
+                "boxes_lb": boxes_lb, "boxes": boxes}
 
     @torch.no_grad()
     def classify(self, frames: torch.Tensor, image: torch.Tensor, boxes: torch.Tensor):
@@ -235,6 +237,7 @@ class Reference:
         ``cls_probs``, ``cls_labels``, ``cls_scores``."""
         sv = self.serving
         det = self.detect_all(frames)
+        del det["cls_logits"]
         n = det["scores"].shape[0]
         k = min(sv["max_candidates"], det["scores"].shape[1])
         top_s, idx = stable_topk(det["scores"], k)

@@ -10,8 +10,10 @@ device, mapped per leaf by an affine map:
 * BatchNorm weight U(0.5, 1.5), bias N(0, ``bn_bias_std``^2), running
   mean N(0, 0.1^2), running variance U(0.5, 1.5); ``num_batches_tracked``
   0;
-* the output layers scaled, and the detector's class biases shifted, as
-  the constants below say;
+* LayerNorm weight U(0.5, 1.5), bias N(0, 0.1^2) (a gain drawn as a
+  linear weight of fan-in 1 would be N(0, 1), half of it negative);
+* the output layers scaled, and the detector's class biases centred per
+  class and shifted, as the constants below and :func:`make_states` say;
 
 then each BatchNorm's running statistics are set to those of its input on
 seeded frames (:func:`make_states`), as a trained network's are: with
@@ -21,6 +23,8 @@ detection scores all but tie.
 
 from __future__ import annotations
 
+import math
+import struct
 from typing import Dict
 
 import torch
@@ -53,6 +57,8 @@ POSITIVE_SHARE = 0.01
 CALIBRATION_FRAMES = 4
 CALIBRATION_CROPS = 64
 CALIBRATION_FIRST = 1 << 40  # frame index of the calibration frames, apart from any pool
+TORCH_QUANTILE_MAX = 1 << 24  # torch.quantile refuses more values
+COUNT_CHUNK = 1 << 24  # values compared at once while counting
 
 # (randn scale, rand scale, offset) per kind of leaf
 _MAPS = {
@@ -68,6 +74,8 @@ def _kind(model: nn.Module, key: str):
     mod = model.get_submodule(mod_name)
     if isinstance(mod, nn.BatchNorm2d):
         return {"weight": "bn_weight", "bias": "bn_bias"}.get(leaf, leaf)
+    if isinstance(mod, nn.LayerNorm):
+        return "bn_weight" if leaf == "weight" else "bias"
     return "weight" if leaf == "weight" else "bias"
 
 
@@ -138,6 +146,75 @@ def calibrate_batchnorm(model: nn.Module, state: Dict[str, torch.Tensor], x: tor
     return state, out["y"]
 
 
+def _key(bits: int) -> int:
+    """A float32 bit pattern as an integer that orders as the values do."""
+    return bits ^ 0xFFFFFFFF if bits & 0x80000000 else bits | 0x80000000
+
+
+def _value(key: int) -> float:
+    bits = key & 0x7FFFFFFF if key & 0x80000000 else key ^ 0xFFFFFFFF
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+def _count(values: torch.Tensor, test) -> int:
+    """How many of ``values`` pass ``test``, a chunk at a time (no
+    full-size temporary)."""
+    return int(sum(test(c).sum() for c in values.split(COUNT_CHUNK)))
+
+
+def order_statistic(values: torch.Tensor, k: int) -> float:
+    """The ``k``-th smallest (from 0) of the 1-D float32 ``values``, which
+    hold no NaN: the least float32 ``t`` with more than ``k`` values at or
+    below it, found by bisection over the ordered bit patterns from -inf
+    to +inf (32 counts)."""
+    lo, hi = _key(0xFF800000), _key(0x7F800000)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        t = _value(mid)
+        if _count(values, lambda c: c <= t) > k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return _value(lo)
+
+
+def quantile(values: torch.Tensor, q: float, limit: int = TORCH_QUANTILE_MAX) -> torch.Tensor:
+    """``torch.quantile(values, q)`` (linear interpolation) of float32
+    ``values`` at any size, on their device.
+
+    Up to ``limit`` values it is that call.  Above, the same definition over
+    all the values, no sample: the order statistics at the floor and the
+    ceiling of ``q * (n - 1)`` (:func:`order_statistic`, no copy of
+    ``values``), interpolated by the rank's fraction.  Where torch.quantile
+    would take the input (n <= 2^24) the rank, the weight and the
+    interpolation are its own float32 operations, so a call forced below
+    its limit equals it bit for bit; beyond, they are float64 (float32
+    holds no rank there), the result rounded once to float32.  NaN where
+    any value is NaN, as torch.quantile."""
+    values = values.flatten()
+    n = values.numel()
+    if n <= limit:
+        return torch.quantile(values, q)
+    if values.dtype != torch.float32:
+        raise TypeError(f"quantile takes float32 values, not {values.dtype}")
+    if _count(values, torch.isnan):
+        return torch.tensor(float("nan"), device=values.device)
+    as_torch = n <= TORCH_QUANTILE_MAX
+    rank = torch.tensor(q, dtype=torch.float32) * (n - 1) if as_torch else q * (n - 1)
+    lo, hi = math.floor(rank), math.ceil(rank)
+    below = order_statistic(values, lo)
+    above = below
+    if hi > lo and _count(values, lambda c: c <= below) <= hi:  # the least value above
+        above = min(float(torch.where(c > below, c, math.inf).min())
+                    for c in values.split(COUNT_CHUNK))
+    if as_torch:
+        return torch.lerp(torch.tensor(below, device=values.device),
+                          torch.tensor(above, device=values.device),
+                          (rank - lo).to(values.device))
+    value = below + (rank - lo) * (above - below)
+    return torch.tensor(value, dtype=torch.float32, device=values.device)
+
+
 def head_keys(spec: dict, branch: str):
     """The weight and bias keys of a detector head's ``branch`` ("reg" or
     "cls") output convs, every level."""
@@ -171,9 +248,23 @@ def make_states(config: dict, seed: int, device):
         x = x.flip(1)
     det, head = calibrate_batchnorm(build_model(det_spec), det, x, device)
     _scale(det, head_keys(det_spec, "reg"), REG_LOGIT_STD / float(head["reg"].std()))
-    cls_factor = CLS_LOGIT_STD / float(head["cls"].std())
+    # each level's class logits centred per class over the calibration
+    # anchors (in place): a random head gives every class an offset of its
+    # own (its weights against the features' mean), wider than the logits'
+    # spread across anchors, so that one class would win at every anchor,
+    # where a trained detector's class follows the image.  With one class
+    # the offset is exactly 0.
+    logits = head["cls"].float()
+    levels = logits.split([(s // st) ** 2 for st in det_spec["strides"]], dim=1)
+    biases = [k for k in head_keys(det_spec, "cls") if k.endswith(".bias")]
+    for key, level in zip(biases, levels, strict=True):
+        mean = level.mean(dim=(0, 1))
+        offset = mean - mean.mean()
+        level.sub_(offset)
+        det[key] = det[key] - offset
+    cls_factor = CLS_LOGIT_STD / float(logits.std())
     _scale(det, head_keys(det_spec, "cls"), cls_factor)
-    shift = torch.quantile(head["cls"].float().flatten() * cls_factor, 1.0 - POSITIVE_SHARE)
+    shift = quantile(logits.flatten() * cls_factor, 1.0 - POSITIVE_SHARE)
     for k in head_keys(det_spec, "cls"):
         if k.endswith(".bias"):
             det[k] = det[k] - shift
