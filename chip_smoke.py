@@ -1390,11 +1390,11 @@ def main_path(dev):
         # act kernel's backward mode the training phase's, K1's cluster
         # greedy pass the paths above 960 candidates at a batch of 16 or
         # fewer, area attention YOLO12's, the BatchNorm mode the injected
-        # detectors': serving runs none of the last six; its SiLUs all
-        # carry their conv's bias (the bias mode), so none runs the plain
-        # mode
+        # detectors', the max-sigmoid core YOLO-World's: serving runs none
+        # of the last seven; its SiLUs all carry their conv's bias (the
+        # bias mode), so none runs the plain mode
         if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
-                    "area_attn", "bn_silu_bf16", "bn_bf16"):
+                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":

@@ -20,8 +20,9 @@ card it raises) or on the CPU with ``--device cpu``:
 * no ``--detector`` (or ``random``) — seeded random weights
   (``weights/seeded.py``), with a warning.
 
-``--detector_variant yolo12l`` (YOLO12-L) takes a port checkpoint or
-seeded random weights; no importer reads its artifacts.
+``--detector_variant yolo12l`` (YOLO12-L) and ``yoloworldv2l``
+(YOLO-World-v2-L, its prompts folded into its weights) take a port
+checkpoint or seeded random weights; no importer reads their artifacts.
 
 The classifier loads from a torchvision ``.pth``, an NCNN ``.param`` (+
 sibling ``.bin``), an ONNX export, an OpenVINO ``.xml`` (+ sibling
@@ -83,7 +84,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--detector_variant",
         default=None,  # resolved from --dataset preset when omitted
         choices=["yolo_plus_v2", "yolo_plus_v1", "yolov8n", "yolov11n",
-                 "yolov5n", "yolov5n_legacy", "yolo12l"],
+                 "yolov5n", "yolov5n_legacy", "yolo12l", "yoloworldv2l"],
     )
     # dataset preset: class count, shipped detector, classifier crop stats
     p.add_argument("--dataset", default="tt100k", choices=["tt100k", "vntsr"])
@@ -232,9 +233,10 @@ def _load_detector(args, cfg, probe):
     from litepi_tpu_torch.weights.checkpoint import load_checkpoint
 
     det = args.detector or ""
-    if args.detector_variant == "yolo12l" and (
+    if args.detector_variant in ("yolo12l", "yoloworldv2l") and (
             args.detector_param or det.endswith((".onnx", ".pt", ".pth", ".xml"))):
-        return "--detector_variant yolo12l takes a port checkpoint or random weights"
+        return (f"--detector_variant {args.detector_variant} takes a port checkpoint "
+                "or random weights")
     zoo = args.detector_variant in ("yolov5n", "yolov5n_legacy", "yolov11n")
     if det.endswith((".onnx", ".pt", ".pth")) and zoo:
         return ("direct v5n/v11n artifact loading covers NCNN .param pairs and "

@@ -4,8 +4,9 @@ Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
 went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
 ``kernels/stem.py`` and ``kernels/act.py``; the sources in ``csrc/``.
-``area_attn`` counts the calls of a library kernel's caller instead
-(``models/yolo12.py::area_attention``).
+``area_attn`` and ``maxsig`` count the calls of a model's core instead
+(``models/yolo12.py::area_attention``, ``models/yoloworld.py::
+max_sigmoid_attention``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ LAUNCHES: Dict[str, int] = {
     # YOLO12's area-attention cores (models/yolo12.py): SDPA's flash kernel
     # on the card in bf16, the plain version elsewhere; 16 per YOLO12-L call
     "area_attn": 0,
+    # YOLO-World's max-sigmoid text attention cores (models/yoloworld.py):
+    # chunked products on the card in bf16, the plain version elsewhere;
+    # 4 per YOLO-World-v2-L call
+    "maxsig": 0,
 }
 
 

@@ -7,6 +7,7 @@ from litepi_tpu_torch.models.yolo import YoloLitePi
 from litepi_tpu_torch.models.yolo12 import Yolo12L
 from litepi_tpu_torch.models.yolov5 import V5CandidateDecoder, YoloV5
 from litepi_tpu_torch.models.yolov11 import YoloV11
+from litepi_tpu_torch.models.yoloworld import YoloWorldV2L
 
 __all__ = [
     "EfficientNetB0",
@@ -18,6 +19,7 @@ __all__ = [
     "YoloLitePi",
     "YoloV5",
     "YoloV11",
+    "YoloWorldV2L",
     "build_classifier",
     "detector_kwargs",
 ]
