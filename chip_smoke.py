@@ -44,7 +44,15 @@ source, in parallel), then:
    ACT_CASES and the timed shapes, beside the plain passes and torch's
    one-pass op; its bias mode and its BatchNorm mode (ACT_BN_SHAPES,
    channels last) bit-equal to their plain versions and to the passes
-   they replace, timed beside them;
+   they replace, timed beside them; YOLO-World's class-head GEMM
+   (``csrc/vocab.cu``) against its plain version (cuDNN's class conv,
+   ATen's bias add, the float32 copy) at VOCAB_EDGES and at the
+   YOLO-World cell's three levels, every value within 2 bf16 ulps, the
+   levels timed beside the passes they replace; then the path the GEMM
+   serves, ``run_fused`` of the YOLO-World cell's pipeline (B=32 2048x2048
+   frames at its 1280 input, the harness's seeded states), its launch
+   counts zeroed just before one run and read just after: the GEMM 3 times
+   and the max-sigmoid core 4 times, or the run fails;
 4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
    plain versions run, at 200x300 frames (letterboxed) and at 160x160
@@ -315,6 +323,7 @@ from litepi_tpu_torch.kernels.act import act_bf16_backward_cuda
 from litepi_tpu_torch.kernels.nms import cluster_shape, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
+from litepi_tpu_torch.kernels import vocab as vocab_ops
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
 from litepi_tpu_torch.models.layers import ConvBN, runs_nchw
 from litepi_tpu_torch.ops import act as act_ops
@@ -413,6 +422,16 @@ ACT_BIAS_CONV = (256, 12, 320, 320, 24)
 # checked ACT_BN_CHUNK frames at a time (its float64 steps)
 ACT_BN_SHAPES = ((256, 16, 320, 320), (32, 64, 640, 640))
 ACT_BN_CHUNK = 16
+# YOLO-World-v2-L's class head at the cell's B=32 and 1280 input: each
+# level's BatchNorm output (B, K, H, W) into LVIS's VOCAB_NC classes, timed;
+# and edges (B, K, H, W, nc): one class, part of a column tile, rows that
+# end inside a row tile and cross images, K=64, one row, a column tile
+# and one class more
+VOCAB_LEVELS = ((32, 512, 160, 160), (32, 512, 80, 80), (32, 512, 40, 40))
+VOCAB_NC = 1203
+VOCAB_EDGES = ((1, 512, 8, 8, 1), (1, 512, 8, 8, 80), (3, 512, 7, 9, 80), (2, 64, 40, 40, 1203),
+               (1, 512, 1, 1, 1203), (5, 128, 20, 20, 129))
+BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense, published
 DETECTOR_SILU_CONVS = 56  # the litepi detector's ConvBN calls after its stem
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
@@ -1231,6 +1250,162 @@ def check_act_bn(dev) -> dict:
     return out
 
 
+def vocab_inputs(gen, b: int, k: int, h: int, w: int, nc: int, dev):
+    x = torch.randn((b, k, h, w), generator=gen, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    weight = (torch.randn((nc, k, 1, 1), generator=gen, device=dev) * 3 / k ** 0.5).bfloat16()
+    bias = torch.randn(nc, generator=gen, device=dev).bfloat16()
+    return x, weight, bias
+
+
+def vocab_compare(got, want, x, weight) -> dict:
+    """The kernel's logits ``got`` against the plain version's ``want``
+    ((B, H*W, nc) float32 each, bf16 values), image by image, each error
+    in bf16 ulps of max(|want|, |c|), c the conv's bf16 output before its
+    bias.  The two float32 sums differ only in their order, by far less
+    than a bf16 ulp of the sum, so c's rounding moves by one ulp at most
+    and the bias add's rounding by one more: every value must lie within 2.
+    Returns the values compared, those not bit-equal, the largest error and
+    how many lie more than 1 and more than 2 ulps off."""
+    r = dict(elements=0, differ=0, max_abs_err=0.0, max_ulps=0.0, over_1_ulp=0, over_2_ulps=0)
+    for i in range(x.shape[0]):
+        c = F.conv2d(x[i:i + 1], weight).permute(0, 2, 3, 1).reshape(got.shape[1:]).float()
+        err = (got[i] - want[i]).abs()
+        unit = torch.ldexp(torch.ones_like(c), torch.frexp(
+            torch.maximum(want[i].abs(), c.abs())).exponent - 8)
+        r["elements"] += err.numel()
+        r["differ"] += int((err > 0).sum())
+        r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
+        r["max_ulps"] = max(r["max_ulps"], float((err / unit).max()))
+        r["over_1_ulp"] += int((err > unit).sum())
+        r["over_2_ulps"] += int((err > 2 * unit).sum())
+        del c, err, unit
+    return r
+
+
+def check_vocab(dev) -> dict:
+    """The class-head GEMM (``kernels/vocab.py``) against its plain version
+    (cuDNN's class conv, ATen's bias add, the float32 copy): at
+    VOCAB_EDGES, each into rows 5 .. 5 + H*W - 1 of a NaN-filled (B, H*W +
+    7, nc) tensor whose other rows must stay NaN, and at the cell's three
+    levels (VOCAB_LEVELS, nc = VOCAB_NC) into one (B, A, nc) tensor; every
+    value within :func:`vocab_compare`'s 2 bf16 ulps or the run fails.  The
+    three levels timed together beside the passes they replace
+    (``library_ms``), each level's device time, and the bytes bound: x
+    read once, the float32 logits written once, the weight once."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    with torch.inference_mode():
+        for b, k, h, w, nc in VOCAB_EDGES:
+            x, weight, bias = vocab_inputs(gen, b, k, h, w, nc, dev)
+            outs = [torch.full((b, h * w + 7, nc), float("nan"), device=dev) for _ in range(2)]
+            vocab_ops.vocab_logits_cuda(x, weight, bias, outs[0], 5)
+            vocab_ops.vocab_logits_plain(x, weight, bias, outs[1], 5)
+            torch.cuda.synchronize()
+            what = f"vocab_gemm ({b}, {k}, {h}, {w}) nc={nc}"
+            if not (outs[0][:, :5].isnan().all() and outs[0][:, 5 + h * w:].isnan().all()):
+                fail(f"{what}: wrote outside its rows")
+            r = vocab_compare(outs[0][:, 5:5 + h * w], outs[1][:, 5:5 + h * w], x, weight)
+            if r["over_2_ulps"]:
+                fail(f"{what}: {r}")
+            print(f"{what}: {r}")
+        levels = [vocab_inputs(gen, *shape, VOCAB_NC, dev) for shape in VOCAB_LEVELS]
+        b = VOCAB_LEVELS[0][0]
+        sizes = [h * w for _, _, h, w in VOCAB_LEVELS]
+        a0s = [sum(sizes[:i]) for i in range(len(sizes))]
+        got = torch.empty((b, sum(sizes), VOCAB_NC), device=dev)
+        want = torch.empty_like(got)
+
+        def run(fn, out):
+            for (x, weight, bias), a0 in zip(levels, a0s):
+                fn(x, weight, bias, out, a0)
+
+        reset_launch_counts()
+        run(vocab_ops.vocab_logits_cuda, got)
+        if launch_counts()["vocab_gemm"] != len(levels):
+            fail(f"vocab_gemm: {launch_counts()['vocab_gemm']} launches for {len(levels)} levels")
+        run(vocab_ops.vocab_logits_plain, want)
+        torch.cuda.synchronize()
+        per_level = []
+        total = dict(elements=0, differ=0, max_abs_err=0.0, max_ulps=0.0, over_1_ulp=0,
+                     over_2_ulps=0)
+        for (x, weight, bias), a0, n in zip(levels, a0s, sizes):
+            r = vocab_compare(got[:, a0:a0 + n], want[:, a0:a0 + n], x, weight)
+            for key, v in r.items():
+                total[key] = max(total[key], v) if key.startswith("max") else total[key] + v
+            ms = device_ms(lambda: vocab_ops.vocab_logits_cuda(x, weight, bias, got, a0), 10,
+                           "vocab_gemm_kernel")
+            m = x.numel() // x.shape[1]
+            per_level.append(dict(shape=list(x.shape), device_ms=ms, bound=vocab_bound(
+                m, x.shape[1], VOCAB_NC), errors=r))
+            print(f"vocab_gemm level {tuple(x.shape)}: device {ms:.4f} ms, bound "
+                  f"{per_level[-1]['bound'][0]:.4f} ms; {r}")
+        if total["over_2_ulps"]:
+            fail(f"vocab_gemm at the cell's levels: {total}")
+        fn = lambda: run(vocab_ops.vocab_logits_cuda, got)  # noqa: E731
+        ms, windows = median_ms(fn, 10)
+        m = sum(b * n for n in sizes)
+        # the plain version is the three passes the kernel replaces
+        library_ms = cuda_ms(lambda: run(vocab_ops.vocab_logits_plain, want), 5)
+        r = dict(shape=[list(s) for s in VOCAB_LEVELS], nc=VOCAB_NC, ms=ms, windows=windows,
+                 host_ms=host_ms(fn, 10), device_ms=sum(p["device_ms"] for p in per_level),
+                 levels=per_level, library_ms=library_ms, plain_ms=library_ms,
+                 bound=vocab_bound(m, VOCAB_LEVELS[0][1], VOCAB_NC),
+                 mismatch_share=total["differ"] / total["elements"], **total)
+        print(f"vocab_gemm, the cell's three levels: {ms:.4f} ms (windows {windows}), device "
+              f"{r['device_ms']:.4f} ms, host issue {r['host_ms']:.4f} ms; cuDNN's class conv, "
+              f"ATen's bias add and the float32 copy {r['library_ms']:.4f} ms; bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); {total['differ']} of "
+              f"{total['elements']} values not bit-equal, at most {total['max_ulps']:.3g} bf16 "
+              f"ulps ({total['over_1_ulp']} over 1, {total['over_2_ulps']} over 2)")
+        del got, want, levels
+    return r
+
+
+def vocab_bound(m: int, k: int, nc: int):
+    """(bound ms, by) of the class-head GEMM: x (m, k) bf16 read once, the
+    weight and bias once, the (m, nc) float32 logits written once; 2 m k nc
+    operations on the bf16 tensor cores."""
+    t_bytes = (2 * m * k + 2 * nc * (k + 1) + 4 * m * nc) / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * nc / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+WORLD_CELL = "yoloworldv2l.card-b32-2048"  # the YOLO-World cell of the benchmark
+WORLD_SEED = 24
+
+
+def world_path(dev) -> dict:
+    """``run_fused`` of WORLD_CELL's pipeline as the benchmark builds it
+    (``cardbench.program.build`` on ``cardbench.weights.make_states``),
+    at the cell's batch, input size and frames: one warm-up run, then the
+    launch counts zeroed just before one run and read just after.  Fails
+    unless the class head ran as its 3 GEMMs and the core 4 times."""
+    from cardbench import program, spec, traffic
+    from cardbench.weights import make_states
+
+    cell = spec.resolve(WORLD_CELL)
+    cfg, b = cell.config, cell.traffic["batch"]
+    h, w = cell.traffic["height"], cell.traffic["width"]
+    det, cls = make_states(cfg, WORLD_SEED, dev)
+    run_fused = program.build(cfg, det, cls, b, dev)
+    frames = traffic.make_frames(WORLD_SEED, 0, b, h, w, dev)
+    run_fused(frames)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = run_fused(frames)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    valid = int(out["valid"].sum())
+    print(f"{WORLD_CELL} run_fused, B={b} {h}x{w} at {cfg['detector']['input_size']}: "
+          f"{valid} valid detections; launches {counts}")
+    if counts["vocab_gemm"] != 3 or counts["maxsig"] != 4:
+        fail(f"{WORLD_CELL} run_fused: vocab_gemm {counts['vocab_gemm']} (want 3), maxsig "
+             f"{counts['maxsig']} (want 4)")
+    del run_fused, det, cls, frames, out
+    torch.cuda.empty_cache()
+    return dict(batch=b, frame=[h, w], valid=valid, launches=counts)
+
+
 # --------------------------------------------------------------------- #
 # small pipeline: card vs CPU                                           #
 # --------------------------------------------------------------------- #
@@ -1390,11 +1565,11 @@ def main_path(dev):
         # act kernel's backward mode the training phase's, K1's cluster
         # greedy pass the paths above 960 candidates at a batch of 16 or
         # fewer, area attention YOLO12's, the BatchNorm mode the injected
-        # detectors', the max-sigmoid core YOLO-World's: serving runs none
-        # of the last seven; its SiLUs all carry their conv's bias (the
-        # bias mode), so none runs the plain mode
+        # detectors', the max-sigmoid core and the class-head GEMM
+        # YOLO-World's: serving runs none of the last eight; its SiLUs all
+        # carry their conv's bias (the bias mode), so none runs the plain mode
         if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
-                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig"):
+                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig", "vocab_gemm"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
@@ -3821,6 +3996,8 @@ def run(dev) -> None:
     roi = check_roi(dev)
     stem = check_stem(dev)
     acts = check_act(dev)
+    vocab = check_vocab(dev)
+    world = world_path(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
     tf32 = check_tf32_scope(dev)
@@ -4076,6 +4253,17 @@ def run(dev) -> None:
         b, k = key.split("x")
         kernels.append(entry(name, "nms.cu", nms_at, launches, r, 0, f"B={b} K={k}, 1 class",
                              device_ms_by_kernel=r["device_ms_by_kernel"], **extra))
+    # port-only: YOLO-World's class head, no JAX counterpart; launches are
+    # those of one run_fused of the YOLO-World cell's pipeline (world_path;
+    # serving runs none)
+    kernels.append(entry(
+        "vocab_gemm", "vocab.cu", "none: port-only (YOLO-World's contrastive class head, which "
+        "the JAX package does not have)", world["launches"]["vocab_gemm"], vocab,
+        vocab["max_abs_err"],
+        "B=32 K=512 at 160x160, 80x80 and 40x40, nc=1203 (the YOLO-World cell's levels)",
+        library="cuDNN's class conv + ATen's bias add + the float32 copy",
+        mismatch_share=vocab["mismatch_share"], max_ulps=vocab["max_ulps"],
+        levels=vocab["levels"]))
     kernels[2]["synthetic_8x1024"] = {k: nms_large["8x1024"][k] for k in (  # the RPN row
         "ms", "device_ms", "host_ms", "plain_ms", "device_ms_by_kernel")}
     # the new paths' launches (each zeroed before its runs and summed): the

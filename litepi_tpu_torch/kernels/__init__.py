@@ -3,7 +3,8 @@
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
 went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
-``kernels/stem.py`` and ``kernels/act.py``; the sources in ``csrc/``.
+``kernels/stem.py``, ``kernels/act.py`` and ``kernels/vocab.py``; the
+sources in ``csrc/``.
 ``area_attn`` and ``maxsig`` count the calls of a model's core instead
 (``models/yolo12.py::area_attention``, ``models/yoloworld.py::
 max_sigmoid_attention``).
@@ -35,6 +36,9 @@ LAUNCHES: Dict[str, int] = {
     # chunked products on the card in bf16, the plain version elsewhere;
     # 4 per YOLO-World-v2-L call
     "maxsig": 0,
+    # YOLO-World's class head (models/yoloworld.py::world_head): one GEMM per
+    # level in bf16 on the card; 3 per YOLO-World-v2-L call there
+    "vocab_gemm": 0,
 }
 
 

@@ -13,7 +13,8 @@ sigmoid of the best score gates that head's channels of a 3x3 projection.
 The head is ``WorldDetect(nc, 512, with_bn=True)``: v8's DFL box branch,
 and a class branch of two 3x3 convs and a 1x1 embedding conv to 512, then
 ``BNContrastiveHead``: BatchNorm, then the dot with each class's text
-embedding, scaled and biased.
+embedding, scaled and biased (on the card in bf16, one hand-written GEMM
+per level, ``csrc/vocab.cu``, that writes the float32 logits itself).
 
 The vocabulary is folded in as YOLO-World deploys a fixed ("offline")
 vocabulary: each block's text guides are one bias-free grouped 1x1 conv
@@ -41,6 +42,11 @@ from torch import nn
 
 from litepi_tpu_torch.core.metrics import span
 from litepi_tpu_torch.kernels import LAUNCHES
+from litepi_tpu_torch.kernels.vocab import (
+    takes_vocab_kernel,
+    vocab_logits_cuda,
+    vocab_logits_plain,
+)
 from litepi_tpu_torch.models.layers import (
     C2f,
     SPPF,
@@ -194,23 +200,27 @@ def world_head(model: nn.Module, feats: Sequence[torch.Tensor]) -> Dict[str, tor
     """The head :func:`add_world_head` put on ``model``, on its P3..P5
     features: ``reg`` (B, A, 4*reg_max) and ``cls`` (B, A, nc) in float32,
     as ``yolov11.py::detect_head`` gives them.  The vocabulary-wide part,
-    each level's BatchNorm and class conv and the class logits' flatten
-    and float32 copy into one (B, A, nc) tensor, runs under the
-    ``litepi.vocab`` span."""
-    reg_out, cls_out = [], []
+    each level's BatchNorm and class logits written into one (B, A, nc)
+    tensor, runs under the ``litepi.vocab`` span.  A level's logits are one
+    launch of the class-head GEMM (``kernels/vocab.py``) where its BatchNorm
+    output is a bf16 CUDA tensor with no gradient to record (one the kernel
+    cannot take, such as an NCHW one, raises); elsewhere
+    :func:`vocab_logits_plain`, the class conv, then the flatten and float32
+    copy into ``cls``."""
+    sizes = [f.shape[2] * f.shape[3] for f in feats]
+    cls = feats[0].new_empty((feats[0].shape[0], sum(sizes), model.cls0_out.out_channels),
+                             dtype=torch.float32)
+    reg_out = []
     for i, f in enumerate(feats):
         r = getattr(model, f"reg{i}_cv2")(getattr(model, f"reg{i}_cv1")(f))
         reg_out.append(flatten_anchors(getattr(model, f"reg{i}_out")(r)))
         k = getattr(model, f"cls{i}_embed")(getattr(model, f"cls{i}_cv2")(
             getattr(model, f"cls{i}_cv1")(f)))
         with span("vocab"):
-            cls_out.append(flatten_anchors(getattr(model, f"cls{i}_out")(
-                getattr(model, f"cls{i}_norm")(k))))
-    with span("vocab"):
-        b, nc = cls_out[0].shape[0], cls_out[0].shape[2]
-        cls = cls_out[0].new_empty((b, sum(c.shape[1] for c in cls_out), nc), dtype=torch.float32)
-        for part, c in zip(cls.split([c.shape[1] for c in cls_out], dim=1), cls_out):
-            part.copy_(c)
+            e = getattr(model, f"cls{i}_norm")(k)
+            conv = getattr(model, f"cls{i}_out")
+            logits = vocab_logits_cuda if takes_vocab_kernel(e, conv) else vocab_logits_plain
+            logits(e, conv.weight, conv.bias, cls, sum(sizes[:i]))
     return {"reg": torch.cat(reg_out, dim=1).float(), "cls": cls}
 
 

@@ -12,8 +12,9 @@ against Ultralytics' einsum written out here; a head's gating; the chunk
 sizes at the cell's shapes; ``run_fused`` with the ``yoloworldv2l``
 variant on letterboxed frames against the reference pipeline; the e2e CLI
 with ``--detector_variant yoloworldv2l``; the new cell's files, its three
-readers and its core counts.  The bf16 core on the card:
-``tests/test_torch_yoloworld_cuda.py``.
+readers and its core counts; the class head's plain path off the card
+(``kernels/vocab.py``).  The bf16 core and the class-head GEMM on the
+card: ``tests/test_torch_yoloworld_cuda.py``.
 """
 
 import json
@@ -31,7 +32,12 @@ from cardbench.reference.two_stage import Reference, build_model
 from cardbench.weights import make_states
 from litepi_tpu_torch.kernels import LAUNCHES, reset_launch_counts
 from litepi_tpu_torch.models import YoloWorldV2L
-from litepi_tpu_torch.models.layers import runs_nchw, to_channels_last
+from litepi_tpu_torch.kernels.vocab import (
+    takes_vocab_kernel,
+    vocab_logits_cuda,
+    vocab_logits_plain,
+)
+from litepi_tpu_torch.models.layers import flatten_anchors, runs_nchw, to_channels_last
 from litepi_tpu_torch.models.yoloworld import (
     MAXSIG_TEMP_BYTES,
     MaxSigmoidAttn,
@@ -39,6 +45,7 @@ from litepi_tpu_torch.models.yoloworld import (
     max_sigmoid_chunked,
     max_sigmoid_plain,
     maxsig_chunk,
+    world_head,
 )
 from tests.test_torch_cardbench_spans import _lost_operation, make_run
 from tests.torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture, used by pytestmark)
@@ -162,6 +169,45 @@ def test_the_core_runs_plain_off_the_card():
     assert torch.equal(max_sigmoid_attention(x, guide, bias, 2),
                        max_sigmoid_plain(x, guide, bias, 2))
     assert LAUNCHES["maxsig"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_world_head_keeps_the_plain_class_path_off_the_card(states, dtype):
+    det, _ = states
+    model = YoloWorldV2L(num_classes=NC).eval()
+    model.load_state_dict(det)
+    model.to(dtype=dtype, memory_format=torch.channels_last)
+    gen = torch.Generator().manual_seed(5)
+    feats = [torch.randn((2, c, s, s), generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last) for c, s in ((256, 4), (512, 2), (512, 1))]
+    reset_launch_counts()
+    with torch.no_grad():
+        e = model.cls0_norm(model.cls0_embed(model.cls0_cv2(model.cls0_cv1(feats[0]))))
+        assert not takes_vocab_kernel(e, model.cls0_out)
+        got = world_head(model, feats)["cls"]
+        # each level's biased class conv, flattened, copied into one float32 tensor
+        want = torch.cat([flatten_anchors(getattr(model, f"cls{i}_out")(getattr(
+            model, f"cls{i}_norm")(getattr(model, f"cls{i}_embed")(getattr(
+                model, f"cls{i}_cv2")(getattr(model, f"cls{i}_cv1")(f))))))
+            for i, f in enumerate(feats)], dim=1).float()
+    assert LAUNCHES["vocab_gemm"] == 0
+    assert got.dtype == torch.float32 and got.shape == (2, 16 + 4 + 1, NC)
+    assert torch.equal(got, want)
+
+
+def test_the_plain_class_logits_write_their_rows_only_and_the_kernel_wants_the_card():
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 64, 3, 5), generator=gen).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.randn((7, 64, 1, 1), generator=gen).bfloat16()
+    bias = torch.randn(7, generator=gen).bfloat16()
+    out = torch.full((2, 15 + 6, 7), float("nan"))
+    vocab_logits_plain(x, weight, bias, out, 4)
+    want = torch.nn.functional.conv2d(x, weight, bias).float().permute(0, 2, 3, 1).reshape(2, 15, 7)
+    assert torch.equal(out[:, 4:19], want)
+    assert out[:, :4].isnan().all() and out[:, 19:].isnan().all()
+    with pytest.raises(ValueError, match="CUDA"):
+        vocab_logits_cuda(x, weight, bias, out, 4)
 
 
 def test_state_dict_is_the_references_and_channels_last_needs_no_special_case():
