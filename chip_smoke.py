@@ -1566,10 +1566,11 @@ def main_path(dev):
         # greedy pass the paths above 960 candidates at a batch of 16 or
         # fewer, area attention YOLO12's, the BatchNorm mode the injected
         # detectors', the max-sigmoid core and the class-head GEMM
-        # YOLO-World's: serving runs none of the last eight; its SiLUs all
-        # carry their conv's bias (the bias mode), so none runs the plain mode
+        # YOLO-World's, the CBFuse fan-in YOLOv9-E's: serving runs none of
+        # the last nine; its SiLUs all carry their conv's bias (the bias
+        # mode), so none runs the plain mode
         if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
-                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig", "vocab_gemm"):
+                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig", "vocab_gemm", "cbfuse"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":

@@ -7,7 +7,8 @@ went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
 sources in ``csrc/``.
 ``area_attn`` and ``maxsig`` count the calls of a model's core instead
 (``models/yolo12.py::area_attention``, ``models/yoloworld.py::
-max_sigmoid_attention``).
+max_sigmoid_attention``), and ``cbfuse`` the calls of YOLOv9-E's fan-in
+(``models/yolov9.py::cbfuse``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ LAUNCHES: Dict[str, int] = {
     # YOLO-World's class head (models/yoloworld.py::world_head): one GEMM per
     # level in bf16 on the card; 3 per YOLO-World-v2-L call there
     "vocab_gemm": 0,
+    # YOLOv9-E's CBFuse fan-ins (models/yolov9.py::cbfuse): broadcast adds
+    # into one output map, in any dtype; 5 per YOLOv9-E call
+    "cbfuse": 0,
 }
 
 

@@ -6,6 +6,7 @@ from litepi_tpu_torch.models.shufflenetv2 import ShuffleNetV2
 from litepi_tpu_torch.models.yolo import YoloLitePi
 from litepi_tpu_torch.models.yolo12 import Yolo12L
 from litepi_tpu_torch.models.yolov5 import V5CandidateDecoder, YoloV5
+from litepi_tpu_torch.models.yolov9 import YoloV9E
 from litepi_tpu_torch.models.yolov11 import YoloV11
 from litepi_tpu_torch.models.yoloworld import YoloWorldV2L
 
@@ -18,6 +19,7 @@ __all__ = [
     "Yolo12L",
     "YoloLitePi",
     "YoloV5",
+    "YoloV9E",
     "YoloV11",
     "YoloWorldV2L",
     "build_classifier",

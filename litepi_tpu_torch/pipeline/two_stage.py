@@ -10,10 +10,12 @@ emits ``max_detections`` padded slots and ``valid`` masks the real ones.
 On device-resident frames it never synchronises the host with the card.
 
 The default detector is YoloLitePi.  Any other detector module plugs in as
-``det_model`` (YoloV11, YoloV5 with either head); it then runs as the JAX
-package runs an injected detector: letterbox, x 1/255, BGR -> RGB, the
+``det_model`` (YoloV11, YoloV5 with either head, ...); it then runs as the
+JAX package runs an injected detector: letterbox, x 1/255, BGR -> RGB, the
 whole model with its BatchNorm, and ``candidate_decoder`` in place of the
-DFL decode where its head needs one.  The classifier is any of
+DFL decode where its head needs one.  A detector that defines
+``deploy_form(state)`` runs in the deployed form that method returns
+(YoloV9E: its RepConvs folded).  The classifier is any of
 ``models/registry.py``'s four.
 
 The staged programs (:meth:`~TwoStagePipeline.detect`,
@@ -130,10 +132,18 @@ class TwoStagePipeline:
         self._candidate_decoder = candidate_decoder
         self._injected = det_model is not None
         if self._injected:
-            # an injected detector runs as given, BatchNorm included, on
-            # [0, 1] RGB canvases: no BN fold, no stem-input fold, no stem
-            # kernel
-            self.det_model = self._place(copy.deepcopy(det_model), det_state)
+            # an injected detector runs with its BatchNorm, on [0, 1] RGB
+            # canvases: no BN fold, no stem-input fold, no stem kernel.  It
+            # runs as given, or in the form its own ``deploy_form(state) ->
+            # (model, state)`` returns where it defines one (YOLOv9-E folds
+            # its RepConvs there, from the float32 state, before _place
+            # rounds it)
+            deploy_form = getattr(det_model, "deploy_form", None)
+            if deploy_form is None:
+                det_model = copy.deepcopy(det_model)
+            else:
+                det_model, det_state = deploy_form(det_state)
+            self.det_model = self._place(det_model, det_state)
         else:
             self._init_default_detector(det_state)
         # cuDNN's bf16 convs on the card are NHWC: it transposes NCHW

@@ -71,6 +71,36 @@ def fold_batchnorm(state: StateDict, eps: float = BN_EPS) -> StateDict:
     return out
 
 
+def _fold_branch(state: StateDict, prefix: str, eps: float):
+    """(W * s, beta - mean * s) of the bias-free ConvBN ``prefix``, float32
+    numpy."""
+    gamma, beta, mean, var, w = (
+        _np(state[f"{prefix}.{k}"])
+        for k in ("bn.weight", "bn.bias", "bn.running_mean", "bn.running_var", "conv.weight"))
+    s = gamma / np.sqrt(var + np.float32(eps))
+    return w * s.reshape(-1, 1, 1, 1), beta - mean * s
+
+
+def fold_repconvs(state: StateDict, prefixes, eps: float = BN_EPS) -> StateDict:
+    """Re-parameterised state: each RepConv ``<p>`` of ``prefixes`` (a 3x3
+    ConvBN ``<p>.conv1`` and a 1x1 ConvBN ``<p>.conv2``, both bias-free and
+    summed) becomes one biased 3x3 conv ``<p>.conv``: each branch folded as
+    :func:`fold_batchnorm` folds, the 1x1 kernel zero-padded to the centre of
+    a 3x3 one, kernels and biases summed, in float32 numpy (Ultralytics'
+    ``RepConv.fuse_convs``).  Every other entry passes through unchanged."""
+    out = dict(state)
+    for p in prefixes:
+        w3, b3 = _fold_branch(state, f"{p}.conv1", eps)
+        w1, b1 = _fold_branch(state, f"{p}.conv2", eps)
+        w = w3.copy()
+        w[:, :, 1:2, 1:2] += w1
+        out[f"{p}.conv.weight"] = torch.from_numpy(w)
+        out[f"{p}.conv.bias"] = torch.from_numpy(b3 + b1)
+        for k in [k for k in out if k.startswith((f"{p}.conv1.", f"{p}.conv2."))]:
+            del out[k]
+    return out
+
+
 def fold_pipeline_state(state: StateDict, eps: float = BN_EPS) -> StateDict:
     """Pipeline helper: the deploy-form state.  A state without BN
     statistics must already be deploy-form."""

@@ -503,7 +503,7 @@ def test_pipeline_on_the_card_launches_both_kernels(cuda):
                       "roi_crop_pyramid": 1, "roi_crop_pyramid_bf16": 0, "stem": 0,
                       "silu_bf16": 0, "silu_bias_bf16": 0, "bn_silu_bf16": 0, "bn_bf16": 0,
                       "sigmoid_bf16": 0, "silu_bf16_bwd": 0, "sigmoid_bf16_bwd": 0,
-                      "area_attn": 0, "maxsig": 0, "vocab_gemm": 0}
+                      "area_attn": 0, "maxsig": 0, "vocab_gemm": 0, "cbfuse": 0}
 
 
 def _small_cfg(**kw):
@@ -541,7 +541,8 @@ def test_pipeline_on_canvas_sized_frames_launches_all_three_kernels(cuda):
     assert counts == {"nms_suppress": 1, "nms_greedy_cluster": 0, "roi_crop_dense": 1,
                       "roi_crop_pyramid": 0, "roi_crop_pyramid_bf16": 0, "stem": 1,
                       "bn_silu_bf16": 0, "bn_bf16": 0, "sigmoid_bf16": 0, "silu_bf16_bwd": 0,
-                      "sigmoid_bf16_bwd": 0, "area_attn": 0, "maxsig": 0, "vocab_gemm": 0}
+                      "sigmoid_bf16_bwd": 0, "area_attn": 0, "maxsig": 0, "vocab_gemm": 0,
+                      "cbfuse": 0}
 
 
 @pytest.mark.gpu
