@@ -52,7 +52,13 @@ source, in parallel), then:
    serves, ``run_fused`` of the YOLO-World cell's pipeline (B=32 2048x2048
    frames at its 1280 input, the harness's seeded states), its launch
    counts zeroed just before one run and read just after: the GEMM 3 times
-   and the max-sigmoid core 4 times, or the run fails;
+   and the max-sigmoid core 4 times, or the run fails; YOLOv9's ADown
+   front-end kernel (``csrc/adown.cu``) bit-equal to ATen's chain (2x2
+   average pool, chunk, 3x3/2 max pool) at ADOWN_EDGES and at the YOLOv9-E
+   cell's ADown inputs, the cell's 8 calls timed beside that chain and
+   beside the parent's path (the chain and the first half's dense copy);
+   then ``run_fused`` of the YOLOv9-E cell's pipeline once: the kernel 8
+   times and the fan-in 5 times, or the run fails;
 4. the small pipeline (narrow detector, 10-class classifier, float32, TF32
    off) on the card vs the same pipeline on the CPU, where the kernels'
    plain versions run, at 200x300 frames (letterboxed) and at 160x160
@@ -324,6 +330,7 @@ from litepi_tpu_torch.kernels.nms import cluster_shape, nms_suppress_cuda
 from litepi_tpu_torch.kernels.roi import roi_crop_cuda
 from litepi_tpu_torch.kernels.stem import pack_stem_params, stem_cuda
 from litepi_tpu_torch.kernels import vocab as vocab_ops
+from litepi_tpu_torch.kernels.adown import adown_front_cuda, adown_front_plain
 from litepi_tpu_torch.models import YoloLitePi, build_classifier, detector_kwargs
 from litepi_tpu_torch.models.layers import ConvBN, runs_nchw
 from litepi_tpu_torch.ops import act as act_ops
@@ -432,6 +439,12 @@ VOCAB_NC = 1203
 VOCAB_EDGES = ((1, 512, 8, 8, 1), (1, 512, 8, 8, 80), (3, 512, 7, 9, 80), (2, 64, 40, 40, 1203),
                (1, 512, 1, 1, 1203), (5, 128, 20, 20, 129))
 BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense, published
+# YOLOv9-E's 8 ADown inputs at the cell's B=32 and 1280 input, in call order
+# (down4, 6, 8; down20, 23, 26; down36, 39), timed together; and edges:
+# odd sizes, the least map, one row of pooled output, C=16
+ADOWN_CALLS = ((32, 256, 320, 320), (32, 512, 160, 160), (32, 1024, 80, 80)) * 2 + (
+    (32, 256, 160, 160), (32, 512, 80, 80))
+ADOWN_EDGES = ((2, 64, 33, 35), (3, 16, 2, 2), (1, 32, 5, 2), (2, 48, 4, 9), (1, 16, 2, 7))
 DETECTOR_SILU_CONVS = 56  # the litepi detector's ConvBN calls after its stem
 # small pipeline scenes (seed, H, W): letterboxed, and canvas-sized for SMALL
 # (the stem kernel's branch); each seed's frames have top candidate scores
@@ -1375,20 +1388,124 @@ WORLD_SEED = 24
 
 
 def world_path(dev) -> dict:
-    """``run_fused`` of WORLD_CELL's pipeline as the benchmark builds it
-    (``cardbench.program.build`` on ``cardbench.weights.make_states``),
-    at the cell's batch, input size and frames: one warm-up run, then the
-    launch counts zeroed just before one run and read just after.  Fails
-    unless the class head ran as its 3 GEMMs and the core 4 times."""
+    """:func:`cell_path` of WORLD_CELL; fails unless the class head ran as
+    its 3 GEMMs and the core 4 times."""
+    r = cell_path(dev, WORLD_CELL, WORLD_SEED)
+    counts = r["launches"]
+    if counts["vocab_gemm"] != 3 or counts["maxsig"] != 4:
+        fail(f"{WORLD_CELL} run_fused: vocab_gemm {counts['vocab_gemm']} (want 3), maxsig "
+             f"{counts['maxsig']} (want 4)")
+    return r
+
+
+def adown_bound(shapes):
+    """(bound ms, by) of ADown front ends on inputs of ``shapes``: the
+    benchmark's count (``cardbench/adown_counts.py``: each input read once,
+    both halves' outputs written once, in bf16)."""
+    from cardbench import adown_counts
+
+    return bound(sum(adown_counts.bytes_of(s) for s in shapes), 0)
+
+
+def adown_equal(x, what: str) -> None:
+    """The kernel's two outputs against the plain chain's on ``x``, bit for
+    bit (NaNs too), each dense channels last; fails otherwise."""
+    got, want = adown_front_cuda(x), adown_front_plain(x)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("x1", "x2p"), got, want):
+        if g.shape != w.shape or not g.is_contiguous(memory_format=torch.channels_last):
+            fail(f"adown {what}: {name} {tuple(g.shape)} strides {g.stride()}, want "
+                 f"{tuple(w.shape)} dense channels last")
+        differ = int((g.contiguous().view(torch.int16) != w.contiguous().view(torch.int16)).sum())
+        if differ:
+            fail(f"adown {what}: {name} differs from ATen's chain in {differ} values")
+
+
+def check_adown(dev) -> dict:
+    """YOLOv9's ADown front end (``kernels/adown.py``) against ATen's chain
+    on the card, bit for bit: at ADOWN_EDGES with NaN and both infinities
+    planted, and at each distinct input of ADOWN_CALLS.  Then the cell's 8
+    calls timed together (CUDA events; each shape's kernel time from the
+    profiler) beside the plain chain (``plain_ms``) and beside what the
+    parent's path ran (``library_ms``: ATen's average pool, its first half
+    made dense as cuDNN made it for ``cv1``, the max pool with its copy of
+    the second half and its indices), and the bytes bound."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf")], device=dev)
+    with torch.inference_mode():
+        for shape in ADOWN_EDGES:
+            x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+            flat = x.view(-1)
+            idx = torch.randint(0, flat.numel(), (max(3, flat.numel() // 50),), generator=gen,
+                                device=dev)
+            flat[idx] = specials.repeat(idx.numel() // 3 + 1)[:idx.numel()].bfloat16()
+            adown_equal(x.contiguous(memory_format=torch.channels_last), f"edge {shape}")
+        inputs = {}
+        for shape in ADOWN_CALLS:
+            if shape not in inputs:
+                inputs[shape] = (torch.randn(shape, generator=gen, device=dev) * 4).bfloat16(
+                ).contiguous(memory_format=torch.channels_last)
+                adown_equal(inputs[shape], f"at {shape}")
+        print(f"adown: bit-equal to ATen's chain at {len(ADOWN_EDGES)} edges (NaN, inf planted) "
+              f"and the cell's {len(inputs)} input shapes")
+        xs = [inputs[shape] for shape in ADOWN_CALLS]
+        per_shape = []
+        for shape, x in inputs.items():
+            ms = device_ms(lambda: adown_front_cuda(x), 10, "adown_front_kernel")
+            b = adown_bound([shape])
+            per_shape.append(dict(shape=list(shape), device_ms=ms, bound_ms=b[0],
+                                  roofline=100 * b[0] / ms))
+            print(f"adown {shape}: device {ms:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({100 * b[0] / ms:.1f}%)")
+        reset_launch_counts()
+        fn = lambda: [adown_front_cuda(x) for x in xs]  # noqa: E731
+        fn()
+        if launch_counts()["adown"] != len(xs):
+            fail(f"adown: {launch_counts()['adown']} launches for {len(xs)} calls")
+        ms, windows = median_ms(fn, 10)
+
+        def parent_path():
+            for x in xs:
+                x1, x2 = F.avg_pool2d(x, 2, 1, 0, False, True).chunk(2, dim=1)
+                x1.contiguous(memory_format=torch.channels_last)
+                F.max_pool2d_with_indices(x2, 3, 2, 1)
+
+        plain_ms = cuda_ms(lambda: [adown_front_plain(x) for x in xs], 5)
+        library_ms = cuda_ms(parent_path, 5)
+        counts = {shape: ADOWN_CALLS.count(shape) for shape in inputs}
+        device = sum(p["device_ms"] * counts[tuple(p["shape"])] for p in per_shape)
+        r = dict(shape=[list(s) for s in ADOWN_CALLS], ms=ms, windows=windows,
+                 host_ms=host_ms(fn, 10), device_ms=device, shapes=per_shape,
+                 plain_ms=plain_ms, library_ms=library_ms, bound=adown_bound(ADOWN_CALLS))
+        print(f"adown, the cell's 8 calls: {ms:.4f} ms (windows {windows}), device "
+              f"{device:.4f} ms ({100 * r['bound'][0] / device:.1f}% of the bound), host issue "
+              f"{r['host_ms']:.4f} ms; the plain chain {plain_ms:.4f} ms, the parent's path (the "
+              f"chain, x1 made dense, the max pool's indices) {library_ms:.4f} ms; bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        del inputs, xs
+    torch.cuda.empty_cache()
+    return r
+
+
+V9_CELL = "yolov9e.card-b32-2048"  # the YOLOv9-E cell of the benchmark
+V9_SEED = 26
+
+
+def cell_path(dev, cell_name: str, seed: int) -> dict:
+    """``run_fused`` of the benchmark cell ``cell_name``'s pipeline as the
+    benchmark builds it (``cardbench.program.build`` on
+    ``cardbench.weights.make_states``), at the cell's batch, input size and
+    frames: one warm-up run, then the launch counts zeroed just before one
+    run and read just after."""
     from cardbench import program, spec, traffic
     from cardbench.weights import make_states
 
-    cell = spec.resolve(WORLD_CELL)
+    cell = spec.resolve(cell_name)
     cfg, b = cell.config, cell.traffic["batch"]
     h, w = cell.traffic["height"], cell.traffic["width"]
-    det, cls = make_states(cfg, WORLD_SEED, dev)
+    det, cls = make_states(cfg, seed, dev)
     run_fused = program.build(cfg, det, cls, b, dev)
-    frames = traffic.make_frames(WORLD_SEED, 0, b, h, w, dev)
+    frames = traffic.make_frames(seed, 0, b, h, w, dev)
     run_fused(frames)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1396,14 +1513,22 @@ def world_path(dev) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     valid = int(out["valid"].sum())
-    print(f"{WORLD_CELL} run_fused, B={b} {h}x{w} at {cfg['detector']['input_size']}: "
+    print(f"{cell_name} run_fused, B={b} {h}x{w} at {cfg['detector']['input_size']}: "
           f"{valid} valid detections; launches {counts}")
-    if counts["vocab_gemm"] != 3 or counts["maxsig"] != 4:
-        fail(f"{WORLD_CELL} run_fused: vocab_gemm {counts['vocab_gemm']} (want 3), maxsig "
-             f"{counts['maxsig']} (want 4)")
     del run_fused, det, cls, frames, out
     torch.cuda.empty_cache()
     return dict(batch=b, frame=[h, w], valid=valid, launches=counts)
+
+
+def v9_path(dev) -> dict:
+    """:func:`cell_path` of V9_CELL; fails unless the ADown front end ran as
+    its kernel 8 times and the fan-in 5 times."""
+    r = cell_path(dev, V9_CELL, V9_SEED)
+    counts = r["launches"]
+    if counts["adown"] != 8 or counts["cbfuse"] != 5:
+        fail(f"{V9_CELL} run_fused: adown {counts['adown']} (want 8), cbfuse "
+             f"{counts['cbfuse']} (want 5)")
+    return r
 
 
 # --------------------------------------------------------------------- #
@@ -1566,11 +1691,12 @@ def main_path(dev):
         # greedy pass the paths above 960 candidates at a batch of 16 or
         # fewer, area attention YOLO12's, the BatchNorm mode the injected
         # detectors', the max-sigmoid core and the class-head GEMM
-        # YOLO-World's, the CBFuse fan-in YOLOv9-E's: serving runs none of
-        # the last nine; its SiLUs all carry their conv's bias (the bias
-        # mode), so none runs the plain mode
+        # YOLO-World's, the CBFuse fan-in and the ADown front end YOLOv9-E's:
+        # serving runs none of the last ten; its SiLUs all carry their conv's
+        # bias (the bias mode), so none runs the plain mode
         if name in ("silu_bf16", "silu_bf16_bwd", "sigmoid_bf16_bwd", "nms_greedy_cluster",
-                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig", "vocab_gemm", "cbfuse"):
+                    "area_attn", "bn_silu_bf16", "bn_bf16", "maxsig", "vocab_gemm", "cbfuse",
+                    "adown"):
             if n:
                 fail(f"serving launched {name} {n} times")
         elif n < 1 and name != "sigmoid_bf16":
@@ -3999,6 +4125,8 @@ def run(dev) -> None:
     acts = check_act(dev)
     vocab = check_vocab(dev)
     world = world_path(dev)
+    adown = check_adown(dev)
+    v9 = v9_path(dev)
     for seed, h, w in SMALL_SCENES:
         check_small_pipeline(dev, seed, h, w)
     tf32 = check_tf32_scope(dev)
@@ -4265,6 +4393,16 @@ def run(dev) -> None:
         library="cuDNN's class conv + ATen's bias add + the float32 copy",
         mismatch_share=vocab["mismatch_share"], max_ulps=vocab["max_ulps"],
         levels=vocab["levels"]))
+    # port-only: YOLOv9's ADown front end, no JAX counterpart; launches are
+    # those of one run_fused of the YOLOv9-E cell's pipeline (v9_path;
+    # serving runs none)
+    kernels.append(entry(
+        "adown", "adown.cu", "none: port-only (YOLOv9's ADown, which the JAX package does not "
+        "have)", v9["launches"]["adown"], adown, 0.0,
+        "the YOLOv9-E cell's 8 ADown inputs: B=32 C=256 320x320, 512 160x160, 1024 80x80 "
+        "(twice each), 256 160x160, 512 80x80",
+        library="ATen's avg_pool2d, x1 made dense, max_pool2d with indices (the parent's path)",
+        shapes=adown["shapes"]))
     kernels[2]["synthetic_8x1024"] = {k: nms_large["8x1024"][k] for k in (  # the RPN row
         "ms", "device_ms", "host_ms", "plain_ms", "device_ms_by_kernel")}
     # the new paths' launches (each zeroed before its runs and summed): the

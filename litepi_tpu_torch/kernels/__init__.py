@@ -3,8 +3,8 @@
 Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show which kernels its path
 went through.  The wrappers live in ``kernels/nms.py``, ``kernels/roi.py``,
-``kernels/stem.py``, ``kernels/act.py`` and ``kernels/vocab.py``; the
-sources in ``csrc/``.
+``kernels/stem.py``, ``kernels/act.py``, ``kernels/vocab.py`` and
+``kernels/adown.py``; the sources in ``csrc/``.
 ``area_attn`` and ``maxsig`` count the calls of a model's core instead
 (``models/yolo12.py::area_attention``, ``models/yoloworld.py::
 max_sigmoid_attention``), and ``cbfuse`` the calls of YOLOv9-E's fan-in
@@ -43,6 +43,9 @@ LAUNCHES: Dict[str, int] = {
     # YOLOv9-E's CBFuse fan-ins (models/yolov9.py::cbfuse): broadcast adds
     # into one output map, in any dtype; 5 per YOLOv9-E call
     "cbfuse": 0,
+    # YOLOv9's ADown front end (models/yolov9.py::ADown): one pass of
+    # csrc/adown.cu in bf16 on the card; 8 per YOLOv9-E call there
+    "adown": 0,
 }
 
 

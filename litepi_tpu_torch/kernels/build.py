@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "litepi_tpu_torch"
-SOURCES = ("nms", "roi", "stem", "act", "vocab")
+SOURCES = ("nms", "roi", "stem", "act", "vocab", "adown")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

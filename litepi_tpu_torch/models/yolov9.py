@@ -23,7 +23,8 @@ model and its state, every RepConv folded in float32
 detector in the form it returns: the folded convs then take the act
 kernel's bias mode (``ConvBN.folds_bias``), every other BatchNorm stays
 unfolded in its BatchNorm mode.  The twelve GELAN blocks run under the
-``litepi.elan`` span and the five fuses under ``litepi.cbfuse``.  Every
+``litepi.elan`` span, the five fuses under ``litepi.cbfuse`` and the eight
+ADowns' pools under ``litepi.adown``.  Every
 width is a multiple of 8, so the model runs channels last whole.
 """
 
@@ -38,6 +39,11 @@ from torch import nn
 from litepi_tpu_torch.core.metrics import span
 from litepi_tpu_torch.core.types import DetectorConfig
 from litepi_tpu_torch.kernels import LAUNCHES
+from litepi_tpu_torch.kernels.adown import (
+    adown_front_cuda,
+    adown_front_plain,
+    takes_adown_kernel,
+)
 from litepi_tpu_torch.models.layers import ConvBN, upsample2x_nearest
 from litepi_tpu_torch.models.yolo import DetectHead
 from litepi_tpu_torch.ops.act import silu
@@ -110,7 +116,10 @@ class RepNCSPELAN4(nn.Module):
 
 class ADown(nn.Module):
     """A 2x2 stride-1 average pool, then one half through a 3x3/2 ConvBN and
-    the other through a 3x3/2 max pool and a 1x1 ConvBN, concatenated."""
+    the other through a 3x3/2 max pool and a 1x1 ConvBN, concatenated.  The
+    pools (the front end, under the ``litepi.adown`` span) are one pass of
+    ``csrc/adown.cu`` on a bf16 card input with no gradient to record, and
+    ATen's chain elsewhere (``kernels/adown.py``)."""
 
     def __init__(self, c_in: int, c_out: int) -> None:
         super().__init__()
@@ -118,8 +127,10 @@ class ADown(nn.Module):
         self.cv2 = ConvBN(c_in // 2, c_out // 2, 1, 1, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = F.avg_pool2d(x, 2, 1, 0, False, True).chunk(2, dim=1)
-        return torch.cat((self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))), dim=1)
+        with span("adown"):
+            front = adown_front_cuda if takes_adown_kernel(x) else adown_front_plain
+            x1, x2 = front(x)
+        return torch.cat((self.cv1(x1), self.cv2(x2)), dim=1)
 
 
 class SPPELAN(nn.Module):

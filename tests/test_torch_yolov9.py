@@ -8,7 +8,8 @@ apart, output layers scaled) for the ``yolov9e-shufflenetv2``
 configuration at a 64x64 input: every width and depth as published, P1
 32x32 down to P5 2x2.  Also: the RepConv fold against the two branches, the
 stack-free CBFuse against Ultralytics' stack-then-sum, ADown on odd and
-even sizes, the published parameter and FLOP counts, the pipeline's
+even sizes, its front end's plain chain against the arithmetic its card
+kernel states, the published parameter and FLOP counts, the pipeline's
 deploy-form seam, and ``run_fused`` with the ``yolov9e`` variant on
 letterboxed frames against the reference pipeline.  On the card:
 ``tests/test_torch_yolov9_cuda.py``; the cell's readers and counts:
@@ -25,6 +26,7 @@ from cardbench.reference import yolov9 as ref_v9
 from cardbench.reference.two_stage import Reference, build_model
 from cardbench.weights import make_states
 from litepi_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+from litepi_tpu_torch.kernels.adown import adown_front_plain, takes_adown_kernel
 from litepi_tpu_torch.models import YoloV9E, detector_kwargs
 from litepi_tpu_torch.models.layers import ConvBN
 from litepi_tpu_torch.models.registry import DETECTOR_VARIANTS
@@ -191,6 +193,76 @@ def test_adown_on_odd_and_even_sizes(size):
     assert torch.equal(got, want)
 
 
+def _front_by_hand(x):
+    """(x1, x2p) by the arithmetic ``csrc/adown.cu`` states: per channel a
+    float32 sum from 0 over the 2x2 window (rows outer), times 0.25, one
+    rounding to x's dtype; the first half of those; and over the second
+    half ATen's max-pool fold (start at -inf, take a value that is greater
+    or NaN) over each 3x3/2 window clipped to the averaged map, row by
+    row."""
+    b, c, h, w = x.shape
+    xf = x.float()
+    s = torch.zeros((b, c, h - 1, w - 1))
+    for di, dj in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        s = s + xf[:, :, di:di + h - 1, dj:dj + w - 1]
+    avg = (s * 0.25).to(x.dtype)
+    half = avg[:, c // 2:].float()
+    ho, wo = (h - 2) // 2 + 1, (w - 2) // 2 + 1
+    m = torch.full((b, c // 2, ho, wo), float("-inf"))
+    for p in range(ho):
+        for q in range(wo):
+            for r in range(max(2 * p - 1, 0), min(2 * p + 2, h - 1)):
+                for t in range(max(2 * q - 1, 0), min(2 * q + 2, w - 1)):
+                    v, cur = half[:, :, r, t], m[:, :, p, q]
+                    m[:, :, p, q] = torch.where((v > cur) | v.isnan(), v, cur)
+    return avg[:, :c // 2], m.to(x.dtype)
+
+
+def _same(got, want):
+    """Equal bit for bit, but that a NaN may be any NaN (the CPU's
+    conversions keep a NaN's sign and payload, the card's make it
+    canonical)."""
+    nan = got.isnan()
+    bits = torch.int16 if got.element_size() == 2 else torch.int32
+    return torch.equal(nan, want.isnan()) and torch.equal(
+        got.masked_fill(nan, 0).contiguous().view(bits),
+        want.masked_fill(nan, 0).contiguous().view(bits))
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", [(2, 2), (7, 7), (8, 8), (33, 35), (12, 5)])
+def test_adown_front_plain_is_the_kernels_arithmetic(size, dtype, layout):
+    gen = torch.Generator().manual_seed(26)
+    x = (torch.randn((2, 32, *size), generator=gen) * 3).to(dtype)
+    flat = x.view(-1)
+    # NaN and both infinities planted, one each in either half, and a
+    # window of zeros of both signs
+    flat[torch.randint(0, flat.numel(), (12,), generator=gen)] = torch.tensor(
+        [float("nan"), float("inf"), float("-inf")] * 4, dtype=dtype)
+    x[0, :, :2, :2] = torch.tensor([[0.0, -0.0], [-0.0, -0.0]], dtype=dtype)
+    x = x.contiguous(memory_format=layout)
+    x1, x2p = adown_front_plain(x)
+    want1, want2 = _front_by_hand(x)
+    h, w = size
+    assert x1.shape == (2, 16, h - 1, w - 1)
+    assert x2p.shape == (2, 16, (h - 2) // 2 + 1, (w - 2) // 2 + 1)
+    assert bool(x1.isnan().any()) and bool(x2p.isnan().any() or x2p.isinf().any())
+    assert _same(x1, want1) and _same(x2p, want2)
+    # the old chain inside ADown: the pool, its halves, the max pool
+    pooled = F.avg_pool2d(x, 2, 1, 0, False, True)
+    assert _same(x1, pooled[:, :16]) and _same(x2p, F.max_pool2d(pooled[:, 16:], 3, 2, 1))
+
+
+def test_the_adown_kernel_is_not_taken_off_the_card():
+    x = torch.randn((1, 32, 8, 8))
+    reset_launch_counts()
+    for t in (x.bfloat16(), x, x.bfloat16().requires_grad_()):
+        assert not takes_adown_kernel(t)
+        ADown(32, 32).to(t.dtype)(t)
+    assert LAUNCHES["adown"] == 0
+
+
 def _flops(model, size):
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
@@ -244,7 +316,7 @@ def test_run_fused_with_yolov9e_runs_the_deployed_form_as_the_reference_pipeline
         k.endswith(".running_var") for k in det) - 2 * REPCONVS
     reset_launch_counts()
     got = run_fused(frames)
-    assert LAUNCHES["cbfuse"] == 5 and LAUNCHES["silu_bias_bf16"] == 0
+    assert LAUNCHES["cbfuse"] == 5 and LAUNCHES["silu_bias_bf16"] == 0 and LAUNCHES["adown"] == 0
     ref = Reference(cfg, det, cls, "cpu")
     want = ref.run_pipeline(frames)
     v = want["valid"]
